@@ -1,0 +1,106 @@
+"""Chronological leave-last-2 splits and node index maps, numpy only.
+
+Counterpart of `plotpointe_tpu/data/splits.py` (`build_node_maps`,
+`build_splits`). The interactions may be a pandas DataFrame or a plain dict
+of numpy arrays with `user_id`, `asin`, `ts` and optional `rating` columns;
+nothing here needs pandas.
+
+Split semantics, per user sorted by ts: >=3 interactions -> train=[:-2],
+val=[-2], test=[-1]; ==2 -> train=[:-1], test=[-1]; <2 -> dropped.
+Node maps use first-occurrence order of the ids over the table.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import numpy as np
+
+
+@dataclass
+class Splits:
+    n_users: int
+    n_items: int
+    train_u: np.ndarray  # int32 [T]
+    train_i: np.ndarray  # int32 [T]
+    train_w: np.ndarray  # float32 [T] edge weight (rating-1)/4
+    val_u: np.ndarray  # int32 [Nv]
+    val_i: np.ndarray  # int32 [Nv]
+    test_u: np.ndarray  # int32 [Nt]
+    test_i: np.ndarray  # int32 [Nt]
+
+    @property
+    def n_train(self) -> int:
+        return int(self.train_u.shape[0])
+
+
+def _column(interactions, name: str) -> np.ndarray:
+    return np.asarray(interactions[name])
+
+
+def _has_column(interactions, name: str) -> bool:
+    cols = getattr(interactions, "columns", None)
+    return name in (cols if cols is not None else interactions)
+
+
+def first_occurrence_unique(values: np.ndarray) -> np.ndarray:
+    """Unique values in order of first appearance (what `pd.unique` returns)."""
+    uniq, first = np.unique(values, return_index=True)
+    return uniq[np.argsort(first, kind="stable")]
+
+
+def build_node_maps(interactions) -> Tuple[Dict, Dict]:
+    """First-occurrence-order id maps {id: index} for users and items."""
+    users = first_occurrence_unique(_column(interactions, "user_id")).tolist()
+    items = first_occurrence_unique(_column(interactions, "asin")).tolist()
+    return {u: i for i, u in enumerate(users)}, {a: i for i, a in enumerate(items)}
+
+
+def _map_ids(values: np.ndarray, mapping: Dict) -> np.ndarray:
+    """Vectorised `mapping[v]` for every v; raises KeyError on an unknown id."""
+    keys = np.asarray(list(mapping.keys()))
+    idx = np.asarray(list(mapping.values()), dtype=np.int64)
+    order = np.argsort(keys, kind="stable")
+    keys, idx = keys[order], idx[order]
+    pos = np.clip(np.searchsorted(keys, values), 0, len(keys) - 1)
+    hit = keys[pos] == values
+    if not np.all(hit):
+        raise KeyError(f"id not in node map: {values[~hit][0]!r}")
+    return idx[pos]
+
+
+def build_splits(interactions, user_to_idx: Dict, item_to_idx: Dict) -> Splits:
+    """Vectorised leave-last-2 chronological split in index space."""
+    u = _map_ids(_column(interactions, "user_id"), user_to_idx)
+    i = _map_ids(_column(interactions, "asin"), item_to_idx)
+    ts = _column(interactions, "ts")
+    if _has_column(interactions, "rating"):
+        w = (_column(interactions, "rating").astype(np.float32) - 1.0) / 4.0
+    else:
+        w = np.ones(len(u), dtype=np.float32)
+
+    # stable sort by (user, ts): ties keep input order
+    order = np.lexsort((ts, u))
+    u, i, w = u[order], i[order], w[order]
+
+    boundary = np.flatnonzero(np.r_[True, u[1:] != u[:-1]])
+    counts = np.diff(np.r_[boundary, len(u)])
+    pos = np.arange(len(u)) - np.repeat(boundary, counts)
+    cnt = np.repeat(counts, counts)
+
+    keep = cnt >= 2
+    is_test = keep & (pos == cnt - 1)
+    is_val = (cnt >= 3) & (pos == cnt - 2)
+    is_train = keep & ~is_test & ~is_val
+
+    return Splits(
+        n_users=len(user_to_idx),
+        n_items=len(item_to_idx),
+        train_u=u[is_train].astype(np.int32),
+        train_i=i[is_train].astype(np.int32),
+        train_w=w[is_train].astype(np.float32),
+        val_u=u[is_val].astype(np.int32),
+        val_i=i[is_val].astype(np.int32),
+        test_u=u[is_test].astype(np.int32),
+        test_i=i[is_test].astype(np.int32),
+    )

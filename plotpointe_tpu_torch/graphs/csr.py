@@ -1,0 +1,78 @@
+"""Graph layout: destination-sorted edge arrays plus a CSR `row_ptr`.
+
+Counterpart of `plotpointe_tpu/graphs/csr.py` (`Graph`, `build_graph`,
+`build_bipartite_graph`, `degrees`). Edges are sorted by (dst, src), so an
+edge's id is its position in that order (the canonical id the hash dropout
+mask keys on) and each destination's in-edges are one contiguous CSR row.
+
+The TPU layout pieces are not carried over: no sentinel padding edges, no
+chunk tiling. The attention kernel walks plain CSR rows, one warp per
+destination, so it needs neither.
+
+Node id convention: users occupy [0, n_users), items [n_users, n_users + n_items).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class Graph:
+    """Directed graph over `n_nodes` nodes; tensors live on one device."""
+
+    src: torch.Tensor  # int32 [E], (dst, src)-sorted
+    dst: torch.Tensor  # int32 [E]
+    weight: torch.Tensor  # float32 [E]
+    row_ptr: torch.Tensor  # int32 [n_nodes + 1], CSR over dst
+    n_nodes: int
+
+    @property
+    def n_edges(self) -> int:
+        return int(self.src.shape[0])
+
+    def to(self, device) -> "Graph":
+        return dataclasses.replace(
+            self,
+            src=self.src.to(device),
+            dst=self.dst.to(device),
+            weight=self.weight.to(device),
+            row_ptr=self.row_ptr.to(device),
+        )
+
+
+def build_graph(src: np.ndarray, dst: np.ndarray, n_nodes: int,
+                weight: np.ndarray | None = None) -> Graph:
+    """Sort edges by (dst, src) and build the CSR row_ptr, on the host."""
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    w = np.ones(len(src), np.float32) if weight is None else np.asarray(weight, np.float32)
+    order = np.lexsort((src, dst))
+    row_ptr = np.zeros(n_nodes + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=n_nodes)[:n_nodes], out=row_ptr[1:])
+    return Graph(
+        src=torch.from_numpy(src[order].astype(np.int32)),
+        dst=torch.from_numpy(dst[order].astype(np.int32)),
+        weight=torch.from_numpy(w[order]),
+        row_ptr=torch.from_numpy(row_ptr.astype(np.int32)),
+        n_nodes=int(n_nodes),
+    )
+
+
+def build_bipartite_graph(train_u: np.ndarray, train_i: np.ndarray, n_users: int,
+                          n_items: int, weight: np.ndarray | None = None) -> Graph:
+    """Symmetric user<->item graph in the unified node space (u -> n_users+i and back)."""
+    ui_src = np.asarray(train_u, dtype=np.int64)
+    ui_dst = np.asarray(train_i, dtype=np.int64) + n_users
+    w = None if weight is None else np.concatenate([weight, weight]).astype(np.float32)
+    return build_graph(np.concatenate([ui_src, ui_dst]), np.concatenate([ui_dst, ui_src]),
+                       n_users + n_items, weight=w)
+
+
+def degrees(graph: Graph) -> np.ndarray:
+    """In-degree per node."""
+    rp = graph.row_ptr.cpu().numpy().astype(np.int64)
+    return rp[1:] - rp[:-1]

@@ -1,0 +1,103 @@
+"""GAT recommender tower: a learned user table plus an item feature
+projection into one node space, then L stacked segment-softmax attention
+layers.
+
+Counterpart of `plotpointe_tpu/models/gat.py::GATModel`. Parameters keep the
+JAX layouts and names, so `state_dict()` keys are the JAX checkpoint's
+key-paths with dots (`['layers'][0]['a_src']` <-> `layers.0.a_src`):
+`user_emb [U, H]`, `item_proj.w [F, H]`, `item_proj.b [H]`,
+`layers.l.w [H, heads, D]`, `layers.l.a_src / a_dst [heads, D]`, and
+`layers.l.b [D]` with `use_bias`. This slice is the inference forward
+(export and serving); training is a later slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from plotpointe_tpu_torch.graphs.csr import Graph
+from plotpointe_tpu_torch.ops.gat_kernel import segment_softmax_attention_kernel
+
+
+class ItemProjection(nn.Module):
+    def __init__(self, feat_dim: int, hidden: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(feat_dim, hidden))
+        self.b = nn.Parameter(torch.zeros(hidden))
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        return feats @ self.w + self.b
+
+
+class GATLayer(nn.Module):
+    def __init__(self, hidden: int, heads: int, use_bias: bool):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(hidden, heads, hidden))
+        self.a_src = nn.Parameter(torch.zeros(heads, hidden))
+        self.a_dst = nn.Parameter(torch.zeros(heads, hidden))
+        self.b = nn.Parameter(torch.zeros(hidden)) if use_bias else None
+
+
+class GATModel(nn.Module):
+    """Full-graph GAT forward -> node embeddings [n_nodes, hidden].
+
+    Attention reads f32 source rows: the exact function the JAX export
+    computes with its XLA golden."""
+
+    def __init__(self, n_users: int, n_items: int, feat_dim: int, hidden_dim: int = 128,
+                 n_layers: int = 2, heads: int = 1, attn_dropout: float = 0.1,
+                 use_bias: bool = False):
+        super().__init__()
+        self.n_users, self.n_items, self.feat_dim = n_users, n_items, feat_dim
+        self.hidden_dim, self.n_layers, self.heads = hidden_dim, n_layers, heads
+        self.attn_dropout, self.use_bias = attn_dropout, use_bias
+        self.user_emb = nn.Parameter(torch.zeros(n_users, hidden_dim))
+        self.item_proj = ItemProjection(feat_dim, hidden_dim)
+        self.layers = nn.ModuleList(GATLayer(hidden_dim, heads, use_bias) for _ in range(n_layers))
+
+    @property
+    def n_nodes(self) -> int:
+        return self.n_users + self.n_items
+
+    def node_features(self, item_feats: torch.Tensor) -> torch.Tensor:
+        """concat([user_emb, item_proj(item_feats)]) -> [n_nodes, hidden]."""
+        return torch.cat([self.user_emb, self.item_proj(item_feats)], dim=0)
+
+    def forward(self, item_feats: torch.Tensor, graph: Graph) -> torch.Tensor:
+        x = self.node_features(item_feats)
+        for layer in self.layers:
+            h = torch.einsum("nf,fhd->nhd", x, layer.w)  # [N, heads, D]
+            out = segment_softmax_attention_kernel(h, layer.a_src, layer.a_dst, graph,
+                                                   hs_dtype=torch.float32)
+            x = out.mean(dim=1)  # head-mean; identity for heads == 1
+            if layer.b is not None:
+                x = x + layer.b
+        return x
+
+    def config_dict(self) -> Dict[str, Any]:
+        return {
+            "model_family": "gat",
+            "n_users": self.n_users,
+            "n_items": self.n_items,
+            "feat_dim": self.feat_dim,
+            "hidden_dim": self.hidden_dim,
+            "n_layers": self.n_layers,
+            "heads": self.heads,
+            "attn_dropout": self.attn_dropout,
+            "use_bias": self.use_bias,
+        }
+
+    @staticmethod
+    def from_config(d: Dict[str, Any]) -> "GATModel":
+        return GATModel(
+            n_users=int(d["n_users"]),
+            n_items=int(d["n_items"]),
+            feat_dim=int(d["feat_dim"]),
+            hidden_dim=int(d.get("hidden_dim", 128)),
+            n_layers=int(d.get("n_layers", 2)),
+            heads=int(d.get("heads", 1)),
+            attn_dropout=float(d.get("attn_dropout", 0.1)),
+            use_bias=bool(d.get("use_bias", False)),
+        )

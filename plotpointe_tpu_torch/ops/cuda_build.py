@@ -1,0 +1,165 @@
+"""Build, load and count the hand-written CUDA kernels under `csrc/`.
+
+Each `csrc/<name>.cu` is compiled on its own by nvcc for sm_90a into a shared
+library with a plain C interface and loaded with ctypes (no PyTorch headers,
+so a build takes seconds). Libraries go to `build/plotpointe_tpu_torch/` at
+the repository root, named by a hash of the sources and flags, so an edited
+source is rebuilt and an unchanged one is reused. `build_all` starts one nvcc
+per source at once and waits for all of them.
+
+Every C entry point launches on the stream it is given and returns
+`cudaGetLastError()`; `check` raises on a non-zero code. Every wrapper counts
+its launches on a `LaunchCounter`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "plotpointe_tpu_torch"
+KERNELS = ("gat_fwd", "topk_chunkmax", "topk_rescore")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+P = ctypes.c_void_p
+I = ctypes.c_int
+# C entry point and argument types of each library
+SIGNATURES = {
+    "gat_fwd": ("ppt_gat_fwd", [P] * 11 + [I, I, P]),
+    "topk_chunkmax": ("ppt_topk_chunkmax", [P, P, P, I, I, I, I, P]),
+    "topk_rescore": ("ppt_topk_rescore", [P, P, P, P, I, I, I, I, I, P]),
+}
+MAX_SMEM = 232_448 - 1024  # a block's shared memory on sm_90, less static use
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+class LaunchCounter:
+    """Number of kernel launches a wrapper made; thread-safe."""
+
+    def __init__(self):
+        self.count = 0
+        self._lock = threading.Lock()
+
+    def bump(self) -> None:
+        with self._lock:
+            self.count += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.count = 0
+
+
+COUNTERS = {name: LaunchCounter() for name in KERNELS}
+
+
+def reset_counters() -> None:
+    for c in COUNTERS.values():
+        c.reset()
+
+
+def _nvcc() -> str:
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(names: Iterable[str] = KERNELS) -> Dict[str, float]:
+    """Compile every missing library, one nvcc process per source, all at
+    once. Returns {name: seconds} for what was built (0.0 if it was there);
+    ptxas' register/shared-memory report goes to `<lib>.log`."""
+    with _lock:
+        return _build_locked(list(names))
+
+
+def _build_locked(names) -> Dict[str, float]:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, out)
+    took = {name: 0.0 for name in names}
+    errors = []
+    for name, (p, tmp, out) in procs.items():
+        log, _ = p.communicate()
+        took[name] = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(log)
+        if p.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return took
+
+
+def _load(name: str) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            _build_locked([name])
+            lib = ctypes.CDLL(str(lib_path(name)))
+            lib.ppt_error_string.argtypes = [I]
+            lib.ppt_error_string.restype = ctypes.c_char_p
+            symbol, argtypes = SIGNATURES[name]
+            fn = getattr(lib, symbol)
+            fn.argtypes, fn.restype = argtypes, I
+            if hasattr(lib, symbol + "_smem"):
+                sm = getattr(lib, symbol + "_smem")
+                sm.argtypes, sm.restype = [I], ctypes.c_size_t
+            _libs[name] = lib
+        return lib
+
+
+def entry(name: str):
+    """The C entry point of `csrc/<name>.cu`, building the library if missing."""
+    return getattr(_load(name), SIGNATURES[name][0])
+
+
+def require_smem(name: str, d: int) -> None:
+    """Raise ValueError if the kernel's shared memory for width d exceeds a block's."""
+    need = getattr(_load(name), SIGNATURES[name][0] + "_smem")(d)
+    if need > MAX_SMEM:
+        raise ValueError(f"{name}: D={d} needs {need} bytes of shared memory; "
+                         f"a block has {MAX_SMEM}")
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if rc != 0:
+        msg = _load(name).ppt_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} (cuda error {rc})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+

@@ -1,0 +1,156 @@
+"""Exact two-level top-K inner-product search over an item catalog.
+
+Counterpart of `plotpointe_tpu/ops/topk_kernel.py::topk_mips_pallas`:
+
+  phase 1 (`chunk_max`, kernel `csrc/topk_chunkmax.cu`): stream the catalog
+      once and keep only the max score of each 128-item chunk per query;
+  selection: exact `torch.topk` over the chunk maxima, r = min(k + 8,
+      n_chunks) chunks ("exact") or k + 2 ("fast");
+  phase 2 (`rescore`, kernel `csrc/topk_rescore.cu`): exact f32 scores of
+      the selected chunks' items;
+  a final `torch.topk` orders the survivors. Slots with no real candidate
+      get index -1 and score -1e30.
+
+Exactness: every chunk holding a true top-k item has a max >= the k-th
+score, and at most k chunks can rank above it, so the top-(k + margin)
+chunks contain the true top-k. Both kernels sum each dot product in the same
+order, so a chunk's max is exactly the score its item gets in phase 2. The
+selection uses exact f32 maxima (the JAX package's truncated packed keys are
+a TPU device); ties at the k-th score may resolve to either index.
+
+Each kernel wrapper runs its plain version for CPU tensors.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from plotpointe_tpu_torch.ops import cuda_build as cb
+
+CHUNK = 128
+CHUNK_MARGIN = 8
+FAST_MARGIN = 2
+NEG_INF = -1e30
+
+CHUNKMAX_LAUNCHES = cb.COUNTERS["topk_chunkmax"]
+RESCORE_LAUNCHES = cb.COUNTERS["topk_rescore"]
+
+
+def n_chunks_of(n: int) -> int:
+    return (n + CHUNK - 1) // CHUNK
+
+
+def chunk_max_plain(item_vecs: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """[B, n_chunks] f32: max of Q[b] . X[i] over each 128-item chunk."""
+    n = item_vecs.shape[0]
+    scores = queries.float() @ item_vecs.float().T  # [B, N]
+    pad = n_chunks_of(n) * CHUNK - n
+    scores = torch.nn.functional.pad(scores, (0, pad), value=NEG_INF)
+    return scores.view(scores.shape[0], -1, CHUNK).amax(dim=2)
+
+
+def rescore_plain(item_vecs: torch.Tensor, queries: torch.Tensor,
+                  chunk_id: torch.Tensor) -> torch.Tensor:
+    """[B, R, 128] f32 scores of the items of chunks chunk_id [B, R]; NEG_INF past N."""
+    n = item_vecs.shape[0]
+    item = chunk_id.long()[:, :, None] * CHUNK + torch.arange(CHUNK, device=chunk_id.device)
+    rows = item_vecs[item.clamp(max=n - 1)].float()  # [B, R, 128, D]
+    s = torch.einsum("brcd,bd->brc", rows, queries.float())
+    return torch.where(item < n, s, torch.full_like(s, NEG_INF))
+
+
+def _check_table(item_vecs: torch.Tensor, queries: torch.Tensor) -> None:
+    if item_vecs.dim() != 2 or queries.dim() != 2 or item_vecs.shape[1] != queries.shape[1]:
+        raise ValueError(f"need item_vecs [N, D] and queries [B, D]; got "
+                         f"{tuple(item_vecs.shape)} and {tuple(queries.shape)}")
+    if item_vecs.shape[0] == 0 or queries.shape[0] == 0:
+        raise ValueError("empty catalog or query batch")
+    if item_vecs.dtype not in (torch.float32, torch.bfloat16) or queries.dtype != item_vecs.dtype:
+        raise ValueError(f"item_vecs and queries must share float32 or bfloat16; got "
+                         f"{item_vecs.dtype} and {queries.dtype}")
+    if queries.device != item_vecs.device:
+        raise ValueError("item_vecs and queries must be on one device")
+    vec = 16 // item_vecs.element_size()  # the kernels read rows in 16-byte loads
+    if item_vecs.shape[1] % vec:
+        raise ValueError(f"D must be a multiple of {vec} for {item_vecs.dtype}; got {item_vecs.shape[1]}")
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous with a 16-byte aligned start (a fresh copy if it is not)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def chunk_max(item_vecs: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """Phase 1. item_vecs [N, D], queries [B, D], both float32 or both
+    bfloat16 -> [B, ceil(N / 128)] f32 chunk maxima."""
+    _check_table(item_vecs, queries)
+    if item_vecs.device.type == "cpu":
+        return chunk_max_plain(item_vecs, queries)
+    (n, d), b = item_vecs.shape, queries.shape[0]
+    x, q = _aligned(item_vecs), queries.contiguous()
+    cb.require_smem("topk_chunkmax", d)
+    out = torch.empty((b, n_chunks_of(n)), dtype=torch.float32, device=x.device)
+    fn = cb.entry("topk_chunkmax")
+    with torch.cuda.device(x.device):
+        rc = fn(cb.ptr(x), cb.ptr(q), cb.ptr(out), n, b, d, int(x.dtype == torch.bfloat16),
+                cb.stream_of(x))
+    cb.check(rc, "topk_chunkmax")
+    CHUNKMAX_LAUNCHES.bump()
+    return out
+
+
+def rescore(item_vecs: torch.Tensor, queries: torch.Tensor, chunk_id: torch.Tensor) -> torch.Tensor:
+    """Phase 2. chunk_id [B, R] int32 in [0, ceil(N / 128)) -> [B, R, 128]
+    exact f32 scores, NEG_INF for items past N."""
+    _check_table(item_vecs, queries)
+    (n, d), b = item_vecs.shape, queries.shape[0]
+    if chunk_id.dim() != 2 or chunk_id.shape[0] != b or chunk_id.dtype != torch.int32 \
+            or chunk_id.device != item_vecs.device:
+        raise ValueError(f"chunk_id must be int32 [{b}, R] on {item_vecs.device}")
+    if item_vecs.device.type == "cpu":
+        return rescore_plain(item_vecs, queries, chunk_id)
+    r = chunk_id.shape[1]
+    x, q, cid = _aligned(item_vecs), queries.contiguous(), chunk_id.contiguous()
+    cb.require_smem("topk_rescore", d)
+    out = torch.empty((b, r, CHUNK), dtype=torch.float32, device=x.device)
+    fn = cb.entry("topk_rescore")
+    with torch.cuda.device(x.device):
+        rc = fn(cb.ptr(x), cb.ptr(q), cb.ptr(cid), cb.ptr(out), n, b, r, d,
+                int(x.dtype == torch.bfloat16), cb.stream_of(x))
+    cb.check(rc, "topk_rescore")
+    RESCORE_LAUNCHES.bump()
+    return out
+
+
+def topk_mips(item_vecs: torch.Tensor, queries: torch.Tensor, k: int,
+              mode: str = "exact") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k inner-product search. item_vecs [N, D] and queries [B, D] in one
+    dtype (float32, or bfloat16 for half the catalog stream). Returns
+    (indices [B, k] int32, scores [B, k] f32), scores descending and exact
+    f32 re-scores of the selected items."""
+    if mode not in ("exact", "fast"):
+        raise ValueError(f"mode must be 'exact' or 'fast'; got {mode!r}")
+    n = item_vecs.shape[0]
+    if not 0 < k <= n:
+        raise ValueError(f"k must be in [1, {n}]; got {k}")
+    cm = chunk_max(item_vecs, queries)
+    margin = CHUNK_MARGIN if mode == "exact" else FAST_MARGIN
+    r = min(k + margin, cm.shape[1])
+    _, sel = torch.topk(cm, r, dim=1)
+    chunk_id = torch.clamp(sel, max=(n - 1) // CHUNK).to(torch.int32)
+    scores = rescore(item_vecs, queries, chunk_id).flatten(1)  # [B, R * 128], NEG_INF past N
+    v, pos = torch.topk(scores, k, dim=1)
+    item = chunk_id.long()[:, :, None] * CHUNK + torch.arange(CHUNK, device=cm.device)
+    i = torch.gather(item.flatten(1), 1, pos)
+    i = torch.where(v > NEG_INF / 2, i, torch.full_like(i, -1))
+    return i.to(torch.int32), v
+
+
+def topk_mips_ref(item_vecs: torch.Tensor, queries: torch.Tensor,
+                  k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain reference: the full f32 score matrix and one `torch.topk`."""
+    scores = queries.float() @ item_vecs.float().T
+    v, i = torch.topk(scores, k, dim=1)
+    return i.to(torch.int32), v

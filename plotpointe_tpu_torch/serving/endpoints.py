@@ -1,0 +1,100 @@
+"""Transport-agnostic serving endpoints.
+
+Counterpart of `plotpointe_tpu/serving/endpoints.py::ServingState`:
+GET /healthz, POST /startup, POST /recommend {item_ids, k} -> {indices,
+scores}. Every endpoint is a function from a parsed payload to an
+(http_status, body) pair; the stdlib HTTP transport (httpd.py) delegates
+here. Telemetry and /feedback are not ported yet (see ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+from plotpointe_tpu_torch.serving.batching import MicroBatcher
+from plotpointe_tpu_torch.serving.runtime import RecommenderRuntime, ServingConfig
+
+Reply = Tuple[int, Dict[str, Any]]
+
+MSG_NOT_LOADED = "runtime unavailable: load embeddings via POST /startup"
+MSG_NO_ITEMS = "item_ids required"
+
+
+class ServingState:
+    """The live runtime and optional micro-batcher of one server.
+
+    micro_batch=True coalesces concurrent /recommend calls into one batched
+    scoring call (serving/batching.py)."""
+
+    def __init__(self, runtime: Optional[RecommenderRuntime] = None, micro_batch: bool = False,
+                 micro_batch_max: int = 64, micro_batch_wait_ms: float = 3.0,
+                 micro_batch_in_flight: int = 4):
+        self.runtime = runtime
+        self.micro_batch = micro_batch
+        self.micro_batch_max = micro_batch_max
+        self.micro_batch_wait_ms = micro_batch_wait_ms
+        self.micro_batch_in_flight = micro_batch_in_flight
+        self.batcher: Optional[MicroBatcher] = None
+        if runtime is not None:
+            self._refresh_batcher()
+
+    def _refresh_batcher(self) -> None:
+        if self.batcher is not None:
+            self.batcher.close()
+            self.batcher = None
+        if self.micro_batch and self.runtime is not None:
+            self.batcher = MicroBatcher(self.runtime, max_batch=self.micro_batch_max,
+                                        max_wait_ms=self.micro_batch_wait_ms,
+                                        max_in_flight=self.micro_batch_in_flight)
+
+    def close(self) -> None:
+        if self.batcher is not None:
+            self.batcher.close()
+            self.batcher = None
+
+    def healthz(self) -> Reply:
+        return 200, {"status": "ok"}
+
+    def startup(self, payload: Dict[str, Any]) -> Reply:
+        uri = payload.get("item_embeddings_uri")
+        if not uri:
+            return 400, {"detail": "missing field: 'item_embeddings_uri'"}
+        cfg = ServingConfig(
+            item_embeddings_uri=uri,
+            item_index_map_uri=payload.get("item_index_map_uri"),
+            topk=int(payload.get("topk", 20)),
+            use_device=bool(payload.get("use_device", True)),
+        )
+        rt = RecommenderRuntime(cfg)
+        try:
+            rt.startup()
+        except FileNotFoundError as e:
+            return 400, {"detail": str(e)}
+        self.runtime = rt
+        self._refresh_batcher()
+        return 200, {"status": "ok"}
+
+    def recommend(self, payload: Dict[str, Any]) -> Reply:
+        if self.runtime is None:
+            return 503, {"detail": MSG_NOT_LOADED}
+        raw_ids = payload.get("item_ids")
+        if not raw_ids:
+            return 400, {"detail": MSG_NO_ITEMS}
+        try:
+            ids = [int(x) for x in raw_ids]
+            if self.batcher is not None:
+                # validate per request BEFORE coalescing so one bad request
+                # can't fail a whole batch
+                self.runtime.validate_history(ids)
+                k = int(payload.get("k") or self.runtime.cfg.topk)
+                idx, scores = self.batcher.submit(ids, k)
+            else:
+                idx, scores = self.runtime.top_k_for_user_items(ids, k=payload.get("k"))
+        except (IndexError, ValueError) as e:
+            return 400, {"detail": f"bad item_ids: {e}"}
+        except TimeoutError as e:
+            # batcher dispatch timed out (device wedged or overloaded): the
+            # client should retry, and the handler must answer JSON, not die
+            return 503, {"detail": f"scoring timed out: {e}"}
+        except Exception as e:  # noqa: BLE001 - JSON 500 beats a dead socket
+            return 500, {"detail": f"internal error: {type(e).__name__}: {e}"}
+        return 200, {"indices": idx.tolist(), "scores": [float(x) for x in scores.tolist()]}

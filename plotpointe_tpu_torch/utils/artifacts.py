@@ -1,0 +1,67 @@
+"""Artifact store: the file contracts between pipeline stages, local paths only.
+
+Counterpart of `plotpointe_tpu/utils/artifacts.py` (its local-path half):
+npy, json, npz and parquet files addressed by plain paths or `file://` URIs.
+The gs:// half is not ported yet (see ROADMAP.md).
+"""
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Any, Dict
+
+import numpy as np
+
+
+def _local(uri: str) -> Path:
+    uri = str(uri)
+    if uri.startswith("gs://"):
+        raise NotImplementedError("gs:// artifacts are not ported yet; use a local path")
+    return Path(uri.removeprefix("file://"))
+
+
+class ArtifactStore:
+    """Resolve artifact URIs to local paths and read/write the contract formats."""
+
+    def fetch(self, uri: str) -> Path:
+        p = _local(uri)
+        if not p.exists():
+            raise FileNotFoundError(f"artifact not found: {uri}")
+        return p
+
+    def exists(self, uri: str) -> bool:
+        return _local(uri).exists()
+
+    def _target(self, uri: str) -> Path:
+        p = _local(uri)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        return p
+
+    def load_npy(self, uri: str) -> np.ndarray:
+        return np.load(self.fetch(uri))
+
+    def save_npy(self, arr: np.ndarray, uri: str) -> str:
+        np.save(self._target(uri), arr)
+        return uri
+
+    def load_json(self, uri: str) -> Any:
+        with open(self.fetch(uri)) as f:
+            return json.load(f)
+
+    def save_json(self, obj: Any, uri: str) -> str:
+        with open(self._target(uri), "w") as f:
+            json.dump(obj, f, indent=2, sort_keys=False)
+        return uri
+
+    def load_npz(self, uri: str) -> Dict[str, np.ndarray]:
+        with np.load(self.fetch(uri), allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}
+
+    def save_npz(self, arrays: Dict[str, np.ndarray], uri: str) -> str:
+        np.savez_compressed(self._target(uri), **arrays)
+        return uri
+
+    def load_parquet(self, uri: str):
+        import pandas as pd
+
+        return pd.read_parquet(self.fetch(uri))
