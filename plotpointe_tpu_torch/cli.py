@@ -1,9 +1,11 @@
 """CLI — `python -m plotpointe_tpu_torch <command>`.
 
 Counterpart of `plotpointe_tpu/cli.py` for the ported commands:
+  train   interactions + item features -> best checkpoint + metrics JSON
+          (the GAT path; LightGCN and --mesh are later slices)
   export  checkpoint + interactions + item features -> item_embeddings.npy
   serve   stdlib HTTP top-K server (--stdlib; the FastAPI app is not ported)
-Both run on the GPU unless given `--device cpu`.
+All run on the GPU unless given `--device cpu`.
 """
 from __future__ import annotations
 
@@ -14,13 +16,35 @@ import sys
 import numpy as np
 
 
-def load_interactions(store, prefix: str):
-    """`{prefix}/interactions.npz` (a dict of column arrays, no pandas needed)
-    when it exists, else `{prefix}/interactions.parquet` (needs pandas)."""
-    npz = f"{prefix}/interactions.npz"
-    if store.exists(npz):
-        return store.load_npz(npz)
-    return store.load_parquet(f"{prefix}/interactions.parquet")
+def _cmd_train(args):
+    from plotpointe_tpu_torch.config import TrainConfig
+    from plotpointe_tpu_torch.pipeline import train_from_artifacts
+
+    cfg = TrainConfig.from_env(
+        model_family=args.model_family,
+        hidden_dim=args.hidden_dim,
+        layers=args.layers,
+        heads=args.heads,
+        epochs=args.epochs,
+        samples_per_epoch=args.samples_per_epoch,
+        steps_per_epoch=args.steps_per_epoch,
+        seed=args.seed,
+        eval_neg_k=args.eval_neg_k,
+        item_features=args.item_features,
+        loss=args.loss,
+        structured_logs=args.structured_logs,
+        attn_impl=args.attn_impl,
+        spmm_impl=args.spmm_impl,
+        optimizer=args.optimizer,
+        warmup_steps=args.warmup_steps,
+        mesh_shape=args.mesh,
+    )
+    results = train_from_artifacts(cfg, staging_prefix=args.staging_prefix,
+                                   embeddings_prefix=args.embeddings_prefix,
+                                   models_prefix=args.models_prefix, resume=args.resume,
+                                   device=args.device)
+    print(json.dumps({"best_val_ndcg@20": results["best_val_ndcg@20"], "test": results["test"]},
+                     indent=2))
 
 
 def _cmd_export(args):
@@ -28,7 +52,7 @@ def _cmd_export(args):
     from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
 
     store = ArtifactStore()
-    interactions = load_interactions(store, args.staging_prefix)
+    interactions = store.load_interactions(args.staging_prefix)
     feats = np.asarray(store.load_npy(args.features))
     emb = export_item_embeddings(store.fetch(args.checkpoint), interactions, feats, args.out,
                                  store=store, device=args.device)
@@ -55,6 +79,36 @@ def _cmd_serve(args):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="plotpointe_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("train", help="train the GAT")
+    t.add_argument("--model-family", choices=["gat", "lightgcn"], default="gat")
+    t.add_argument("--staging-prefix", required=True,
+                   help="holds interactions.npz (column arrays) or interactions.parquet")
+    t.add_argument("--embeddings-prefix", required=True)
+    t.add_argument("--models-prefix", required=True)
+    t.add_argument("--hidden-dim", type=int, default=128)
+    t.add_argument("--layers", type=int, default=2)
+    t.add_argument("--heads", type=int, default=1)
+    t.add_argument("--epochs", type=int, default=20)
+    t.add_argument("--samples-per-epoch", type=int, default=200_000)
+    t.add_argument("--steps-per-epoch", type=int, default=1)
+    t.add_argument("--seed", type=int, default=42)
+    t.add_argument("--eval-neg-k", type=int, default=1000)
+    t.add_argument("--item-features", choices=["fused", "txt"], default="fused")
+    t.add_argument("--loss", choices=["bpr", "bce"], default="bpr")
+    t.add_argument("--attn-impl", choices=["auto", "xla", "pallas"], default="auto",
+                   help="attention row type: pallas (and auto on CUDA) bf16 rows, xla f32 rows")
+    t.add_argument("--spmm-impl", choices=["auto", "xla", "pallas"], default="auto",
+                   help="LightGCN propagation (not ported yet)")
+    t.add_argument("--optimizer", choices=["adam", "adamw"], default="adam",
+                   help="adam = reference parity (coupled L2); adamw decouples decay")
+    t.add_argument("--warmup-steps", type=int, default=0, help="linear lr warmup")
+    t.add_argument("--structured-logs", action="store_true")
+    t.add_argument("--resume", action="store_true",
+                   help="save resume state each epoch and continue from it if present")
+    t.add_argument("--mesh", default=None, metavar="SPEC", help="sharded training (not ported yet)")
+    t.add_argument("--device", default=None, help="default: cuda")
+    t.set_defaults(fn=_cmd_train)
 
     e = sub.add_parser("export", help="checkpoint -> item_embeddings.npy")
     e.add_argument("--checkpoint", required=True)

@@ -1,7 +1,7 @@
 """Chronological leave-last-2 splits and node index maps, numpy only.
 
 Counterpart of `plotpointe_tpu/data/splits.py` (`build_node_maps`,
-`build_splits`). The interactions may be a pandas DataFrame or a plain dict
+`build_splits`, `padded_positives`). The interactions may be a pandas DataFrame or a plain dict
 of numpy arrays with `user_id`, `asin`, `ts` and optional `rating` columns;
 nothing here needs pandas.
 
@@ -104,3 +104,30 @@ def build_splits(interactions, user_to_idx: Dict, item_to_idx: Dict) -> Splits:
         test_u=u[is_test].astype(np.int32),
         test_i=i[is_test].astype(np.int32),
     )
+
+
+def padded_positives(splits: Splits, max_degree: int | None = None) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-user sorted, deduplicated train positives [n_users, P], padded with
+    n_items, and each user's count of unique positives (capped at P).
+
+    The exact negative samplers (`train/sampling.py`) map a uniform rank over
+    the complement of a row to an item id. If `max_degree` truncates a row,
+    only that user's truncated tail loses exactness."""
+    n_users, n_items = splits.n_users, splits.n_items
+    if len(splits.train_u) == 0:
+        p = int(max_degree or 1)
+        return np.full((n_users, p), n_items, dtype=np.int32), np.zeros(n_users, np.int32)
+
+    pairs = np.unique(np.stack([splits.train_u, splits.train_i], axis=1), axis=0)  # sorted (u, i)
+    su, si = pairs[:, 0], pairs[:, 1]
+    deg = np.bincount(su, minlength=n_users).astype(np.int32)
+    p = int(max_degree or deg.max() or 1)
+
+    boundary = np.flatnonzero(np.r_[True, su[1:] != su[:-1]])
+    counts = np.diff(np.r_[boundary, len(su)])
+    pos_in_user = np.arange(len(su)) - np.repeat(boundary, counts)
+
+    table = np.full((n_users, p), n_items, dtype=np.int32)
+    keep = pos_in_user < p
+    table[su[keep], pos_in_user[keep]] = si[keep]
+    return table, np.minimum(deg, p).astype(np.int32)

@@ -6,8 +6,10 @@ edge's id is its position in that order (the canonical id the hash dropout
 mask keys on) and each destination's in-edges are one contiguous CSR row.
 
 The TPU layout pieces are not carried over: no sentinel padding edges, no
-chunk tiling. The attention kernel walks plain CSR rows, one warp per
-destination, so it needs neither.
+chunk tiling. The attention kernels walk plain CSR rows, one warp per row,
+so they need neither. The backward's source-order pass walks a transpose
+CSR (`t_ptr`, `t_dst`, `t_eid`): the same edges grouped by source, each
+carrying its destination and its canonical id.
 
 Node id convention: users occupy [0, n_users), items [n_users, n_users + n_items).
 """
@@ -29,6 +31,9 @@ class Graph:
     weight: torch.Tensor  # float32 [E]
     row_ptr: torch.Tensor  # int32 [n_nodes + 1], CSR over dst
     n_nodes: int
+    t_ptr: torch.Tensor  # int32 [n_nodes + 1], CSR over src
+    t_dst: torch.Tensor  # int32 [E], (src, dst)-sorted: each edge's destination
+    t_eid: torch.Tensor  # int32 [E], each edge's canonical id: its position in (dst, src) order
 
     @property
     def n_edges(self) -> int:
@@ -41,24 +46,37 @@ class Graph:
             dst=self.dst.to(device),
             weight=self.weight.to(device),
             row_ptr=self.row_ptr.to(device),
+            t_ptr=self.t_ptr.to(device),
+            t_dst=self.t_dst.to(device),
+            t_eid=self.t_eid.to(device),
         )
+
+
+def _csr_ptr(keys: np.ndarray, n_nodes: int) -> np.ndarray:
+    ptr = np.zeros(n_nodes + 1, np.int64)
+    np.cumsum(np.bincount(keys, minlength=n_nodes)[:n_nodes], out=ptr[1:])
+    return ptr.astype(np.int32)
 
 
 def build_graph(src: np.ndarray, dst: np.ndarray, n_nodes: int,
                 weight: np.ndarray | None = None) -> Graph:
-    """Sort edges by (dst, src) and build the CSR row_ptr, on the host."""
+    """Sort edges by (dst, src) and build the CSR row_ptr and the transpose
+    CSR, on the host."""
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
     w = np.ones(len(src), np.float32) if weight is None else np.asarray(weight, np.float32)
     order = np.lexsort((src, dst))
-    row_ptr = np.zeros(n_nodes + 1, np.int64)
-    np.cumsum(np.bincount(dst, minlength=n_nodes)[:n_nodes], out=row_ptr[1:])
+    src, dst = src[order], dst[order]
+    t_order = np.lexsort((dst, src))  # canonical ids grouped by source
     return Graph(
-        src=torch.from_numpy(src[order].astype(np.int32)),
-        dst=torch.from_numpy(dst[order].astype(np.int32)),
+        src=torch.from_numpy(src.astype(np.int32)),
+        dst=torch.from_numpy(dst.astype(np.int32)),
         weight=torch.from_numpy(w[order]),
-        row_ptr=torch.from_numpy(row_ptr.astype(np.int32)),
+        row_ptr=torch.from_numpy(_csr_ptr(dst, n_nodes)),
         n_nodes=int(n_nodes),
+        t_ptr=torch.from_numpy(_csr_ptr(src, n_nodes)),
+        t_dst=torch.from_numpy(dst[t_order].astype(np.int32)),
+        t_eid=torch.from_numpy(t_order.astype(np.int32)),
     )
 
 

@@ -7,12 +7,16 @@ JAX layouts and names, so `state_dict()` keys are the JAX checkpoint's
 key-paths with dots (`['layers'][0]['a_src']` <-> `layers.0.a_src`):
 `user_emb [U, H]`, `item_proj.w [F, H]`, `item_proj.b [H]`,
 `layers.l.w [H, heads, D]`, `layers.l.a_src / a_dst [heads, D]`, and
-`layers.l.b [D]` with `use_bias`. This slice is the inference forward
-(export and serving); training is a later slice.
+`layers.l.b [D]` with `use_bias`.
+
+`hs_dtype` is the type attention rounds source rows to: float32 is the
+function the JAX export computes; bfloat16 is what the JAX trainer's kernel
+path computes (`attention_v3`'s default).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import math
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -40,19 +44,21 @@ class GATLayer(nn.Module):
         self.b = nn.Parameter(torch.zeros(hidden)) if use_bias else None
 
 
-class GATModel(nn.Module):
-    """Full-graph GAT forward -> node embeddings [n_nodes, hidden].
+def _uniform(shape, bound: float, generator: torch.Generator) -> torch.Tensor:
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return (2.0 * u - 1.0) * bound
 
-    Attention reads f32 source rows: the exact function the JAX export
-    computes with its XLA golden."""
+
+class GATModel(nn.Module):
+    """Full-graph GAT forward -> node embeddings [n_nodes, hidden]."""
 
     def __init__(self, n_users: int, n_items: int, feat_dim: int, hidden_dim: int = 128,
                  n_layers: int = 2, heads: int = 1, attn_dropout: float = 0.1,
-                 use_bias: bool = False):
+                 use_bias: bool = False, hs_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_users, self.n_items, self.feat_dim = n_users, n_items, feat_dim
         self.hidden_dim, self.n_layers, self.heads = hidden_dim, n_layers, heads
-        self.attn_dropout, self.use_bias = attn_dropout, use_bias
+        self.attn_dropout, self.use_bias, self.hs_dtype = attn_dropout, use_bias, hs_dtype
         self.user_emb = nn.Parameter(torch.zeros(n_users, hidden_dim))
         self.item_proj = ItemProjection(feat_dim, hidden_dim)
         self.layers = nn.ModuleList(GATLayer(hidden_dim, heads, use_bias) for _ in range(n_layers))
@@ -61,16 +67,41 @@ class GATModel(nn.Module):
     def n_nodes(self) -> int:
         return self.n_users + self.n_items
 
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        """The JAX package's init distributions: user_emb N(0, 0.1),
+        item_proj.w U(+-1/sqrt(F)), xavier-uniform layer w, a_src and a_dst,
+        zero biases. Draws on the generator's device."""
+        h, d = self.hidden_dim, self.hidden_dim
+        self.user_emb.copy_(0.1 * torch.randn(self.user_emb.shape, generator=generator,
+                                              device=generator.device))
+        self.item_proj.w.copy_(_uniform(self.item_proj.w.shape, 1.0 / math.sqrt(self.feat_dim),
+                                        generator))
+        self.item_proj.b.zero_()
+        for layer in self.layers:
+            layer.w.copy_(_uniform(layer.w.shape, math.sqrt(6.0 / (h + d)), generator))
+            layer.a_src.copy_(_uniform(layer.a_src.shape, math.sqrt(6.0 / (1 + d)), generator))
+            layer.a_dst.copy_(_uniform(layer.a_dst.shape, math.sqrt(6.0 / (1 + d)), generator))
+            if layer.b is not None:
+                layer.b.zero_()
+
     def node_features(self, item_feats: torch.Tensor) -> torch.Tensor:
         """concat([user_emb, item_proj(item_feats)]) -> [n_nodes, hidden]."""
         return torch.cat([self.user_emb, self.item_proj(item_feats)], dim=0)
 
-    def forward(self, item_feats: torch.Tensor, graph: Graph) -> torch.Tensor:
+    def forward(self, item_feats: torch.Tensor, graph: Graph, train: bool = False,
+                seeds: Optional[Sequence[int]] = None, plain: bool = False) -> torch.Tensor:
+        """train=True applies attention dropout `attn_dropout`, with one uint32
+        mask seed per layer in `seeds`. plain=True runs the attention kernels'
+        plain versions on any device (the reference they are held to)."""
+        drop = self.attn_dropout if train else 0.0
         x = self.node_features(item_feats)
-        for layer in self.layers:
+        for li, layer in enumerate(self.layers):
             h = torch.einsum("nf,fhd->nhd", x, layer.w)  # [N, heads, D]
+            seed = seeds[li] if (seeds is not None and drop > 0) else None
             out = segment_softmax_attention_kernel(h, layer.a_src, layer.a_dst, graph,
-                                                   hs_dtype=torch.float32)
+                                                   dropout_rate=drop, seed=seed,
+                                                   hs_dtype=self.hs_dtype, plain=plain)
             x = out.mean(dim=1)  # head-mean; identity for heads == 1
             if layer.b is not None:
                 x = x + layer.b

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "plotpointe_tpu_torch"
-KERNELS = ("gat_fwd", "topk_chunkmax", "topk_rescore")
+KERNELS = ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "gather_fence", "topk_chunkmax", "topk_rescore")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 P = ctypes.c_void_p
@@ -35,6 +35,9 @@ I = ctypes.c_int
 # C entry point and argument types of each library
 SIGNATURES = {
     "gat_fwd": ("ppt_gat_fwd", [P] * 11 + [I, I, P]),
+    "gat_bwd_dst": ("ppt_gat_bwd_dst", [P, I] + [P] * 11 + [I, I, I, P]),
+    "gat_bwd_src": ("ppt_gat_bwd_src", [P, P, I] + [P] * 10 + [I, I, P]),
+    "gather_fence": ("ppt_gather_fence", [P, I, I, I, P, P]),
     "topk_chunkmax": ("ppt_topk_chunkmax", [P, P, P, I, I, I, I, P]),
     "topk_rescore": ("ppt_topk_rescore", [P, P, P, P, I, I, I, I, I, P]),
 }

@@ -1,15 +1,28 @@
-"""Fused single-head GAT attention forward: CUDA kernel + plain version.
+"""Fused single-head GAT attention, forward and backward: CUDA kernels,
+their plain versions, and the autograd op.
 
-Counterpart of `plotpointe_tpu/ops/gat_fused.py::attention_v3`'s forward
-(`_fwd_kernel`). The kernel is `csrc/gat_fwd.cu`; `attention_fwd_plain` is
-the same function in plain PyTorch, used for CPU tensors and as the
-reference the kernel is held to on the card.
+Counterpart of `plotpointe_tpu/ops/gat_fused.py::attention_v3` and its
+kernels:
+  forward  `_fwd_kernel`   -> `csrc/gat_fwd.cu`       (`attention_fwd`)
+  B1       `_bwd_kernel`   -> `csrc/gat_bwd_dst.cu`   (`attention_bwd_dst`)
+  B2       `_bwd2_kernel`  -> `csrc/gat_bwd_src.cu`   (`attention_bwd_src`)
+  fence    `_gather_fence` -> `csrc/gather_fence.cu`  (`gather_fence`)
+Each `*_plain` function is the same function in plain PyTorch, used for CPU
+tensors and as the reference its kernel is held to on the card. A wrapper
+launches its kernel for CUDA tensors (or raises) and counts the launch.
 
-Rounding matches the TPU kernel: source rows are rounded to `hs_dtype`
-before use (for the source logit term and the aggregation), the destination
-logit term uses the f32 rows, and every sum is f32. The dropout mask
-multiplies the numerator of the output only; the denominator sums the
-unmasked numerators.
+Rounding matches the TPU kernels: source rows are rounded to `hs_dtype`
+(for the source logit term gs = round(h) . a_src, the aggregation and the
+backward's row products), the destination term gd = h . a_dst uses the f32
+rows, and every sum is f32. The dropout mask multiplies the numerator of the
+output only; the denominator sums the unmasked numerators. In the backward,
+B1 uses the f32 cotangent g; B2 uses g rounded to `hs_dtype` (for its row
+product and its alpha * g term) and recomputes de from it, so in bf16 mode
+B1 and B2 see slightly different de, as in `attn_bwd`.
+
+The training step does not call `gather_fence`: on the TPU it orders two
+XLA row gathers of the backward, and the port's kernels gather rows
+themselves, so no such pair remains.
 """
 from __future__ import annotations
 
@@ -19,9 +32,14 @@ import torch
 
 from plotpointe_tpu_torch.graphs.csr import Graph
 from plotpointe_tpu_torch.ops import cuda_build as cb
-from plotpointe_tpu_torch.ops.segment import EPS, edge_numerators
+from plotpointe_tpu_torch.ops.segment import EPS, LEAKY_SLOPE, LOGIT_CLAMP, edge_numerators
 
 LAUNCHES = cb.COUNTERS["gat_fwd"]
+BWD_DST_LAUNCHES = cb.COUNTERS["gat_bwd_dst"]
+BWD_SRC_LAUNCHES = cb.COUNTERS["gat_bwd_src"]
+FENCE_LAUNCHES = cb.COUNTERS["gather_fence"]
+B1_MAX_BLOCKS = 1024  # B1's fixed grid: blocks of 8 warps striding over the rows
+_WARPS_PER_BLOCK = 8
 _M32 = 0xFFFFFFFF
 
 
@@ -43,26 +61,68 @@ def hash_mask(seed: int, ids: torch.Tensor, rate: float) -> torch.Tensor:
     return (x < thresh).to(torch.float32) * (1.0 / (1.0 - rate))
 
 
+def dropout_mask(graph: Graph, rate: float, seed: Optional[int], device) -> Optional[torch.Tensor]:
+    """The hash mask over canonical edge ids, or None without dropout."""
+    if rate <= 0.0 or seed is None:
+        return None
+    return hash_mask(seed, torch.arange(graph.n_edges, device=device), rate)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def node_terms_plain(h2: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
+                     hs_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """h2 [N, D] f32 -> (rows [N, D] at hs_dtype, gs = rows . a_src,
+    gd = h2 . a_dst), the per-node terms every kernel reads."""
+    rows = h2.to(hs_dtype)
+    return rows, rows.float() @ a_src[0], h2 @ a_dst[0]
+
+
+def _aggregate_plain(rows, gs, gd, graph, mask):
+    num = edge_numerators(gs, gd, graph)  # [E]
+    dst = graph.dst.long()
+    den = torch.zeros(graph.n_nodes, dtype=torch.float32, device=rows.device).index_add_(0, dst, num)
+    w = num if mask is None else num * mask
+    acc = torch.zeros(rows.shape, dtype=torch.float32, device=rows.device)
+    acc.index_add_(0, dst, w[:, None] * rows.float()[graph.src.long()])
+    return acc / (den[:, None] + EPS), den
+
+
 def attention_fwd_plain(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,
                         mask: Optional[torch.Tensor] = None,
                         hs_dtype: torch.dtype = torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
     """h [N, 1, D] f32, a_src/a_dst [1, D] -> (out [N, 1, D], den [N])."""
-    h2 = h[:, 0, :].float()
-    hs = h2.to(hs_dtype).float()
-    num = edge_numerators(hs @ a_src[0], h2 @ a_dst[0], graph)  # [E]
-    dst = graph.dst.long()
-    den = torch.zeros(graph.n_nodes, dtype=torch.float32, device=h.device).index_add_(0, dst, num)
-    w = num if mask is None else num * mask
-    acc = torch.zeros_like(h2).index_add_(0, dst, w[:, None] * hs[graph.src.long()])
-    return (acc / (den[:, None] + EPS))[:, None, :], den
+    rows, gs, gd = node_terms_plain(h[:, 0, :].float(), a_src, a_dst, hs_dtype)
+    out, den = _aggregate_plain(rows, gs, gd, graph, mask)
+    return out[:, None, :], den
+
+
+def _check_tensor(name, t, dtype, device, shape=None):
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype} on {device}; got {t.dtype} on {t.device}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}; got {tuple(t.shape)}")
+
+
+def _check_width(d):
+    if d % 32 != 0 or d > 512:
+        raise ValueError(f"the attention kernels take D a multiple of 32 up to 512; got D={d}")
+
+
+def _check_mask(mask, graph, device):
+    if mask is not None and (mask.shape != (graph.n_edges,) or mask.dtype != torch.float32
+                             or mask.device != device):
+        raise ValueError(f"mask must be float32 [{graph.n_edges}] on {device}")
 
 
 def _check(h, a_src, a_dst, graph, mask, hs_dtype):
     n, heads, d = h.shape
     if heads != 1:
         raise ValueError(f"attention_fwd is single-head; got heads={heads}")
-    if d % 32 != 0 or d > 512:
-        raise ValueError(f"the attention kernel takes D a multiple of 32 up to 512; got D={d}")
+    _check_width(d)
     if n != graph.n_nodes:
         raise ValueError(f"h has {n} rows but the graph has {graph.n_nodes} nodes")
     if hs_dtype not in (torch.float32, torch.bfloat16):
@@ -70,13 +130,36 @@ def _check(h, a_src, a_dst, graph, mask, hs_dtype):
     for name, t, dt in (("h", h, torch.float32), ("a_src", a_src, torch.float32),
                         ("a_dst", a_dst, torch.float32), ("src", graph.src, torch.int32),
                         ("row_ptr", graph.row_ptr, torch.int32)):
-        if t.device != h.device or t.dtype != dt:
-            raise ValueError(f"{name} must be {dt} on {h.device}; got {t.dtype} on {t.device}")
+        _check_tensor(name, t, dt, h.device)
     if a_src.shape != (1, d) or a_dst.shape != (1, d):
         raise ValueError(f"a_src/a_dst must be [1, {d}]")
-    if mask is not None and (mask.shape != (graph.n_edges,) or mask.dtype != torch.float32
-                             or mask.device != h.device):
-        raise ValueError(f"mask must be float32 [{graph.n_edges}] on {h.device}")
+    _check_mask(mask, graph, h.device)
+
+
+def _fwd(h2, a_src, a_dst, graph, mask, hs_dtype, plain=False):
+    """h2 [N, D] -> (out [N, D], den, rows, gs, gd): the output plus the
+    per-node terms the backward reads."""
+    if plain or h2.device.type == "cpu":
+        rows, gs, gd = node_terms_plain(h2, a_src, a_dst, hs_dtype)
+        return (*_aggregate_plain(rows, gs, gd, graph, mask), rows, gs, gd)
+    n, d = h2.shape
+    h2 = h2.contiguous()
+    a_s, a_d = a_src.reshape(d).contiguous(), a_dst.reshape(d).contiguous()
+    src, row_ptr = graph.src.contiguous(), graph.row_ptr.contiguous()
+    m = None if mask is None else mask.contiguous()
+    hs = torch.empty((n, d), dtype=torch.bfloat16, device=h2.device) if hs_dtype == torch.bfloat16 else None
+    gs = torch.empty(n, dtype=torch.float32, device=h2.device)
+    gd = torch.empty_like(gs)
+    out = torch.empty((n, d), dtype=torch.float32, device=h2.device)
+    den = torch.empty_like(gs)
+    fn = cb.entry("gat_fwd")
+    with torch.cuda.device(h2.device):
+        rc = fn(cb.ptr(h2), cb.ptr(a_s), cb.ptr(a_d), cb.ptr(row_ptr), cb.ptr(src), cb.ptr(m),
+                cb.ptr(hs), cb.ptr(gs), cb.ptr(gd), cb.ptr(out), cb.ptr(den), n, d,
+                cb.stream_of(h2))
+    cb.check(rc, "gat_fwd")
+    LAUNCHES.bump()
+    return out, den, (h2 if hs is None else hs), gs, gd
 
 
 def attention_fwd(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,
@@ -90,20 +173,211 @@ def attention_fwd(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, gra
     if h.device.type == "cpu":
         return attention_fwd_plain(h, a_src, a_dst, graph, mask, hs_dtype)
     n, _, d = h.shape
-    h2 = h.reshape(n, d).contiguous()
-    a_s, a_d = a_src.reshape(d).contiguous(), a_dst.reshape(d).contiguous()
-    src, row_ptr = graph.src.contiguous(), graph.row_ptr.contiguous()
-    m = None if mask is None else mask.contiguous()
-    hs = torch.empty((n, d), dtype=torch.bfloat16, device=h.device) if hs_dtype == torch.bfloat16 else None
-    gs = torch.empty(n, dtype=torch.float32, device=h.device)
-    gd = torch.empty_like(gs)
-    out = torch.empty((n, d), dtype=torch.float32, device=h.device)
-    den = torch.empty_like(gs)
-    fn = cb.entry("gat_fwd")
-    with torch.cuda.device(h.device):
-        rc = fn(cb.ptr(h2), cb.ptr(a_s), cb.ptr(a_d), cb.ptr(row_ptr), cb.ptr(src), cb.ptr(m),
-                cb.ptr(hs), cb.ptr(gs), cb.ptr(gd), cb.ptr(out), cb.ptr(den), n, d,
-                cb.stream_of(h))
-    cb.check(rc, "gat_fwd")
-    LAUNCHES.bump()
+    out, den = _fwd(h.reshape(n, d), a_src, a_dst, graph, mask, hs_dtype)[:2]
     return out[:, None, :], den
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+
+def _edge_terms(gs, gd, src, dst):
+    """Per edge: num = exp(clamp(lrelu(x))) and d num / d x, x = gs[src] + gd[dst]."""
+    x = gs[src] + gd[dst]
+    lx = torch.where(x > 0, x, LEAKY_SLOPE * x)
+    num = torch.exp(torch.clamp(lx, -LOGIT_CLAMP, LOGIT_CLAMP))
+    inside = (lx > -LOGIT_CLAMP) & (lx < LOGIT_CLAMP)
+    deriv = num * inside.to(num.dtype) * torch.where(x > 0, 1.0, LEAKY_SLOPE)
+    return num, deriv
+
+
+def attention_bwd_dst_plain(rows, gs, gd, g, out, den, graph: Graph,
+                            mask: Optional[torch.Tensor] = None):
+    """B1's function. rows [N, D] at the row type; gs/gd/den [N]; g/out
+    [N, D] f32. Returns (de_sum [N], godot [N] = g . out, da_src [1, D] =
+    sum_e de_e * rows[src_e])."""
+    src, dst = graph.src.long(), graph.dst.long()
+    hs = rows.float()
+    _, deriv = _edge_terms(gs, gd, src, dst)
+    ghs = (g[dst] * hs[src]).sum(1)
+    godot = (g * out).sum(1)
+    m = 1.0 if mask is None else mask
+    de = ((m * ghs - godot[dst]) / (den[dst] + EPS)) * deriv
+    de_sum = torch.zeros(graph.n_nodes, dtype=torch.float32, device=rows.device).index_add_(0, dst, de)
+    return de_sum, godot, (de[:, None] * hs[src]).sum(0, keepdim=True)
+
+
+def attention_bwd_src_plain(rows, gh, a_src, gs, gd, den, godot, graph: Graph,
+                            mask: Optional[torch.Tensor] = None):
+    """B2's function. gh [N, D] is the cotangent at the row type. Returns
+    dh [N, D] = sum over each source's out-edges of alpha_e * gh[dst_e] +
+    de_e * a_src, with alpha and de recomputed from gh."""
+    src, dst = graph.src.long(), graph.dst.long()
+    hs, ghf = rows.float(), gh.float()
+    num, deriv = _edge_terms(gs, gd, src, dst)
+    ghd = ghf[dst]
+    ghs = (ghd * hs[src]).sum(1)
+    den_e = den[dst] + EPS
+    m = 1.0 if mask is None else mask
+    de = ((m * ghs - godot[dst]) / den_e) * deriv
+    contrib = (m * num / den_e)[:, None] * ghd + de[:, None] * a_src.reshape(1, -1)
+    return torch.zeros(rows.shape, dtype=torch.float32, device=rows.device).index_add_(0, src, contrib)
+
+
+def _check_bwd(rows, graph, mask, **f32):
+    n, d = rows.shape
+    _check_width(d)
+    if n != graph.n_nodes:
+        raise ValueError(f"rows has {n} rows but the graph has {graph.n_nodes} nodes")
+    if rows.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"rows must be float32 or bfloat16; got {rows.dtype}")
+    for name, t in f32.items():
+        _check_tensor(name, t, torch.float32, rows.device, (n, d) if t.dim() == 2 else (n,))
+    _check_mask(mask, graph, rows.device)
+
+
+def attention_bwd_dst(rows, gs, gd, g, out, den, graph: Graph,
+                      mask: Optional[torch.Tensor] = None):
+    """B1: `attention_bwd_dst_plain`'s function; launches `csrc/gat_bwd_dst.cu`
+    for CUDA tensors. The kernel writes one partial row of d a_src per warp;
+    they are summed here in a fixed order."""
+    _check_bwd(rows, graph, mask, gs=gs, gd=gd, g=g, out=out, den=den)
+    if rows.device.type == "cpu":
+        return attention_bwd_dst_plain(rows, gs, gd, g, out, den, graph, mask)
+    n, d = rows.shape
+    n_blocks = max(1, min(B1_MAX_BLOCKS, -(-n // _WARPS_PER_BLOCK)))
+    dev = rows.device
+    de_sum = torch.empty(n, dtype=torch.float32, device=dev)
+    godot = torch.empty_like(de_sum)
+    partial = torch.empty((n_blocks * _WARPS_PER_BLOCK, d), dtype=torch.float32, device=dev)
+    args = [t.contiguous() for t in (rows, gs, gd, g, out, den, graph.row_ptr, graph.src)]
+    m = None if mask is None else mask.contiguous()
+    fn = cb.entry("gat_bwd_dst")
+    with torch.cuda.device(dev):
+        rc = fn(cb.ptr(args[0]), int(rows.dtype == torch.bfloat16), *map(cb.ptr, args[1:]),
+                cb.ptr(m), cb.ptr(de_sum), cb.ptr(godot), cb.ptr(partial), n, d, n_blocks,
+                cb.stream_of(rows))
+    cb.check(rc, "gat_bwd_dst")
+    BWD_DST_LAUNCHES.bump()
+    return de_sum, godot, partial.sum(0, keepdim=True)
+
+
+def attention_bwd_src(rows, gh, a_src, gs, gd, den, godot, graph: Graph,
+                      mask: Optional[torch.Tensor] = None):
+    """B2: `attention_bwd_src_plain`'s function; launches `csrc/gat_bwd_src.cu`
+    for CUDA tensors."""
+    _check_bwd(rows, graph, mask, gs=gs, gd=gd, den=den, godot=godot)
+    n, d = rows.shape
+    if gh.dtype != rows.dtype or tuple(gh.shape) != (n, d) or gh.device != rows.device:
+        raise ValueError(f"gh must be {rows.dtype} [{n}, {d}] on {rows.device}")
+    _check_tensor("a_src", a_src, torch.float32, rows.device, (1, d))
+    if rows.device.type == "cpu":
+        return attention_bwd_src_plain(rows, gh, a_src, gs, gd, den, godot, graph, mask)
+    dev = rows.device
+    dh = torch.empty((n, d), dtype=torch.float32, device=dev)
+    args = [t.contiguous() for t in (rows, gh)]
+    tables = [t.contiguous() for t in (a_src.reshape(d), gs, gd, den, godot, graph.t_ptr,
+                                       graph.t_dst, graph.t_eid)]
+    m = None if mask is None else mask.contiguous()
+    fn = cb.entry("gat_bwd_src")
+    with torch.cuda.device(dev):
+        rc = fn(cb.ptr(args[0]), cb.ptr(args[1]), int(rows.dtype == torch.bfloat16),
+                *map(cb.ptr, tables), cb.ptr(m), cb.ptr(dh), n, d, cb.stream_of(rows))
+    cb.check(rc, "gat_bwd_src")
+    BWD_SRC_LAUNCHES.bump()
+    return dh
+
+
+def _backward(h2, a_src, a_dst, graph, g2, out2, den, rows, gs, gd, mask, plain):
+    """(dh [N, D], da_src [1, D], da_dst [1, D]) of `attn_bwd`."""
+    bwd_dst = attention_bwd_dst_plain if plain else attention_bwd_dst
+    bwd_src = attention_bwd_src_plain if plain else attention_bwd_src
+    de_sum, godot, da_src = bwd_dst(rows, gs, gd, g2, out2, den, graph, mask)
+    dh = bwd_src(rows, g2.to(rows.dtype), a_src, gs, gd, den, godot, graph, mask)
+    dh = dh + de_sum[:, None] * a_dst
+    return dh, da_src, de_sum[None, :] @ h2
+
+
+def attention_bwd_plain(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,
+                        g: torch.Tensor, out: torch.Tensor, den: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None,
+                        hs_dtype: torch.dtype = torch.bfloat16):
+    """The explicit backward of `attention_v3` in plain PyTorch: h, g, out
+    [N, 1, D] f32, den [N] -> (dh [N, 1, D], da_src [1, D], da_dst [1, D]).
+    The reference B1 and B2 are held to (not autograd of the golden)."""
+    n, _, d = h.shape
+    h2 = h.reshape(n, d).float()
+    rows, gs, gd = node_terms_plain(h2, a_src, a_dst, hs_dtype)
+    dh, da_src, da_dst = _backward(h2, a_src, a_dst, graph, g.reshape(n, d), out.reshape(n, d),
+                                   den, rows, gs, gd, mask, plain=True)
+    return dh[:, None, :], da_src, da_dst
+
+
+class AttentionV3(torch.autograd.Function):
+    """Single-head fused attention with the backward of `attention_v3`:
+    the forward kernel, then B1 and B2 (their plain versions for CPU
+    tensors, or everywhere with `plain=True`). The mask is rebuilt in the
+    backward from its seed."""
+
+    @staticmethod
+    def forward(ctx, h, a_src, a_dst, graph, dropout_rate, seed, hs_dtype, plain):
+        n, _, d = h.shape
+        mask = dropout_mask(graph, dropout_rate, seed, h.device)
+        _check(h, a_src, a_dst, graph, mask, hs_dtype)
+        h2 = h.reshape(n, d).contiguous()
+        out2, den, rows, gs, gd = _fwd(h2, a_src, a_dst, graph, mask, hs_dtype, plain)
+        ctx.save_for_backward(h2, a_src, a_dst, out2, den, rows, gs, gd)
+        ctx.graph, ctx.dropout_rate, ctx.seed, ctx.plain = graph, dropout_rate, seed, plain
+        return out2.view(n, 1, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, a_src, a_dst, out2, den, rows, gs, gd = ctx.saved_tensors
+        n, d = h2.shape
+        mask = dropout_mask(ctx.graph, ctx.dropout_rate, ctx.seed, h2.device)
+        dh, da_src, da_dst = _backward(h2, a_src, a_dst, ctx.graph, g.reshape(n, d).contiguous(),
+                                       out2, den, rows, gs, gd, mask, ctx.plain)
+        return dh.view(n, 1, d), da_src, da_dst, None, None, None, None, None
+
+
+def attention_v3(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,
+                 dropout_rate: float = 0.0, seed: Optional[int] = None,
+                 hs_dtype: torch.dtype = torch.bfloat16, plain: bool = False) -> torch.Tensor:
+    """Differentiable single-head attention, h [N, 1, D] -> [N, 1, D]. With
+    dropout_rate > 0 and a uint32 `seed`, the hash mask over canonical edge
+    ids drops attention weights (the JAX package draws its seed as
+    `jax.random.bits(rng, (), uint32)`). `plain=True` runs the plain
+    versions on any device: the reference the kernels are held to."""
+    return AttentionV3.apply(h, a_src, a_dst, graph, float(dropout_rate), seed, hs_dtype, plain)
+
+
+# ---------------------------------------------------------------------------
+# gather fence
+# ---------------------------------------------------------------------------
+
+
+def gather_fence_plain(x: torch.Tensor) -> torch.Tensor:
+    """[M, D] -> [8, 128] f32, every entry the f32 sum of x[:8, :min(128, D)]."""
+    blk = x[:8, : min(128, x.shape[1])].float()
+    return blk.sum(0).sum().expand(8, 128).clone()
+
+
+def gather_fence(x: torch.Tensor) -> torch.Tensor:
+    """`_gather_fence`'s function; launches `csrc/gather_fence.cu` for CUDA
+    tensors. x [M, D] f32 or bf16, M, D >= 1."""
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"gather_fence takes a non-empty [M, D] tensor; got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gather_fence takes float32 or bfloat16; got {x.dtype}")
+    if x.device.type == "cpu":
+        return gather_fence_plain(x)
+    x = x.contiguous()
+    out = torch.empty((8, 128), dtype=torch.float32, device=x.device)
+    fn = cb.entry("gather_fence")
+    with torch.cuda.device(x.device):
+        rc = fn(cb.ptr(x), int(x.dtype == torch.bfloat16), x.shape[0], x.shape[1], cb.ptr(out),
+                cb.stream_of(x))
+    cb.check(rc, "gather_fence")
+    FENCE_LAUNCHES.bump()
+    return out

@@ -3,6 +3,11 @@
 Counterpart of `plotpointe_tpu/ops/segment.py::segment_softmax_attention`,
 with its exact math: LeakyReLU 0.2, logits clamped to +-10 with NO segment
 max-subtraction, softmax denominator eps 1e-9. Any number of heads.
+
+`gather_rows` is a row gather whose backward is a sorted segment sum, so the
+loss's gradient into the node table is the same on every run: the autograd
+of `x[idx]` accumulates duplicate rows in an order that can change from run
+to run on CUDA.
 """
 from __future__ import annotations
 
@@ -35,3 +40,32 @@ def segment_softmax_attention(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch
     alpha = num / (den[dst] + EPS)
     out = torch.zeros_like(h).index_add_(0, dst, alpha[..., None] * h[src])
     return out
+
+
+def index_sum_rows(rows: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """out[k] = sum of rows[t] over t with idx[t] == k, out [n, D], summed in
+    a fixed order: a stable sort by index, then one segment sum per index."""
+    order = torch.argsort(idx, stable=True)
+    uniq, counts = torch.unique_consecutive(idx[order], return_counts=True)
+    sums = torch.segment_reduce(rows[order], "sum", lengths=counts, axis=0)
+    out = torch.zeros((n,) + tuple(rows.shape[1:]), dtype=rows.dtype, device=rows.device)
+    out[uniq.long()] = sums  # distinct indices: no accumulation
+    return out
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = x.shape[0]
+        return x[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return index_sum_rows(g, idx, ctx.n), None
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] along dim 0, with a deterministic backward (`index_sum_rows`)."""
+    return _GatherRows.apply(x, idx.long())

@@ -1,0 +1,87 @@
+"""End-to-end training glue: artifacts -> splits -> graph -> trainer ->
+checkpoint + metrics JSON.
+
+Counterpart of `plotpointe_tpu/pipeline.py` (`make_model`,
+`train_from_artifacts`) on its GAT path. Interactions come from
+`{staging}/interactions.npz` (column arrays) when present, else the parquet
+file; item features from `{embeddings}/fused_interacted.npy` or
+`txt_interacted.npy` (`item_features`), else `fused.npy` / `txt.npy`.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from plotpointe_tpu_torch import resolve_device
+from plotpointe_tpu_torch.config import TrainConfig
+from plotpointe_tpu_torch.data.splits import build_node_maps, build_splits
+from plotpointe_tpu_torch.graphs.csr import build_bipartite_graph
+from plotpointe_tpu_torch.models.gat import GATModel
+from plotpointe_tpu_torch.ops.gat_kernel import resolve_hs_dtype
+from plotpointe_tpu_torch.train.trainer import Trainer
+from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
+
+
+def _check_ported(cfg: TrainConfig) -> None:
+    if cfg.model_family == "lightgcn":
+        raise NotImplementedError(
+            "LightGCN training needs the CSR SpMM kernel (_wreduce_kernel, kernel 7), "
+            "a later slice of the port")
+    if cfg.model_family != "gat":
+        raise ValueError(f"unknown model_family {cfg.model_family}")
+    if cfg.mesh_shape:
+        raise NotImplementedError(
+            "sharded training (--mesh) is the multi-GPU slice of the port, not ported yet")
+
+
+def make_model(cfg: TrainConfig, n_users: int, n_items: int, feat_dim: int, device=None) -> GATModel:
+    """The GAT of `cfg`, with the row type its `attn_impl` means on `device`."""
+    _check_ported(cfg)
+    return GATModel(n_users=n_users, n_items=n_items, feat_dim=feat_dim, hidden_dim=cfg.hidden_dim,
+                    n_layers=cfg.layers, heads=cfg.heads, attn_dropout=cfg.attn_dropout,
+                    hs_dtype=resolve_hs_dtype(cfg.attn_impl, resolve_device(device)))
+
+
+def _features(store: ArtifactStore, cfg: TrainConfig, embeddings_prefix: str, n_items: int):
+    name = "fused" if cfg.item_features == "fused" else "txt"
+    uri = f"{embeddings_prefix}/{name}_interacted.npy"
+    if not store.exists(uri):  # fall back to the full-catalog name
+        uri = f"{embeddings_prefix}/{name}.npy"
+    feats = np.asarray(store.load_npy(uri), dtype=np.float32)
+    if feats.shape[0] != n_items:
+        raise ValueError(f"features rows ({feats.shape[0]}) must align to interacted items ({n_items})")
+    return feats
+
+
+def train_from_artifacts(cfg: TrainConfig, staging_prefix: str, embeddings_prefix: str,
+                         models_prefix: str, store: Optional[ArtifactStore] = None,
+                         resume: bool = False, device=None) -> Dict[str, Any]:
+    """Interactions + features -> `{models}/checkpoints/{run_id}.npz` (best by
+    val, JAX format) and `{models}/metrics_{run_id}.json`. With `resume`,
+    `{models}/resume.pt` is read if present and rewritten every epoch.
+    Returns the trainer's results plus `checkpoint_uri` and `trainer`."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    store = store or ArtifactStore()
+    interactions = store.load_interactions(staging_prefix)
+    u2i, i2i = build_node_maps(interactions)
+    splits = build_splits(interactions, u2i, i2i)
+    graph = build_bipartite_graph(splits.train_u, splits.train_i, splits.n_users, splits.n_items,
+                                  weight=splits.train_w)
+    feats = _features(store, cfg, embeddings_prefix, splits.n_items)
+    model = make_model(cfg, splits.n_users, splits.n_items, feats.shape[1], device=dev)
+    trainer = Trainer(model, cfg, graph, splits, item_feats=feats, device=dev)
+
+    cfg.run_id = cfg.run_id or f"{cfg.model_family}_d{cfg.hidden_dim}_{int(time.time())}"
+    ckpt_uri = f"{models_prefix}/checkpoints/{cfg.run_id}.npz"
+    resume_path = store.target(f"{models_prefix}/resume.pt") if resume else None
+    results = trainer.fit(checkpoint_path=str(store.target(ckpt_uri)),
+                          resume_path=None if resume_path is None else str(resume_path))
+    metrics = {k: results[k] for k in ("best_val_ndcg@20", "val", "test", "config", "notes",
+                                       "history", "wall_time_s")}
+    store.save_json(metrics, f"{models_prefix}/metrics_{cfg.run_id}.json")
+    results["checkpoint_uri"] = ckpt_uri
+    results["trainer"] = trainer
+    return results

@@ -4,7 +4,13 @@ Counterpart of `plotpointe_tpu/train/checkpoint.py`, same file format: one
 array per parameter keyed by its JAX key-path string (what
 `jax.tree_util.keystr` writes, e.g. `['layers'][0]['a_src']`) and a
 `__config__` JSON string. No pickle. Checkpoints load across both packages;
-`params_from_jax` turns those keys into a PyTorch `state_dict`.
+`params_from_jax` turns those keys into a PyTorch `state_dict` and
+`params_to_jax` turns a `state_dict` back into them.
+
+The resume state (`save_resume_state` / `load_resume_state`: parameters,
+optimizer and scheduler state, best parameters, epoch meta) is the port's
+own format, a `torch.save` file read back with `weights_only=True`; the
+JAX package's resume npz does not load here, nor the other way round.
 """
 from __future__ import annotations
 
@@ -51,3 +57,32 @@ def _dotted(keystr: str) -> str:
 def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """{`['layers'][0]['a_src']`: array} -> {`layers.0.a_src`: tensor}."""
     return {_dotted(k): torch.from_numpy(np.array(v)) for k, v in flat.items()}
+
+
+def _keystr(dotted: str) -> str:
+    return "".join(f"[{p}]" if p.isdigit() else f"['{p}']" for p in dotted.split("."))
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """{`layers.0.a_src`: tensor} -> {`['layers'][0]['a_src']`: float array},
+    the keys the JAX package's `load_checkpoint` looks up."""
+    return {_keystr(k): v.detach().cpu().numpy() for k, v in state_dict.items()}
+
+
+def save_resume_state(path: str | Path, params: Mapping[str, torch.Tensor], opt_state: Dict[str, Any],
+                      best_params: Mapping[str, torch.Tensor], meta: Dict[str, Any]) -> str:
+    """Mid-training state for a preemption-safe resume."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save({"params": dict(params), "opt_state": opt_state, "best_params": dict(best_params),
+                "meta": dict(meta)}, tmp)
+    tmp.replace(path)  # a preempted write leaves the previous state whole
+    return str(path)
+
+
+def load_resume_state(path: str | Path, device=None) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any],
+                                                             Dict[str, torch.Tensor], Dict[str, Any]]:
+    """Returns (params, opt_state, best_params, meta), tensors on `device`."""
+    bundle = torch.load(path, map_location=device, weights_only=True)
+    return bundle["params"], bundle["opt_state"], bundle["best_params"], bundle["meta"]

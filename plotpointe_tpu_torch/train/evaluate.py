@@ -1,0 +1,86 @@
+"""Sampled-negative Recall@K / NDCG@K evaluation.
+
+Counterpart of `plotpointe_tpu/train/evaluate.py`: per eval user, one
+positive and `neg_k` negatives drawn uniformly over items outside the user's
+train positives and the positive itself; rank = 1 + (number of negatives
+scoring strictly higher); recall@K = 1[rank <= K]; ndcg@K = 1/log2(rank + 1)
+on a hit; macro mean. A non-finite positive score counts as unranked (a
+diverged model would otherwise rank first everywhere), and `tie_fraction`
+reports the share of negatives exactly tying the positive.
+
+Users go in chunks of `chunk`; each chunk scores all items with one f32
+matrix product, with TF32 off (the JAX package asks for HIGH precision: a
+rank comparison is sensitive to rounding), then gathers the candidates.
+"""
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from plotpointe_tpu_torch.train.sampling import sample_eval_negatives
+
+
+def eval_from_negatives(U: torch.Tensor, I: torch.Tensor, users: torch.Tensor, pos: torch.Tensor,
+                        negs: torch.Tensor, valid: torch.Tensor,
+                        ks: Sequence[int] = (10, 20)) -> Dict[str, torch.Tensor]:
+    """Sums over one chunk (`_eval_chunk`'s outputs): `tie_frac_sum`,
+    `recall@k_sum`, `ndcg@k_sum`, `count`. users/pos [C], negs [C, neg_k],
+    valid [C] float {0, 1}."""
+    neg_k = negs.shape[1]
+    scores = U[users.long()] @ I.T  # [C, n_items]
+    pos_score = torch.gather(scores, 1, pos.long()[:, None])  # [C, 1]
+    neg_scores = torch.gather(scores, 1, negs.long())  # [C, neg_k]
+    rank = 1 + torch.sum(neg_scores > pos_score, dim=1)
+    rank = torch.where(torch.isfinite(pos_score[:, 0]), rank, torch.full_like(rank, neg_k + 2))
+    ties = torch.sum(neg_scores == pos_score, dim=1).to(torch.float32) / neg_k
+    out = {"tie_frac_sum": (ties * valid).sum()}
+    rank_f = rank.to(torch.float32)
+    for k in ks:
+        hit = rank <= k
+        out[f"recall@{k}_sum"] = (hit.to(torch.float32) * valid).sum()
+        ndcg = torch.where(hit, 1.0 / torch.log2(rank_f + 1.0), torch.zeros_like(rank_f))
+        out[f"ndcg@{k}_sum"] = (ndcg * valid).sum()
+    out["count"] = valid.sum()
+    return out
+
+
+def sampled_eval(U: torch.Tensor, I: torch.Tensor, eval_users: np.ndarray, eval_pos: np.ndarray,
+                 user_pos_padded: torch.Tensor, user_deg: torch.Tensor,
+                 generator: torch.Generator, neg_k: int = 1000, ks: Tuple[int, ...] = (10, 20),
+                 chunk: int = 512) -> Dict[str, float]:
+    """Macro-averaged sampled metrics over (eval_users, eval_pos)."""
+    n = len(eval_users)
+    if n == 0:
+        return {f"{m}@{k}": 0.0 for k in ks for m in ("recall", "ndcg")}
+    chunk = min(chunk, ((n + 127) // 128) * 128)  # don't pad tiny evals to a full chunk
+    n_pad = ((n + chunk - 1) // chunk) * chunk
+    dev = U.device
+    users = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+    pos = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+    valid = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+    users[:n] = torch.as_tensor(np.asarray(eval_users, np.int32), device=dev)
+    pos[:n] = torch.as_tensor(np.asarray(eval_pos, np.int32), device=dev)
+    valid[:n] = 1.0
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        sums: Dict[str, torch.Tensor] = {}
+        for c in range(0, n_pad, chunk):
+            sl = slice(c, c + chunk)
+            negs = sample_eval_negatives(generator, users[sl], pos[sl], user_pos_padded, user_deg,
+                                         I.shape[0], neg_k)
+            for k, v in eval_from_negatives(U, I, users[sl], pos[sl], negs, valid[sl], ks).items():
+                sums[k] = sums[k] + v if k in sums else v
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    totals = {k: float(v) for k, v in sums.items()}
+    count = max(totals["count"], 1.0)
+    metrics = {}
+    for k in ks:
+        metrics[f"recall@{k}"] = totals[f"recall@{k}_sum"] / count
+        metrics[f"ndcg@{k}"] = totals[f"ndcg@{k}_sum"] / count
+    metrics["tie_fraction"] = totals["tie_frac_sum"] / count
+    return metrics

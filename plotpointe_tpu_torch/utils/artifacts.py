@@ -32,7 +32,8 @@ class ArtifactStore:
     def exists(self, uri: str) -> bool:
         return _local(uri).exists()
 
-    def _target(self, uri: str) -> Path:
+    def target(self, uri: str) -> Path:
+        """The local path to write `uri` to, its directory created."""
         p = _local(uri)
         p.parent.mkdir(parents=True, exist_ok=True)
         return p
@@ -41,7 +42,7 @@ class ArtifactStore:
         return np.load(self.fetch(uri))
 
     def save_npy(self, arr: np.ndarray, uri: str) -> str:
-        np.save(self._target(uri), arr)
+        np.save(self.target(uri), arr)
         return uri
 
     def load_json(self, uri: str) -> Any:
@@ -49,7 +50,7 @@ class ArtifactStore:
             return json.load(f)
 
     def save_json(self, obj: Any, uri: str) -> str:
-        with open(self._target(uri), "w") as f:
+        with open(self.target(uri), "w") as f:
             json.dump(obj, f, indent=2, sort_keys=False)
         return uri
 
@@ -58,10 +59,18 @@ class ArtifactStore:
             return {k: z[k] for k in z.files}
 
     def save_npz(self, arrays: Dict[str, np.ndarray], uri: str) -> str:
-        np.savez_compressed(self._target(uri), **arrays)
+        np.savez_compressed(self.target(uri), **arrays)
         return uri
 
     def load_parquet(self, uri: str):
         import pandas as pd
 
         return pd.read_parquet(self.fetch(uri))
+
+    def load_interactions(self, prefix: str):
+        """`{prefix}/interactions.npz` (a dict of column arrays, no pandas
+        needed) when it exists, else `{prefix}/interactions.parquet`."""
+        npz = f"{prefix}/interactions.npz"
+        if self.exists(npz):
+            return self.load_npz(npz)
+        return self.load_parquet(f"{prefix}/interactions.parquet")

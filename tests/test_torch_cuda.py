@@ -6,8 +6,10 @@ no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: attention rtol 1e-4 / atol 1e-5 (both sides round the same rows
-and sum in f32; only the summation order differs); scores rtol 1e-5 /
-atol 1e-4 (f32 dot products of width <= 256, summed in another order).
+and sum in f32; only the summation order differs); attention gradients rtol
+5e-4 / atol 1e-4 (tests/test_gat_fused.py:53-55: sums over every edge of a
+row, with cancellation, in another order); scores rtol 1e-5 / atol 1e-4 (f32
+dot products of width <= 256, summed in another order).
 """
 import numpy as np
 import pytest
@@ -15,7 +17,11 @@ import torch
 
 from plotpointe_tpu_torch.graphs.csr import build_graph
 from plotpointe_tpu_torch.ops import cuda_build
-from plotpointe_tpu_torch.ops.gat_fused import attention_fwd, attention_fwd_plain, hash_mask
+from plotpointe_tpu_torch.ops.gat_fused import (
+    attention_bwd_dst, attention_bwd_dst_plain, attention_bwd_src, attention_bwd_src_plain,
+    attention_fwd, attention_fwd_plain, attention_v3, gather_fence, gather_fence_plain, hash_mask,
+    node_terms_plain)
+from plotpointe_tpu_torch.ops.segment import segment_softmax_attention
 from plotpointe_tpu_torch.ops.topk_kernel import (
     chunk_max, chunk_max_plain, n_chunks_of, rescore, rescore_plain, topk_mips, topk_mips_ref)
 
@@ -56,6 +62,112 @@ def test_gat_fwd_kernel_matches_plain(cuda, d, hs_dtype, masked):
     torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(den, want_den, rtol=1e-4, atol=1e-5)
     assert torch.all(out[250:] == 0)
+
+
+GRAD_TOL = dict(rtol=5e-4, atol=1e-4)
+
+
+def _attn_inputs(rng, g, d, cuda):
+    def t(*shape, scale=1.0):
+        return torch.as_tensor((rng.normal(size=shape) * scale).astype(np.float32), device=cuda)
+    return t(g.n_nodes, 1, d), t(1, d, scale=0.2), t(1, d, scale=0.2), t(g.n_nodes, d)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 512])
+@pytest.mark.parametrize("hs_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_gat_bwd_kernels_match_plain(cuda, d, hs_dtype, masked):
+    rng = np.random.default_rng(d + 1)
+    g = _graph(rng).to(cuda)
+    h, a_s, a_d, ct = _attn_inputs(rng, g, d, cuda)
+    mask = hash_mask(99, torch.arange(g.n_edges), 0.3).to(cuda) if masked else None
+    rows, gs, gd = node_terms_plain(h[:, 0], a_s, a_d, hs_dtype)
+    out, den = attention_fwd_plain(h, a_s, a_d, g, mask=mask, hs_dtype=hs_dtype)
+    args = (rows, gs, gd, ct, out[:, 0], den, g, mask)
+    before = {k: cuda_build.COUNTERS[k].count for k in ("gat_bwd_dst", "gat_bwd_src")}
+    got = attention_bwd_dst(*args)
+    for name, a, b in zip(("de_sum", "godot", "da_src"), got, attention_bwd_dst_plain(*args)):
+        torch.testing.assert_close(a, b, **GRAD_TOL, msg=name)
+    args2 = (rows, ct.to(hs_dtype), a_s, gs, gd, den, got[1], g, mask)
+    dh = attention_bwd_src(*args2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dh, attention_bwd_src_plain(*args2), **GRAD_TOL)
+    assert torch.all(dh[250:] == 0) and torch.all(got[0][250:] == 0)
+    assert {k: cuda_build.COUNTERS[k].count - before[k] for k in before} == \
+        {"gat_bwd_dst": 1, "gat_bwd_src": 1}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_attention_v3_grads_match_golden_autograd(cuda, d):
+    rng = np.random.default_rng(d)
+    g = _graph(rng).to(cuda)
+    h, a_s, a_d, ct = _attn_inputs(rng, g, d, cuda)
+    got = [x.clone().requires_grad_() for x in (h, a_s, a_d)]
+    (attention_v3(*got, g, hs_dtype=torch.float32)[:, 0] * ct).sum().backward()
+    want = [x.clone().requires_grad_() for x in (h, a_s, a_d)]
+    (segment_softmax_attention(*want, g)[:, 0] * ct).sum().backward()
+    for name, a, b in zip(("dh", "da_src", "da_dst"), got, want):
+        torch.testing.assert_close(a.grad, b.grad, **GRAD_TOL, msg=name)
+
+
+@pytest.mark.parametrize("hs_dtype", [torch.float32, torch.bfloat16])
+def test_attention_v3_kernels_match_plain_with_dropout(cuda, hs_dtype):
+    rng = np.random.default_rng(3)
+    g = _graph(rng).to(cuda)
+    h, a_s, a_d, ct = _attn_inputs(rng, g, 128, cuda)
+    grads = []
+    for plain in (False, True):
+        x = [t.clone().requires_grad_() for t in (h, a_s, a_d)]
+        (attention_v3(*x, g, dropout_rate=0.4, seed=2**31 + 5, hs_dtype=hs_dtype,
+                      plain=plain)[:, 0] * ct).sum().backward()
+        grads.append([t.grad for t in x])
+    for name, a, b in zip(("dh", "da_src", "da_dst"), *grads):
+        torch.testing.assert_close(a, b, **GRAD_TOL, msg=name)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (300, 64), (1000, 256), (3, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_fence_kernel_matches_plain(cuda, shape, dtype):
+    x = torch.as_tensor(np.random.default_rng(7).normal(size=shape).astype(np.float32),
+                        device=cuda).to(dtype)
+    before = cuda_build.COUNTERS["gather_fence"].count
+    got = gather_fence(x)
+    torch.cuda.synchronize()
+    assert cuda_build.COUNTERS["gather_fence"].count == before + 1
+    torch.testing.assert_close(got, gather_fence_plain(x), rtol=1e-5, atol=1e-5)
+
+
+def _tiny_dataset(seed=0, n_users=300, n_items=200, n=6000):
+    rng = np.random.default_rng(seed)
+    return {"user_id": rng.integers(0, n_users, n), "asin": rng.integers(0, n_items, n),
+            "ts": rng.integers(0, 10**9, n), "rating": rng.integers(1, 6, n).astype(np.float64)}
+
+
+def test_same_seed_fit_is_bit_identical_on_card(cuda):
+    from plotpointe_tpu_torch.config import TrainConfig
+    from plotpointe_tpu_torch.data.splits import build_node_maps, build_splits
+    from plotpointe_tpu_torch.graphs.csr import build_bipartite_graph
+    from plotpointe_tpu_torch.models.gat import GATModel
+    from plotpointe_tpu_torch.train.trainer import Trainer
+
+    inter = _tiny_dataset()
+    s = build_splits(inter, *build_node_maps(inter))
+    feats = np.random.default_rng(1).normal(size=(s.n_items, 48)).astype(np.float32)
+    runs = []
+    for _ in range(2):
+        cfg = TrainConfig(epochs=3, samples_per_epoch=20_000, eval_neg_k=100, eval_chunk=128,
+                          hidden_dim=64)
+        model = GATModel(s.n_users, s.n_items, 48, hidden_dim=64, hs_dtype=torch.bfloat16)
+        graph = build_bipartite_graph(s.train_u, s.train_i, s.n_users, s.n_items, weight=s.train_w)
+        cuda_build.reset_counters()
+        res = Trainer(model, cfg, graph, s, item_feats=feats, device=cuda).fit()
+        assert all(cuda_build.COUNTERS[k].count > 0 for k in ("gat_fwd", "gat_bwd_dst", "gat_bwd_src"))
+        runs.append(([{k: v for k, v in h.items() if not k.endswith("time_s")} for h in res["history"]],
+                     res["test"], {k: v.cpu() for k, v in model.state_dict().items()}))
+    assert runs[0][0] == runs[1][0] and runs[0][1] == runs[1][1]
+    for k, v in runs[0][2].items():
+        assert torch.equal(v, runs[1][2][k]), k
+    assert all(np.isfinite(h["loss"]) for h in runs[0][0])
 
 
 def test_multihead_attention_on_cuda_raises(cuda):

@@ -23,7 +23,9 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     mods = _port_modules()
-    assert "plotpointe_tpu_torch.ops.gat_fused" in mods and "plotpointe_tpu_torch.cli" in mods
+    for m in ("ops.gat_fused", "cli", "config", "pipeline", "train.trainer", "train.sampling",
+              "train.evaluate", "train.losses", "utils.logging"):
+        assert f"plotpointe_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
