@@ -44,6 +44,7 @@ Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -383,6 +384,7 @@ def phase_step_parity(trainer) -> None:
     on the same card tensors (these launches are not the path's)."""
     import torch
 
+    from plotpointe_tpu_torch.ops.gat_fused import reference_versions
     from plotpointe_tpu_torch.train.trainer import STREAM_INIT, STREAM_TRAIN
 
     tr = trainer
@@ -392,8 +394,9 @@ def phase_step_parity(trainer) -> None:
     out = {}
     for plain in (False, True):
         tr.model.zero_grad(set_to_none=True)
-        loss = tr._loss(u, i, j, seeds, plain=plain)
-        loss.backward()
+        with reference_versions() if plain else contextlib.nullcontext():
+            loss = tr._loss(u, i, j, seeds)
+            loss.backward()
         out[plain] = (float(loss.detach()), {n: p.grad.detach().clone()
                                              for n, p in tr.model.named_parameters()})
     (lk, gk), (lp, gp) = out[False], out[True]
@@ -507,13 +510,12 @@ def time_backward(rows_out, graph, h0, a_s, a_d, dev, rng):
     import torch
 
     from plotpointe_tpu_torch.ops.gat_fused import (
-        B1_MAX_BLOCKS, attention_bwd_dst, attention_bwd_dst_plain, attention_bwd_src,
-        attention_bwd_src_plain, attention_fwd, hash_mask, node_terms_plain)
+        attention_bwd_dst, attention_bwd_dst_plain, attention_bwd_src, attention_bwd_src_plain,
+        attention_fwd, hash_mask, node_terms_plain)
 
     n, e, d = graph.n_nodes, graph.n_edges, h0.shape[-1]
     ct = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32), device=dev)
     mask = hash_mask(7, torch.arange(e, device=dev), 0.1)
-    n_warps = min(B1_MAX_BLOCKS, -(-n // 8)) * 8
     with torch.no_grad():
         for rows_dt in (torch.float32, torch.bfloat16):
             isz, dname = (4 if rows_dt == torch.float32 else 2), str(rows_dt)[6:]
@@ -525,10 +527,11 @@ def time_backward(rows_out, graph, h0, a_s, a_d, dev, rng):
             a2 = (rows, ct.to(rows_dt), a_s, gs, gd, den, godot, graph, mask)
             shape = f"N={n} E={e} D={d} rows={dname} mask=0.1"
             # compulsory bytes: each input read once, each output written once;
-            # the per-edge row gathers are not compulsory traffic
+            # the per-edge row gathers and B1's per-warp partial rows of
+            # da_src (a scratch buffer of this design) are not compulsory traffic
             b1_bytes = {"rows": n * d * isz, "g": n * d * 4, "out": n * d * 4, "src": e * 4,
                         "mask": e * 4, "row_ptr": (n + 1) * 4, "gs_gd_den": 3 * n * 4,
-                        "de_sum_godot": 2 * n * 4, "partials": n_warps * d * 4}
+                        "de_sum_godot": 2 * n * 4, "da_src": d * 4}
             b2_bytes = {"rows": n * d * isz, "g_rounded": n * d * isz, "a_src": d * 4,
                         "gs_gd_den_godot": 4 * n * 4, "t_ptr": (n + 1) * 4, "t_dst": e * 4,
                         "t_eid": e * 4, "mask": e * 4, "dh": n * d * 4}

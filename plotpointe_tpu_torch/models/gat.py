@@ -90,10 +90,9 @@ class GATModel(nn.Module):
         return torch.cat([self.user_emb, self.item_proj(item_feats)], dim=0)
 
     def forward(self, item_feats: torch.Tensor, graph: Graph, train: bool = False,
-                seeds: Optional[Sequence[int]] = None, plain: bool = False) -> torch.Tensor:
+                seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
         """train=True applies attention dropout `attn_dropout`, with one uint32
-        mask seed per layer in `seeds`. plain=True runs the attention kernels'
-        plain versions on any device (the reference they are held to)."""
+        mask seed per layer in `seeds`."""
         drop = self.attn_dropout if train else 0.0
         x = self.node_features(item_feats)
         for li, layer in enumerate(self.layers):
@@ -101,7 +100,7 @@ class GATModel(nn.Module):
             seed = seeds[li] if (seeds is not None and drop > 0) else None
             out = segment_softmax_attention_kernel(h, layer.a_src, layer.a_dst, graph,
                                                    dropout_rate=drop, seed=seed,
-                                                   hs_dtype=self.hs_dtype, plain=plain)
+                                                   hs_dtype=self.hs_dtype)
             x = out.mean(dim=1)  # head-mean; identity for heads == 1
             if layer.b is not None:
                 x = x + layer.b

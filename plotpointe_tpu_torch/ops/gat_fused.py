@@ -20,13 +20,18 @@ B1 uses the f32 cotangent g; B2 uses g rounded to `hs_dtype` (for its row
 product and its alpha * g term) and recomputes de from it, so in bf16 mode
 B1 and B2 see slightly different de, as in `attn_bwd`.
 
+`reference_versions()` makes `AttentionV3` run the plain versions on any
+device, for checks that hold a kernel step against its reference on the
+card.
+
 The training step does not call `gather_fence`: on the TPU it orders two
 XLA row gathers of the backward, and the port's kernels gather rows
 themselves, so no such pair remains.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -41,6 +46,7 @@ FENCE_LAUNCHES = cb.COUNTERS["gather_fence"]
 B1_MAX_BLOCKS = 1024  # B1's fixed grid: blocks of 8 warps striding over the rows
 _WARPS_PER_BLOCK = 8
 _M32 = 0xFFFFFFFF
+_reference = False  # True only inside `reference_versions()`
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -314,14 +320,28 @@ def attention_bwd_plain(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tenso
     return dh[:, None, :], da_src, da_dst
 
 
+@contextlib.contextmanager
+def reference_versions() -> Iterator[None]:
+    """Inside this block `AttentionV3` runs the plain versions on any
+    device, forward and backward: the reference its kernels are held to."""
+    global _reference
+    prev, _reference = _reference, True
+    try:
+        yield
+    finally:
+        _reference = prev
+
+
 class AttentionV3(torch.autograd.Function):
     """Single-head fused attention with the backward of `attention_v3`:
     the forward kernel, then B1 and B2 (their plain versions for CPU
-    tensors, or everywhere with `plain=True`). The mask is rebuilt in the
-    backward from its seed."""
+    tensors, or on any device when the forward ran inside
+    `reference_versions()`). The mask is rebuilt in the backward from its
+    seed."""
 
     @staticmethod
-    def forward(ctx, h, a_src, a_dst, graph, dropout_rate, seed, hs_dtype, plain):
+    def forward(ctx, h, a_src, a_dst, graph, dropout_rate, seed, hs_dtype):
+        plain = _reference
         n, _, d = h.shape
         mask = dropout_mask(graph, dropout_rate, seed, h.device)
         _check(h, a_src, a_dst, graph, mask, hs_dtype)
@@ -338,18 +358,17 @@ class AttentionV3(torch.autograd.Function):
         mask = dropout_mask(ctx.graph, ctx.dropout_rate, ctx.seed, h2.device)
         dh, da_src, da_dst = _backward(h2, a_src, a_dst, ctx.graph, g.reshape(n, d).contiguous(),
                                        out2, den, rows, gs, gd, mask, ctx.plain)
-        return dh.view(n, 1, d), da_src, da_dst, None, None, None, None, None
+        return dh.view(n, 1, d), da_src, da_dst, None, None, None, None
 
 
 def attention_v3(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,
                  dropout_rate: float = 0.0, seed: Optional[int] = None,
-                 hs_dtype: torch.dtype = torch.bfloat16, plain: bool = False) -> torch.Tensor:
+                 hs_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Differentiable single-head attention, h [N, 1, D] -> [N, 1, D]. With
     dropout_rate > 0 and a uint32 `seed`, the hash mask over canonical edge
     ids drops attention weights (the JAX package draws its seed as
-    `jax.random.bits(rng, (), uint32)`). `plain=True` runs the plain
-    versions on any device: the reference the kernels are held to."""
-    return AttentionV3.apply(h, a_src, a_dst, graph, float(dropout_rate), seed, hs_dtype, plain)
+    `jax.random.bits(rng, (), uint32)`)."""
+    return AttentionV3.apply(h, a_src, a_dst, graph, float(dropout_rate), seed, hs_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -100,8 +100,8 @@ class Trainer:
         self.user_deg = torch.as_tensor(deg, device=dev)
         self.train_users = torch.as_tensor(np.flatnonzero(deg > 0).astype(np.int32), device=dev)
         self.generator = torch.Generator(device=dev)
-        self.optimizer, self.scheduler = make_optimizer(self.model.parameters(), cfg.lr, cfg.l2,
-                                                        cfg.optimizer, cfg.warmup_steps)
+        self.optimizer: Optional[torch.optim.Optimizer] = None  # fit() builds both
+        self.scheduler: Optional[Any] = None
 
     def _reseed(self, stream: int, index: int) -> torch.Generator:
         return self.generator.manual_seed(stream_seed(self.cfg.seed, stream, index))
@@ -118,11 +118,10 @@ class Trainer:
                                   device=self.device, dtype=torch.int64).tolist()
         return u, i, j, seeds
 
-    def _loss(self, u, i, j, seeds, plain: bool = False) -> torch.Tensor:
+    def _loss(self, u, i, j, seeds) -> torch.Tensor:
         """The loss of the JAX step: scores U[u].I[i] and U[u].I[j] from a
-        full-graph forward with dropout. plain=True runs the attention
-        kernels' plain versions (the reference)."""
-        z = self.model(self.item_feats, self.graph, train=True, seeds=seeds, plain=plain)
+        full-graph forward with dropout."""
+        z = self.model(self.item_feats, self.graph, train=True, seeds=seeds)
         rows = gather_rows(z, torch.cat([u, i + self.n_users, j + self.n_users]))
         zu, zi, zj = rows.split(u.shape[0])
         return LOSSES[self.cfg.loss]((zu * zi).sum(-1), (zu * zj).sum(-1))

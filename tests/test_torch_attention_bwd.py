@@ -18,10 +18,11 @@ import jax.numpy as jnp
 from plotpointe_tpu.graphs.csr import build_graph as jax_build_graph
 from plotpointe_tpu.ops.gat_fused import _gather_fence, attention_v3 as jax_attention_v3
 from plotpointe_tpu_torch.graphs.csr import build_graph
+from plotpointe_tpu_torch.ops import gat_fused
 from plotpointe_tpu_torch.ops.gat_fused import (
     attention_bwd_dst, attention_bwd_dst_plain, attention_bwd_plain, attention_bwd_src,
     attention_bwd_src_plain, attention_fwd_plain, attention_v3, gather_fence, gather_fence_plain,
-    hash_mask, node_terms_plain)
+    hash_mask, node_terms_plain, reference_versions)
 from plotpointe_tpu_torch.ops.segment import segment_softmax_attention
 
 GRAD_TOL = dict(rtol=5e-4, atol=1e-4)
@@ -101,6 +102,12 @@ def test_plain_backward_matches_autograd_of_golden(graphs, d):
         np.testing.assert_allclose(a.numpy(), b, err_msg=name, **GRAD_TOL)
     via_op = _port_grads(h, a_s, a_d, ct, g, hs_dtype=torch.float32)
     for name, a, b in zip(("dh", "da_src", "da_dst"), via_op, got):
+        np.testing.assert_array_equal(a, b.numpy(), err_msg=name)
+    with pytest.raises(RuntimeError), reference_versions():
+        via_ref = _port_grads(h, a_s, a_d, ct, g, hs_dtype=torch.float32)
+        raise RuntimeError
+    assert not gat_fused._reference  # the switch is scoped, even on an error
+    for name, a, b in zip(("dh", "da_src", "da_dst"), via_ref, got):
         np.testing.assert_array_equal(a, b.numpy(), err_msg=name)
 
 

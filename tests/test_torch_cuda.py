@@ -11,6 +11,8 @@ and sum in f32; only the summation order differs); attention gradients rtol
 row, with cancellation, in another order); scores rtol 1e-5 / atol 1e-4 (f32
 dot products of width <= 256, summed in another order).
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +22,7 @@ from plotpointe_tpu_torch.ops import cuda_build
 from plotpointe_tpu_torch.ops.gat_fused import (
     attention_bwd_dst, attention_bwd_dst_plain, attention_bwd_src, attention_bwd_src_plain,
     attention_fwd, attention_fwd_plain, attention_v3, gather_fence, gather_fence_plain, hash_mask,
-    node_terms_plain)
+    node_terms_plain, reference_versions)
 from plotpointe_tpu_torch.ops.segment import segment_softmax_attention
 from plotpointe_tpu_torch.ops.topk_kernel import (
     chunk_max, chunk_max_plain, n_chunks_of, rescore, rescore_plain, topk_mips, topk_mips_ref)
@@ -118,8 +120,9 @@ def test_attention_v3_kernels_match_plain_with_dropout(cuda, hs_dtype):
     grads = []
     for plain in (False, True):
         x = [t.clone().requires_grad_() for t in (h, a_s, a_d)]
-        (attention_v3(*x, g, dropout_rate=0.4, seed=2**31 + 5, hs_dtype=hs_dtype,
-                      plain=plain)[:, 0] * ct).sum().backward()
+        with reference_versions() if plain else contextlib.nullcontext():
+            (attention_v3(*x, g, dropout_rate=0.4, seed=2**31 + 5,
+                          hs_dtype=hs_dtype)[:, 0] * ct).sum().backward()
         grads.append([t.grad for t in x])
     for name, a, b in zip(("dh", "da_src", "da_dst"), *grads):
         torch.testing.assert_close(a, b, **GRAD_TOL, msg=name)
