@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py [--seed 0] [--epochs 3] [--layers 2]
 
-Drives the port's two paths end to end at full width (GAT, hidden 128,
-1 head, 384-d item features; `--layers` deep) and holds every CUDA kernel
-against its plain PyTorch version. Phases, one JSON line each:
+Drives the port's paths end to end at full width and holds every CUDA
+kernel against its plain PyTorch version. The models: GAT (hidden 128, 1
+head, 384-d item features, `--layers` deep), the 2-head GAT of the
+reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
+(64-d, 3 propagation rounds). Phases, one JSON line each:
 
   device   the card (and `nvidia-smi` name + power limit on a line of its own)
   build    nvcc builds of the kernels, all sources at once
@@ -13,8 +15,8 @@ against its plain PyTorch version. Phases, one JSON line each:
            (192,403 users x 63,001 items x 1,689,116 interactions, lognormal
            degree skew sigma 0.83 / 1.52) and 384-d item features
   check    each kernel vs its plain version on the card, at a small shape and
-           at the main paths' shapes (tolerances below); the attention op's
-           gradients vs autograd of the plain golden
+           at the main paths' shapes (tolerances below); the attention ops'
+           and the SpMM operator's gradients vs autograd of the plain goldens
   train    path 1, every launch counter set to 0 first: `train_from_artifacts`
            (interactions.npz + features npy -> `--epochs` optimizer steps of
            200,000 BPR triples with dropout 0.1 and bf16 rows, a 1,000-negative
@@ -28,13 +30,27 @@ against its plain PyTorch version. Phases, one JSON line each:
            every reply must be 200 and its scores must match the plain CPU
            answer; the export must match the CPU export; every kernel of the
            path must have launched
+  train_lightgcn
+           path 3, counters set to 0 before its training and again before
+           its serving: one full epoch of LightGCN's mini-batch protocol
+           (batch 8,192, 5 negatives per positive, bf16 rows) through
+           `train_from_artifacts`, a 1,000-negative val eval and the best
+           checkpoint; the first step with kernel 7 vs the same step with
+           its plain version; the export on the card vs the CPU export; 8
+           /recommend requests on the 64-wide table vs the plain answer
+  train_mh path 4, the same for the 2-head GAT: `--epochs` steps of 200,000
+           triples with dropout 0.1 at bf16 rows (kernels 8, 9 and B2 per
+           head), the first-step check, and the export on the card (kernel
+           8, f32 rows) vs the CPU export
   timing   CUDA-event times of each kernel, its plain version and, where one
            PyTorch call computes the same function, that call; the bound with
            its reckoning; kernel 1 split into its two CUDA kernels and timed on
            a graph of the same size without degree skew; the training step
            split into sampling, forward, backward and optimizer, and its
            device time by kernel with the idle share (torch.profiler); one
-           eval pass
+           eval pass; kernel 7 in both directions with `torch.sparse.mm` as
+           its yardstick; kernels 8 and 9 per layer; the LightGCN and 2-head
+           steps by phase, profiled
   kernels  one {"kernels": [...]} line
   last     {"ok": true, "device": {...}}
 
@@ -78,12 +94,22 @@ SOURCES = {
     "gather_fence": ("plotpointe_tpu_torch/csrc/gather_fence.cu", "plotpointe_tpu/ops/gat_fused.py:43"),
     "topk_chunkmax": ("plotpointe_tpu_torch/csrc/topk_chunkmax.cu", "plotpointe_tpu/ops/topk_kernel.py:140"),
     "topk_rescore": ("plotpointe_tpu_torch/csrc/topk_rescore.cu", "plotpointe_tpu/ops/topk_kernel.py:175"),
+    "spmm_csr": ("plotpointe_tpu_torch/csrc/spmm_csr.cu", "plotpointe_tpu/ops/spmm_kernel.py:34"),
+    "gat_fwd_mh": ("plotpointe_tpu_torch/csrc/gat_fwd_mh.cu", "plotpointe_tpu/ops/gat_fused.py:460"),
+    "gat_bwd_dst_mh": ("plotpointe_tpu_torch/csrc/gat_bwd_dst_mh.cu",
+                       "plotpointe_tpu/ops/gat_fused.py:557"),
 }
-# the kernels each path must launch; gather_fence is on neither (the port's
+# the kernels each path must launch; gather_fence is on none (the port's
 # backward kernels gather rows themselves, so there are no two XLA gathers
 # to order) and is only checked and timed
 PATH_KERNELS = {"train": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src"),
-                "serve": ("gat_fwd", "topk_chunkmax", "topk_rescore")}
+                "serve": ("gat_fwd", "topk_chunkmax", "topk_rescore"),
+                "lightgcn_train": ("spmm_csr",),
+                "lightgcn_serve": ("spmm_csr", "topk_chunkmax", "topk_rescore"),
+                "mh_train": ("gat_fwd_mh", "gat_bwd_dst_mh", "gat_bwd_src"),
+                "mh_export": ("gat_fwd_mh",)}
+LIGHTGCN = dict(embed_dim=64, n_prop_layers=3, batch_size=8192, neg_per_pos=5)
+MH_HEADS = 2
 
 
 def emit(obj) -> None:
@@ -296,6 +322,103 @@ def check_attention(errs, rng, label, g, h, a_s, a_d, dev):
     sync()
 
 
+def check_spmm(errs, rng, label, g, dev):
+    """Kernel 7 in both directions (the LightGCN operator's forward and
+    backward CSRs, its symmetric normalized values) vs its plain version,
+    and the operator's gradient vs autograd of the plain golden."""
+    import torch
+
+    from plotpointe_tpu_torch.graphs.csr import symmetric_normalized_weights
+    from plotpointe_tpu_torch.ops.segment import spmm as golden_spmm
+    from plotpointe_tpu_torch.ops.spmm_kernel import make_spmm, spmm_csr, spmm_csr_plain
+
+    vals = symmetric_normalized_weights(g)
+    v = torch.as_tensor(vals, device=dev)
+    dirs = (("dst", g.row_ptr, g.src, v), ("transpose", g.t_ptr, g.t_dst, v[g.t_eid.long()]))
+    with torch.no_grad():
+        for d in (64, 128):
+            x = torch.as_tensor(rng.normal(size=(g.n_nodes, d)).astype(np.float32), device=dev)
+            for rows_dt in (torch.float32, torch.bfloat16):
+                for name, ptr, idx, vv in dirs:
+                    what = f"{label} N={g.n_nodes} E={g.n_edges} D={d} rows={str(rows_dt)[6:]} {name}"
+                    errs.check("spmm_csr", what, spmm_csr(x, vv, ptr, idx, rows_dt),
+                               spmm_csr_plain(x, vv, ptr, idx, rows_dt), ATTN_TOL)
+    x = torch.as_tensor(rng.normal(size=(g.n_nodes, 64)).astype(np.float32), device=dev)
+    ct = torch.as_tensor(rng.normal(size=(g.n_nodes, 64)).astype(np.float32), device=dev)
+    got, want = x.clone().requires_grad_(), x.clone().requires_grad_()
+    (make_spmm(g, vals, torch.float32)(got) * ct).sum().backward()
+    (golden_spmm(g, v, want) * ct).sum().backward()
+    errs.check("make_spmm", f"{label} N={g.n_nodes} D=64 rows=float32 grad vs golden autograd",
+               got.grad, want.grad, GRAD_TOL)
+    sync()
+
+
+def check_multihead(errs, rng, label, g, dev, layer=None):
+    """Kernels 8 and 9 and B2 on one head's strided rows vs their plain
+    versions (heads 2 and 4, D = 128), and the op's gradients vs autograd of
+    the golden. `layer` = (h [N, 1, D], a_src, a_dst) of a model's layer:
+    head k then takes those rows and vectors rotated by 17 k features, so
+    the main graph's check sees the path's magnitudes (d a_src sums 2.7M
+    edges with cancellation; at N(0, 1) rows its f32 order noise reaches
+    1e-3 relative), as the single-head check does."""
+    import torch
+
+    from plotpointe_tpu_torch.ops.gat_fused import (
+        attention_bwd_dst_mh, attention_bwd_dst_mh_plain, attention_bwd_src,
+        attention_bwd_src_plain, attention_fwd_mh, attention_fwd_mh_plain, attention_v3_mh,
+        dropout_mask_mh, node_terms_mh_plain)
+    from plotpointe_tpu_torch.ops.segment import segment_softmax_attention
+
+    n, d = g.n_nodes, 128
+
+    def t(*shape, scale=1.0):
+        return torch.as_tensor((rng.normal(size=shape) * scale).astype(np.float32), device=dev)
+
+    def inputs(heads):
+        if layer is None:
+            return t(n, heads, d), t(heads, d, scale=0.1), t(heads, d, scale=0.1), t(n, heads, d)
+        h1, s1, d1 = layer
+        rot = [17 * k for k in range(heads)]
+        return (torch.stack([torch.roll(h1[:, 0], r, -1) for r in rot], 1).contiguous(),
+                torch.cat([torch.roll(s1, r, -1) for r in rot]),
+                torch.cat([torch.roll(d1, r, -1) for r in rot]), t(n, heads, d))
+
+    for heads in (2, 4):
+        h, a_s, a_d, ct = inputs(heads)
+        mask = dropout_mask_mh(g, 0.1, 7, heads, dev)
+        with torch.no_grad():
+            for rows_dt in (torch.float32, torch.bfloat16):
+                for masked in (False, True):
+                    mk = mask if masked else None
+                    what = f"{label} N={n} E={g.n_edges} H={heads} D={d} rows={str(rows_dt)[6:]} mask={masked}"
+                    got = attention_fwd_mh(h, a_s, a_d, g, mask=mk, hs_dtype=rows_dt)
+                    want = attention_fwd_mh_plain(h, a_s, a_d, g, mask=mk, hs_dtype=rows_dt)
+                    errs.check("gat_fwd_mh", what + " out", got[0], want[0], ATTN_TOL)
+                    errs.check("gat_fwd_mh", what + " den", got[1], want[1], ATTN_TOL)
+                    rows, gs, gd = node_terms_mh_plain(h, a_s, a_d, rows_dt)
+                    args = (rows, gs, gd, ct, want[0], want[1], g, mk)
+                    got1, want1 = attention_bwd_dst_mh(*args), attention_bwd_dst_mh_plain(*args)
+                    for part, x, y in zip(("de_sum", "godot", "da_src"), got1, want1):
+                        errs.check("gat_bwd_dst_mh", f"{what} {part}", x, y, GRAD_TOL)
+                    k = heads - 1  # B2 on the last head's rows, read with a row stride
+                    args2 = (rows[:, k], ct.to(rows_dt)[:, k], a_s[k:k + 1], gs[:, k].contiguous(),
+                             gd[:, k].contiguous(), want[1][:, k].contiguous(),
+                             want1[1][:, k].contiguous(), g, None if mk is None else mk[k])
+                    errs.check("gat_bwd_src", f"{what} head {k} strided dh",
+                               attention_bwd_src(*args2), attention_bwd_src_plain(*args2), GRAD_TOL)
+                    del got, want, got1, want1, rows, args, args2
+        del h, ct, mask
+    h, a_s, a_d, ct = inputs(2)
+    got = [x.clone().requires_grad_() for x in (h, a_s, a_d)]
+    (attention_v3_mh(*got, g, hs_dtype=torch.float32) * ct).sum().backward()
+    want = [x.clone().requires_grad_() for x in (h, a_s, a_d)]
+    (segment_softmax_attention(*want, g) * ct).sum().backward()
+    for part, x, y in zip(("dh", "da_src", "da_dst"), got, want):
+        errs.check("attention_v3_mh", f"{label} N={n} H=2 rows=float32 mask=False grad {part} vs "
+                   "golden autograd", x.grad, y.grad, GRAD_TOL)
+    sync()
+
+
 def phase_check(errs, rng, graph, h0, a_s, a_d, catalog, dev) -> None:
     import torch
 
@@ -311,6 +434,9 @@ def phase_check(errs, rng, graph, h0, a_s, a_d, catalog, dev) -> None:
     hsmall = torch.as_tensor(rng.normal(size=(small_n, 1, 128)).astype(np.float32), device=dev)
     check_attention(errs, rng, "small", gsmall, hsmall, a_s, a_d, dev)
     check_attention(errs, rng, "main", graph, h0, a_s, a_d, dev)
+    for label, g, layer in (("small", gsmall, None), ("main", graph, (h0, a_s, a_d))):
+        check_spmm(errs, rng, label, g, dev)
+        check_multihead(errs, rng, label, g, dev, layer)
     with torch.no_grad():
         for label, x in (("small", hsmall[:40, 0, :64]), ("main", h0[:, 0])):
             for dt in (torch.float32, torch.bfloat16):
@@ -331,31 +457,34 @@ def phase_check(errs, rng, graph, h0, a_s, a_d, catalog, dev) -> None:
     sync()
 
 
-def phase_train(args, work: Path, inter, feats, dev):
-    """Path 1: `train_from_artifacts` at full width. Returns the trainer, the
-    checkpoint path and the launches."""
-    from plotpointe_tpu_torch.config import TrainConfig
-    from plotpointe_tpu_torch.ops import cuda_build
-    from plotpointe_tpu_torch.pipeline import train_from_artifacts
-    from plotpointe_tpu_torch.train.checkpoint import load_checkpoint, params_to_jax
-
-    staging, emb, models = work / "staging", work / "embeddings", work / "models"
+def write_artifacts(work: Path, inter, feats):
+    """interactions.npz and the item features, as `train_from_artifacts` reads them."""
+    staging, emb = work / "staging", work / "embeddings"
     staging.mkdir()
     emb.mkdir()
     np.savez(staging / "interactions.npz", **inter)
     np.save(emb / "fused_interacted.npy", feats)
-    cfg = TrainConfig(hidden_dim=128, layers=args.layers, heads=1, attn_dropout=0.1,
-                      epochs=args.epochs, samples_per_epoch=200_000, eval_neg_k=1000,
-                      attn_impl="auto", seed=args.seed)
+    return staging, emb
+
+
+def phase_train(label: str, cfg, work: Path, dev, path_kernels, check_config):
+    """One training path: `train_from_artifacts` with every counter set to 0
+    first. Returns the trainer, the checkpoint path, the results and the
+    launches."""
+    from plotpointe_tpu_torch.ops import cuda_build
+    from plotpointe_tpu_torch.pipeline import train_from_artifacts
+    from plotpointe_tpu_torch.train.checkpoint import load_checkpoint, params_to_jax
+
     cuda_build.reset_counters()
     t0 = time.perf_counter()
-    res = train_from_artifacts(cfg, str(staging), str(emb), str(models), device=dev)
+    res = train_from_artifacts(cfg, str(work / "staging"), str(work / "embeddings"),
+                               str(work / f"models_{label}"), device=dev)
     sync()
     wall = time.perf_counter() - t0
     launches = counts()
     trainer = res["trainer"]
     for h in res["history"]:
-        emit({"phase": "train", "epoch": h["epoch"], "loss": h["loss"], "step_s": h["step_time_s"],
+        emit({"phase": label, "epoch": h["epoch"], "loss": h["loss"], "step_s": h["step_time_s"],
               "eval_s": h["eval_time_s"], "val_ndcg@20": h.get("val_ndcg@20"),
               "val_recall@20": h.get("val_recall@20")})
     losses = [h["loss"] for h in res["history"]]
@@ -364,41 +493,38 @@ def phase_train(args, work: Path, inter, feats, dev):
     best = params_to_jax(trainer.model.state_dict())  # the best parameters after fit
     jax_format = (sorted(flat) == sorted(best) and "train_config" in config
                   and all(np.array_equal(flat[k], best[k]) for k in best)
-                  and config["n_layers"] == args.layers and config["hidden_dim"] == 128)
-    missing = [k for k in PATH_KERNELS["train"] if launches[k] == 0]
-    emit({"phase": "train", "wall_s": wall, "epochs": args.epochs, "losses": losses,
-          "rows": str(trainer.model.hs_dtype)[6:], "best_val_ndcg@20": res["best_val_ndcg@20"],
+                  and all(config[k] == v for k, v in check_config.items()))
+    missing = [k for k in path_kernels if launches[k] == 0]
+    rows = getattr(trainer.model, "hs_dtype", getattr(trainer.model, "xs_dtype", None))
+    emit({"phase": label, "wall_s": wall, "epochs": cfg.epochs, "losses": losses,
+          "rows": str(rows)[6:], "best_val_ndcg@20": res["best_val_ndcg@20"],
           "test": res["test"], "checkpoint_keys": sorted(flat), "checkpoint_jax_format": jax_format,
           "launches": launches, "ok": not missing and jax_format and bool(np.isfinite(losses).all())})
     if not np.isfinite(losses).all():
-        raise AssertionError(f"non-finite training loss: {losses}")
+        raise AssertionError(f"{label}: non-finite training loss: {losses}")
     if missing:
-        raise AssertionError(f"kernels not launched on the training path: {missing}")
+        raise AssertionError(f"{label}: kernels not launched on the training path: {missing}")
     if not jax_format:
-        raise AssertionError(f"best checkpoint {ckpt} is not the best parameters in the JAX format")
-    return trainer, ckpt, launches
+        raise AssertionError(f"{label}: best checkpoint {ckpt} is not the best parameters in the JAX format")
+    return trainer, ckpt, res, launches
 
 
-def phase_step_parity(trainer) -> None:
-    """The first training step with the kernels vs with their plain versions,
-    on the same card tensors (these launches are not the path's)."""
+def step_parity(label: str, model, loss_fn) -> None:
+    """One training step's loss and gradients with the kernels vs with their
+    plain versions (`reference_versions()`), on the same card tensors (these
+    launches are not the path's)."""
     import torch
 
     from plotpointe_tpu_torch.ops.gat_fused import reference_versions
-    from plotpointe_tpu_torch.train.trainer import STREAM_INIT, STREAM_TRAIN
 
-    tr = trainer
-    tr.model.init_params(tr._reseed(STREAM_INIT, 0))
-    tr._reseed(STREAM_TRAIN, 1)
-    u, i, j, seeds = tr._sample()
     out = {}
     for plain in (False, True):
-        tr.model.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)
         with reference_versions() if plain else contextlib.nullcontext():
-            loss = tr._loss(u, i, j, seeds)
+            loss = loss_fn()
             loss.backward()
         out[plain] = (float(loss.detach()), {n: p.grad.detach().clone()
-                                             for n, p in tr.model.named_parameters()})
+                                             for n, p in model.named_parameters()})
     (lk, gk), (lp, gp) = out[False], out[True]
     worst, bad = {}, []
     for name, want in gp.items():
@@ -407,65 +533,98 @@ def phase_step_parity(trainer) -> None:
         if not torch.allclose(gk[name], want, rtol=STEP_RTOL, atol=STEP_ATOL_OF_MAX * scale):
             bad.append(name)
     loss_ok = abs(lk - lp) <= LOSS_RTOL * abs(lp)
-    emit({"phase": "train", "check": "first step, kernels vs plain versions", "loss_kernels": lk,
+    emit({"phase": label, "check": "first step, kernels vs plain versions", "loss_kernels": lk,
           "loss_plain": lp, "grad_max_abs_err_over_max": worst,
           "tol": {"rtol": STEP_RTOL, "atol_of_max": STEP_ATOL_OF_MAX, "loss_rtol": LOSS_RTOL},
           "ok": loss_ok and not bad})
     if not loss_ok or bad:
-        raise AssertionError(f"training step: loss {lk} vs {lp}, gradients off: {bad}")
-    tr.model.zero_grad(set_to_none=True)
+        raise AssertionError(f"{label} step: loss {lk} vs {lp}, gradients off: {bad}")
+    model.zero_grad(set_to_none=True)
 
 
-def phase_main(work: Path, ckpt, inter, s, feats, dev):
-    """Path 2: export the trained checkpoint and serve it over HTTP."""
-    import torch
+def phase_step_parity(label: str, tr) -> None:
+    """The first step of a trainer's path (GAT or LightGCN) from its initial
+    parameters, kernels vs plain versions."""
+    from plotpointe_tpu_torch.train.trainer import STREAM_INIT, STREAM_TRAIN
 
-    from plotpointe_tpu_torch.ops import cuda_build
-    from plotpointe_tpu_torch.serving.httpd import serve
-    from plotpointe_tpu_torch.serving.runtime import RecommenderRuntime, ServingConfig
+    tr.model.init_params(tr._reseed(STREAM_INIT, 0))
+    tr._reseed(STREAM_TRAIN, 1)
+    if tr._spmm_op is not None:
+        perm, _ = tr._lightgcn_perm()
+        batch = tr._lightgcn_sample(perm, 0)
+        step_parity(label, tr.model, lambda: tr._lightgcn_loss(*batch))
+    else:
+        u, i, j, seeds = tr._sample()
+        step_parity(label, tr.model, lambda: tr._loss(u, i, j, seeds))
+
+
+def export_and_check(label: str, work: Path, ckpt, inter, feats, n_items: int, width: int, dev):
+    """`export_item_embeddings` of a checkpoint on the card and on the CPU;
+    they must agree within ATTN_TOL. Returns (npy path, export stats)."""
     from plotpointe_tpu_torch.tools.export import export_item_embeddings
 
-    cuda_build.reset_counters()
+    out_npy = str(work / f"{label}_items.npy")
     t0 = time.perf_counter()
-    out_npy = str(work / "item_embeddings.npy")
     emb = export_item_embeddings(ckpt, inter, feats, out_npy, device=dev)
+    sync()
     t_export = time.perf_counter() - t0
-    hist_rng = np.random.default_rng(1)
-    histories = [hist_rng.choice(s.n_items, size=int(hist_rng.integers(1, 21)), replace=False).tolist()
-                 for _ in range(72)]
+    t0 = time.perf_counter()
+    emb_cpu = export_item_embeddings(ckpt, inter, feats, str(work / f"{label}_cpu_items.npy"),
+                                     device="cpu")
+    t_export_cpu = time.perf_counter() - t0
+    export_err = float(np.max(np.abs(emb - emb_cpu)))
+    if emb.shape != (n_items, width) or not np.isfinite(emb).all() \
+            or not np.allclose(emb, emb_cpu, **ATTN_TOL):
+        raise AssertionError(f"{label} export on the card: shape {emb.shape}, max err vs CPU {export_err}")
+    return out_npy, {"export_s": t_export, "export_cpu_s": t_export_cpu,
+                     "export_shape": list(emb.shape), "export_max_abs_err_vs_cpu": export_err}
+
+
+def serve_and_check(npy: str, histories, n_single: int, n_concurrent: int) -> dict:
+    """`n_single` sequential /recommend requests to one stdlib HTTP server,
+    then `n_concurrent` concurrent ones to a micro-batching server; every
+    reply must be 200 and its scores must match the plain CPU answer."""
+    from plotpointe_tpu_torch.serving.httpd import serve
+    from plotpointe_tpu_torch.serving.runtime import RecommenderRuntime, ServingConfig
+
+    replies = [None] * (n_single + n_concurrent)
     single_srv, _ = serve("127.0.0.1", 0, block=False)
-    batch_srv, _ = serve("127.0.0.1", 0, block=False, micro_batch=True, micro_batch_max=64,
-                         micro_batch_wait_ms=5.0)
-    replies = [None] * 72
+    servers = [single_srv]
+    if n_concurrent:
+        servers.append(serve("127.0.0.1", 0, block=False, micro_batch=True, micro_batch_max=64,
+                             micro_batch_wait_ms=5.0)[0])
+    stats = {}
     try:
-        urls = [f"http://127.0.0.1:{srv.server_address[1]}" for srv in (single_srv, batch_srv)]
+        urls = [f"http://127.0.0.1:{srv.server_address[1]}" for srv in servers]
         for u in urls:
-            code, body = post(f"{u}/startup", {"item_embeddings_uri": out_npy, "use_device": True})
+            code, body = post(f"{u}/startup", {"item_embeddings_uri": npy, "use_device": True})
             if code != 200:
                 raise AssertionError(f"/startup answered {code}: {body}")
         t1 = time.perf_counter()
-        for i in range(8):
+        for i in range(n_single):
             replies[i] = post(f"{urls[0]}/recommend", {"item_ids": histories[i], "k": 20})
-        t_single = time.perf_counter() - t1
-        barrier = threading.Barrier(64)
+        stats["single_requests"], stats["single_wall_s"] = n_single, time.perf_counter() - t1
+        if n_concurrent:
+            barrier = threading.Barrier(n_concurrent)
 
-        def client(i):
-            barrier.wait()
-            replies[i] = post(f"{urls[1]}/recommend", {"item_ids": histories[i], "k": 20})
+            def client(i):
+                barrier.wait()
+                replies[i] = post(f"{urls[1]}/recommend", {"item_ids": histories[i], "k": 20})
 
-        threads = [threading.Thread(target=client, args=(i,)) for i in range(8, 72)]
-        t1 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-        t_batch = time.perf_counter() - t1
-        torch.cuda.synchronize()
-        launches = counts()
-        stats = batch_srv.state.batcher.stats
-        batches = (stats.n_requests, stats.n_batches, stats.max_batch)
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(n_single, n_single + n_concurrent)]
+            t1 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            stats["concurrent_requests"] = n_concurrent
+            stats["concurrent_wall_s"] = time.perf_counter() - t1
+            b = servers[1].state.batcher.stats
+            stats["batcher_requests_batches_max"] = (b.n_requests, b.n_batches, b.max_batch)
+        sync()
     finally:
-        for srv in (single_srv, batch_srv):
+        for srv in servers:
             srv.shutdown()
             srv.server_close()
             srv.state.close()
@@ -473,7 +632,7 @@ def phase_main(work: Path, ckpt, inter, s, feats, dev):
     codes = [r[0] if r else None for r in replies]
     if any(c != 200 for c in codes):
         raise AssertionError(f"/recommend replies not all 200: {codes}")
-    plain_rt = RecommenderRuntime(ServingConfig(item_embeddings_uri=out_npy, device="cpu",
+    plain_rt = RecommenderRuntime(ServingConfig(item_embeddings_uri=npy, device="cpu",
                                                 use_kernel_topk=False))
     plain_rt.startup()
     worst = 0.0
@@ -486,22 +645,31 @@ def phase_main(work: Path, ckpt, inter, s, feats, dev):
         worst = max(worst, float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-12))))
     if worst > SERVE_RTOL:
         raise AssertionError(f"served scores differ from the plain answer by {worst} relative")
-    t1 = time.perf_counter()
-    emb_cpu = export_item_embeddings(ckpt, inter, feats, str(work / "cpu_items.npy"), device="cpu")
-    t_export_cpu = time.perf_counter() - t1
-    export_err = float(np.max(np.abs(emb - emb_cpu)))
-    if emb.shape != (s.n_items, 128) or not np.isfinite(emb).all() \
-            or not np.allclose(emb, emb_cpu, **ATTN_TOL):
-        raise AssertionError(f"export on the card: shape {emb.shape}, max err vs CPU {export_err}")
-    missing = [k for k in PATH_KERNELS["serve"] if launches[k] == 0]
-    emit({"phase": "main", "checkpoint": "trained", "export_s": t_export,
-          "export_cpu_s": t_export_cpu, "export_shape": list(emb.shape),
-          "export_max_abs_err_vs_cpu": export_err, "single_requests": 8,
-          "single_wall_s": t_single, "concurrent_requests": 64, "concurrent_wall_s": t_batch,
-          "batcher_requests_batches_max": batches, "status_codes": sorted(set(codes)),
-          "served_max_rel_err_vs_plain": worst, "launches": launches, "ok": not missing})
+    return stats | {"status_codes": sorted(set(codes)), "served_max_rel_err_vs_plain": worst}
+
+
+def histories_of(n_items: int, n: int):
+    hist_rng = np.random.default_rng(1)
+    return [hist_rng.choice(n_items, size=int(hist_rng.integers(1, 21)), replace=False).tolist()
+            for _ in range(n)]
+
+
+def phase_serve(label: str, work: Path, ckpt, inter, feats, n_items: int, width: int,
+                n_single: int, n_concurrent: int, dev, path_kernels) -> dict:
+    """A serving path, counters set to 0 first: export the trained checkpoint
+    on the card (held to the CPU export) and serve it over HTTP."""
+    from plotpointe_tpu_torch.ops import cuda_build
+
+    cuda_build.reset_counters()
+    npy, stats = export_and_check(label, work, ckpt, inter, feats, n_items, width, dev)
+    if n_single or n_concurrent:
+        stats |= serve_and_check(npy, histories_of(n_items, n_single + n_concurrent), n_single,
+                                 n_concurrent)
+    launches = counts()
+    missing = [k for k in path_kernels if launches[k] == 0]
+    emit({"phase": label, "checkpoint": "trained", **stats, "launches": launches, "ok": not missing})
     if missing:
-        raise AssertionError(f"kernels not launched on the serving path: {missing}")
+        raise AssertionError(f"{label}: kernels not launched on the path: {missing}")
     return launches
 
 
@@ -549,18 +717,29 @@ def time_backward(rows_out, graph, h0, a_s, a_d, dev, rng):
             del rows, out, a1, a2, godot
 
 
-def time_train_step(trainer, s) -> None:
+def step_fns(tr):
+    """(sample, loss of a sample) of one training step of the trainer's path:
+    the GAT's sampled triples, or LightGCN's next mini-batch."""
+    if tr._spmm_op is None:
+        return tr._sample, lambda batch: tr._loss(*batch)
+    perm, n_steps = tr._lightgcn_perm()
+    steps = iter(range(1 << 30))
+    return (lambda: tr._lightgcn_sample(perm, next(steps) % n_steps),
+            lambda batch: tr._lightgcn_loss(*batch))
+
+
+def time_train_step(label: str, tr, s, **extra) -> None:
     """The training step split into phases (host clock around synchronised
-    work), and one eval pass over the val split."""
-    tr = trainer
+    work), one eval pass over the val split, and a profiled step."""
+    sample, loss_of = step_fns(tr)
     phases = {"sample": [], "forward": [], "backward": [], "optimizer": []}
     for it in range(4):  # the first is a warm-up
         sync()
         t0 = time.perf_counter()
-        u, i, j, seeds = tr._sample()
+        batch = sample()
         sync()
         t1 = time.perf_counter()
-        loss = tr._loss(u, i, j, seeds)
+        loss = loss_of(batch)
         sync()
         t2 = time.perf_counter()
         tr.optimizer.zero_grad(set_to_none=True)
@@ -577,23 +756,27 @@ def time_train_step(trainer, s) -> None:
     val = tr.evaluate(s.val_u, s.val_i, 1)
     eval_s = time.perf_counter() - t0
     step = {k: float(np.mean(v)) for k, v in phases.items()}
-    emit({"phase": "timing", "what": "training step", "samples": tr.cfg.samples_per_epoch,
+    emit({"phase": "timing", "what": f"{label} training step", **extra,
           "seconds_by_phase": step, "step_s": sum(step.values()), "repeats": 3,
           "eval_pass_s": eval_s, "eval_users": len(s.val_u), "eval_neg_k": tr.cfg.eval_neg_k,
           "val_ndcg@20": val["ndcg@20"]})
-    profile_train_step(tr, sum(step.values()))
+    profile_train_step(label, tr, sum(step.values()))
 
 
-def profile_train_step(tr, step_s: float) -> None:
+def profile_train_step(label: str, tr, step_s: float) -> None:
     """Device time of one training step by kernel (torch.profiler), and the
     device's idle share against the unprofiled step's wall time."""
     import torch
 
+    sample, loss_of = step_fns(tr)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         sync()
         t0 = time.perf_counter()
-        tr._train_step()
+        loss = loss_of(sample())
+        tr.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        tr._opt_step()
         sync()
         wall = time.perf_counter() - t0
     by_kernel = {}
@@ -607,11 +790,98 @@ def profile_train_step(tr, step_s: float) -> None:
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15])
     ours = {k: sum(v for n, v in by_kernel.items() if pat in n)
             for k, pat in (("gat_fwd", "aggregate<"), ("gat_fwd node_terms", "node_terms<"),
-                           ("gat_bwd_dst", "bwd_dst<"), ("gat_bwd_src", "bwd_src<"))}
-    emit({"phase": "timing", "what": "training step profile", "device_busy_ms": busy,
+                           ("gat_bwd_dst", "bwd_dst<"), ("gat_bwd_src", "bwd_src<"),
+                           ("gat_fwd_mh", "aggregate_mh<"), ("gat_fwd_mh node_terms", "node_terms_mh<"),
+                           ("gat_bwd_dst_mh", "bwd_dst_mh<"), ("spmm_csr", "spmm_rows<"))}
+    emit({"phase": "timing", "what": f"{label} training step profile", "device_busy_ms": busy,
           "step_wall_ms_unprofiled": step_s * 1e3, "idle_share": 1.0 - busy / (step_s * 1e3),
-          "profiled_wall_ms": wall * 1e3, "port_kernels_ms": ours, "kernels_seen": len(by_kernel),
-          "top_kernels_ms": top})
+          "profiled_wall_ms": wall * 1e3, "port_kernels_ms": {k: v for k, v in ours.items() if v},
+          "kernels_seen": len(by_kernel), "top_kernels_ms": top})
+
+
+def time_spmm(rows_out, graph, dev, rng) -> None:
+    """Kernel 7 at the main graph, D = 64 (LightGCN's width), in both
+    directions, with `torch.sparse.mm` on a CSR tensor built once (f32) as
+    the yardstick."""
+    import torch
+
+    from plotpointe_tpu_torch.graphs.csr import symmetric_normalized_weights
+    from plotpointe_tpu_torch.ops.spmm_kernel import spmm_csr, spmm_csr_plain
+
+    n, e, d = graph.n_nodes, graph.n_edges, LIGHTGCN["embed_dim"]
+    v = torch.as_tensor(symmetric_normalized_weights(graph), device=dev)
+    vt = v[graph.t_eid.long()].contiguous()
+    x = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32), device=dev)
+    dirs = (("dst", graph.row_ptr, graph.src, v), ("transpose", graph.t_ptr, graph.t_dst, vt))
+    with torch.no_grad():
+        mats = {name: torch.sparse_csr_tensor(ptr, idx, vv, size=(n, n)) for name, ptr, idx, vv in dirs}
+        for rows_dt in (torch.bfloat16, torch.float32):
+            isz, dname = (4 if rows_dt == torch.float32 else 2), str(rows_dt)[6:]
+            xs = x.to(rows_dt)
+            for name, ptr, idx, vv in dirs:
+                # compulsory bytes: x, idx, values, ptr read once, y written once
+                nbytes = {"x": n * d * isz, "idx": e * 4, "values": e * 4, "ptr": (n + 1) * 4,
+                          "y": n * d * 4}
+                ops = 2 * e * d
+                b_ms, b_by = bound(sum(nbytes.values()), ops, "float32")
+                line = {"phase": "timing", "kernel": "spmm_csr",
+                        "shape": f"N={n} E={e} D={d} rows={dname} {name}",
+                        "ms": time_ms(lambda: spmm_csr(xs, vv, ptr, idx, rows_dt)),
+                        "plain_ms": time_ms(lambda: spmm_csr_plain(xs, vv, ptr, idx, rows_dt), 5),
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": time_ms(lambda: torch.sparse.mm(mats[name], x)),
+                        "bound_bytes": nbytes, "bound_ops": ops}
+                emit(line)
+                if rows_dt == torch.bfloat16 and name == "dst":
+                    rows_out["spmm_csr"] = line  # the training path's rows and direction
+
+
+def time_multihead(rows_out, graph, dev, rng) -> None:
+    """Kernels 8 and 9 per layer at heads 2, D = 128: f32 rows without a mask
+    (the export) and bf16 rows with the 0.1 dropout mask (training)."""
+    import torch
+
+    from plotpointe_tpu_torch.ops.gat_fused import (
+        attention_bwd_dst_mh, attention_bwd_dst_mh_plain, attention_fwd_mh, attention_fwd_mh_plain,
+        dropout_mask_mh, node_terms_mh_plain)
+
+    n, e, hh, d = graph.n_nodes, graph.n_edges, MH_HEADS, 128
+
+    def t(*shape, scale=1.0):
+        return torch.as_tensor((rng.normal(size=shape) * scale).astype(np.float32), device=dev)
+
+    h, a_s, a_d, ct = t(n, hh, d), t(hh, d, scale=0.1), t(hh, d, scale=0.1), t(n, hh, d)
+    mask = dropout_mask_mh(graph, 0.1, 7, hh, dev)
+    with torch.no_grad():
+        for rows_dt, mk in ((torch.float32, None), (torch.bfloat16, mask)):
+            isz, dname = (4 if rows_dt == torch.float32 else 2), str(rows_dt)[6:]
+            m_bytes = 0 if mk is None else hh * e * 4
+            shape = f"N={n} E={e} H={hh} D={d} rows={dname} mask={0.1 if mk is not None else 0}"
+            fwd_bytes = {"h": n * hh * d * 4, "a": 2 * hh * d * 4, "row_ptr": (n + 1) * 4,
+                         "src": e * 4, "mask": m_bytes, "out": n * hh * d * 4, "den": n * hh * 4}
+            fwd_ops = 2 * e * hh * d + 4 * n * hh * d
+            rows, gs, gd = node_terms_mh_plain(h, a_s, a_d, rows_dt)
+            out, den = attention_fwd_mh(h, a_s, a_d, graph, mask=mk, hs_dtype=rows_dt)
+            a1 = (rows, gs, gd, ct, out, den, graph, mk)
+            b1_bytes = {"rows": n * hh * d * isz, "g": n * hh * d * 4, "out": n * hh * d * 4,
+                        "src": e * 4, "mask": m_bytes, "row_ptr": (n + 1) * 4,
+                        "gs_gd_den": 3 * n * hh * 4, "de_sum_godot": 2 * n * hh * 4,
+                        "da_src": hh * d * 4}
+            b1_ops = 4 * e * hh * d
+            for kname, fn, plain, nbytes, ops in (
+                    ("gat_fwd_mh", lambda: attention_fwd_mh(h, a_s, a_d, graph, mask=mk, hs_dtype=rows_dt),
+                     lambda: attention_fwd_mh_plain(h, a_s, a_d, graph, mask=mk, hs_dtype=rows_dt),
+                     fwd_bytes, fwd_ops),
+                    ("gat_bwd_dst_mh", lambda: attention_bwd_dst_mh(*a1),
+                     lambda: attention_bwd_dst_mh_plain(*a1), b1_bytes, b1_ops)):
+                b_ms, b_by = bound(sum(nbytes.values()), ops, "float32")
+                line = {"phase": "timing", "kernel": kname, "shape": shape, "ms": time_ms(fn),
+                        "plain_ms": time_ms(plain, 5), "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None, "bound_bytes": nbytes, "bound_ops": ops}
+                emit(line)
+                if rows_dt == torch.bfloat16:
+                    rows_out[kname] = line  # the training path's rows and mask
+            del rows, out, den, a1
 
 
 def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev):
@@ -695,7 +965,8 @@ def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev):
                     emit(line)
                     if dt == torch.float32 and b == 64:
                         rows[kname] = line  # the served dtype at the batcher's cap
-    time_train_step(trainer, s)
+    time_spmm(rows, graph, dev, rng)
+    time_multihead(rows, graph, dev, rng)
     return rows
 
 
@@ -703,6 +974,7 @@ def run(args, work: Path, dev="cuda") -> int:
     import torch
 
     import plotpointe_tpu_torch  # noqa: F401  (without the package: fail before any output)
+    from plotpointe_tpu_torch.config import TrainConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -714,12 +986,45 @@ def run(args, work: Path, dev="cuda") -> int:
 
     errs = Errors()
     phase_check(errs, rng, graph, h0, a_s, a_d, catalog, dev)
-    trainer, ckpt, train_launches = phase_train(args, work, inter, feats, dev)
-    phase_step_parity(trainer)
-    serve_launches = phase_main(work, ckpt, inter, s, feats, dev)
-    rows = phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev)
+    write_artifacts(work, inter, feats)
+    by_path = {}
+    gat = dict(hidden_dim=128, layers=args.layers, attn_dropout=0.1, epochs=args.epochs,
+               samples_per_epoch=200_000, eval_neg_k=1000, attn_impl="auto", seed=args.seed)
+    # path 1 and 2: the single-head GAT, trained, then exported and served
+    trainer, ckpt, _, by_path["train"] = phase_train(
+        "train", TrainConfig(heads=1, **gat), work, dev, PATH_KERNELS["train"],
+        {"n_layers": args.layers, "hidden_dim": 128, "heads": 1})
+    phase_step_parity("train", trainer)
+    by_path["serve"] = phase_serve("main", work, ckpt, inter, feats, s.n_items, 128, 8, 64, dev,
+                                   PATH_KERNELS["serve"])
+    # path 3: LightGCN, one full epoch, then exported and served
+    lg_cfg = TrainConfig(model_family="lightgcn", epochs=1, eval_neg_k=1000, spmm_impl="auto",
+                         seed=args.seed, **LIGHTGCN)
+    lg_trainer, lg_ckpt, lg_res, by_path["lightgcn_train"] = phase_train(
+        "train_lightgcn", lg_cfg, work, dev, PATH_KERNELS["lightgcn_train"],
+        {"model_family": "lightgcn", **{k: LIGHTGCN[k] for k in ("embed_dim", "n_prop_layers")}})
+    lg_steps = s.n_train // LIGHTGCN["batch_size"]
+    emit({"phase": "train_lightgcn", "steps_per_epoch": lg_steps, "train_interactions": s.n_train,
+          "epoch_s": lg_res["history"][0]["step_time_s"]})
+    phase_step_parity("train_lightgcn", lg_trainer)
+    by_path["lightgcn_serve"] = phase_serve(
+        "serve_lightgcn", work, lg_ckpt, inter, None, s.n_items, LIGHTGCN["embed_dim"], 8, 0, dev,
+        PATH_KERNELS["lightgcn_serve"])
+    # path 4: the 2-head GAT, trained, then exported
+    mh_trainer, mh_ckpt, _, by_path["mh_train"] = phase_train(
+        "train_mh", TrainConfig(heads=MH_HEADS, **gat), work, dev, PATH_KERNELS["mh_train"],
+        {"n_layers": args.layers, "hidden_dim": 128, "heads": MH_HEADS})
+    phase_step_parity("train_mh", mh_trainer)
+    by_path["mh_export"] = phase_serve("export_mh", work, mh_ckpt, inter, feats, s.n_items, 128,
+                                       0, 0, dev, PATH_KERNELS["mh_export"])
 
-    by_path = {"train": train_launches, "serve": serve_launches}
+    rows = phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev)
+    time_train_step("gat", trainer, s, samples=trainer.cfg.samples_per_epoch)
+    time_train_step("lightgcn", lg_trainer, s, batch=LIGHTGCN["batch_size"],
+                    negatives_per_positive=LIGHTGCN["neg_per_pos"], steps_per_epoch=lg_steps,
+                    epoch_s=lg_res["history"][0]["step_time_s"])
+    time_train_step("gat_2_heads", mh_trainer, s, samples=mh_trainer.cfg.samples_per_epoch)
+
     kernels = []
     for kname, (src_path, replaces) in SOURCES.items():
         t = rows[kname]

@@ -1,9 +1,10 @@
 """CLI — `python -m plotpointe_tpu_torch <command>`.
 
 Counterpart of `plotpointe_tpu/cli.py` for the ported commands:
-  train   interactions + item features -> best checkpoint + metrics JSON
-          (the GAT path; LightGCN and --mesh are later slices)
-  export  checkpoint + interactions + item features -> item_embeddings.npy
+  train   interactions (+ item features for the GAT) -> best checkpoint +
+          metrics JSON (GAT or LightGCN; --mesh is a later slice)
+  export  checkpoint + interactions (+ item features for the GAT) ->
+          item_embeddings.npy
   serve   stdlib HTTP top-K server (--stdlib; the FastAPI app is not ported)
 All run on the GPU unless given `--device cpu`.
 """
@@ -53,7 +54,7 @@ def _cmd_export(args):
 
     store = ArtifactStore()
     interactions = store.load_interactions(args.staging_prefix)
-    feats = np.asarray(store.load_npy(args.features))
+    feats = np.asarray(store.load_npy(args.features)) if args.features else None
     emb = export_item_embeddings(store.fetch(args.checkpoint), interactions, feats, args.out,
                                  store=store, device=args.device)
     print(json.dumps({"shape": list(emb.shape), "out": args.out}))
@@ -80,7 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="plotpointe_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    t = sub.add_parser("train", help="train the GAT")
+    t = sub.add_parser("train", help="train the GAT or LightGCN")
     t.add_argument("--model-family", choices=["gat", "lightgcn"], default="gat")
     t.add_argument("--staging-prefix", required=True,
                    help="holds interactions.npz (column arrays) or interactions.parquet")
@@ -99,7 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--attn-impl", choices=["auto", "xla", "pallas"], default="auto",
                    help="attention row type: pallas (and auto on CUDA) bf16 rows, xla f32 rows")
     t.add_argument("--spmm-impl", choices=["auto", "xla", "pallas"], default="auto",
-                   help="LightGCN propagation (not ported yet)")
+                   help="LightGCN propagation row type: pallas (and auto on CUDA) bf16 rows, "
+                        "xla f32 rows")
     t.add_argument("--optimizer", choices=["adam", "adamw"], default="adam",
                    help="adam = reference parity (coupled L2); adamw decouples decay")
     t.add_argument("--warmup-steps", type=int, default=0, help="linear lr warmup")
@@ -114,7 +116,8 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--checkpoint", required=True)
     e.add_argument("--staging-prefix", required=True,
                    help="holds interactions.npz (column arrays) or interactions.parquet")
-    e.add_argument("--features", required=True, help="item features npy, first-occurrence order")
+    e.add_argument("--features", default=None,
+                   help="item features npy, first-occurrence order (GAT; LightGCN takes none)")
     e.add_argument("--out", required=True)
     e.add_argument("--device", default=None, help="default: cuda")
     e.set_defaults(fn=_cmd_export)

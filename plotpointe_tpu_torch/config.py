@@ -4,10 +4,11 @@ Counterpart of `plotpointe_tpu/config.py::TrainConfig` (same fields, same
 defaults, same `from_env` / `to_dict` / `from_dict`), so a checkpoint's
 embedded `train_config` reads in both packages.
 
-`attn_impl` keeps the JAX values and picks the type attention rounds source
-rows to (`ops/gat_kernel.resolve_hs_dtype`): `pallas`, and `auto` on CUDA,
-mean bf16 rows (what the JAX trainer runs on its accelerator); `xla`, and
-`auto` on the CPU, mean f32 rows. On the card both run the same CUDA kernels.
+`attn_impl` (GAT) and `spmm_impl` (LightGCN) keep the JAX values and pick
+the type the kernels round gathered rows to (`ops/gat_kernel.resolve_hs_dtype`):
+`pallas`, and `auto` on CUDA, mean bf16 rows (what the JAX trainer runs on
+its accelerator); `xla`, and `auto` on the CPU, mean f32 rows. On the card
+both run the same CUDA kernels.
 """
 from __future__ import annotations
 
@@ -66,7 +67,7 @@ class TrainConfig:
     neg_per_pos: int = 5
     # execution
     attn_impl: str = "auto"  # {auto, xla, pallas}: the attention row type, see above
-    spmm_impl: str = "auto"  # {auto, xla, pallas}: LightGCN propagation (not ported yet)
+    spmm_impl: str = "auto"  # {auto, xla, pallas}: LightGCN's propagation row type, see above
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     mesh_shape: Optional[str] = None  # sharded training is not ported yet

@@ -29,14 +29,9 @@
 // is deterministic.
 // Known limit: a destination with thousands of in-edges (hot items) is one
 // warp's serial loop, as in the forward.
-#include "common.cuh"
+#include "attention.cuh"
 
 namespace {
-
-constexpr float LEAKY_SLOPE = 0.2f;
-constexpr float LOGIT_CLAMP = 10.0f;
-constexpr float EPS = 1e-9f;
-constexpr int WARPS_PER_BLOCK = 8;
 
 template <typename T, int VPL>
 __global__ void bwd_dst(const T* __restrict__ hs, const float* __restrict__ gs,

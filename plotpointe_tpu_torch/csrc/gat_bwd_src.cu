@@ -28,14 +28,9 @@
 // atomics: deterministic.
 // Known limit: the symmetric graph's hot sources are the forward's hot
 // destinations (thousands of edges), each one warp's serial loop.
-#include "common.cuh"
+#include "attention.cuh"
 
 namespace {
-
-constexpr float LEAKY_SLOPE = 0.2f;
-constexpr float LOGIT_CLAMP = 10.0f;
-constexpr float EPS = 1e-9f;
-constexpr int WARPS_PER_BLOCK = 8;
 
 template <typename T, int VPL>
 __global__ void bwd_src(const T* __restrict__ hs, const T* __restrict__ gh,
@@ -43,7 +38,8 @@ __global__ void bwd_src(const T* __restrict__ hs, const T* __restrict__ gh,
                         const float* __restrict__ gd, const float* __restrict__ den,
                         const float* __restrict__ godot, const int* __restrict__ t_ptr,
                         const int* __restrict__ t_dst, const int* __restrict__ t_eid,
-                        const float* __restrict__ mask, float* __restrict__ dh, int n) {
+                        const float* __restrict__ mask, float* __restrict__ dh, int n,
+                        long long ld) {
   constexpr int D = VPL * 32;
   constexpr int EDGE_ILP = VPL <= 4 ? 8 : (VPL <= 8 ? 4 : 2);
   const int row = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
@@ -51,7 +47,7 @@ __global__ void bwd_src(const T* __restrict__ hs, const T* __restrict__ gh,
   if (row >= n) return;
   const int beg = t_ptr[row];
   const int end = t_ptr[row + 1];
-  const T* own = hs + static_cast<long long>(row) * D + lane;
+  const T* own = hs + row * ld + lane;
   float hv[VPL], acc[VPL];
 #pragma unroll
   for (int v = 0; v < VPL; ++v) {
@@ -85,7 +81,7 @@ __global__ void bwd_src(const T* __restrict__ hs, const T* __restrict__ gh,
       float y[EDGE_ILP][VPL];
 #pragma unroll
       for (int q = 0; q < EDGE_ILP; ++q) {
-        const T* r = gh + static_cast<long long>(dj[q]) * D + lane;
+        const T* r = gh + dj[q] * ld + lane;
 #pragma unroll
         for (int v = 0; v < VPL; ++v) y[q][v] = (j + q < cnt) ? to_f32(r[v * 32]) : 0.f;
       }
@@ -124,12 +120,12 @@ template <typename T>
 cudaError_t launch(int vpl, dim3 grid, dim3 block, cudaStream_t st, const T* hs, const T* gh,
                    const float* a_src, const float* gs, const float* gd, const float* den,
                    const float* godot, const int* t_ptr, const int* t_dst, const int* t_eid,
-                   const float* mask, float* dh, int n) {
+                   const float* mask, float* dh, int n, long long ld) {
   switch (vpl) {
 #define PPT_CASE(V)                                                                           \
   case V:                                                                                     \
     bwd_src<T, V><<<grid, block, 0, st>>>(hs, gh, a_src, gs, gd, den, godot, t_ptr, t_dst,  \
-                                          t_eid, mask, dh, n);                               \
+                                          t_eid, mask, dh, n, ld);                           \
     break;
     PPT_CASE(1) PPT_CASE(2) PPT_CASE(3) PPT_CASE(4) PPT_CASE(5) PPT_CASE(6) PPT_CASE(7)
     PPT_CASE(8) PPT_CASE(9) PPT_CASE(10) PPT_CASE(11) PPT_CASE(12) PPT_CASE(13) PPT_CASE(14)
@@ -146,13 +142,15 @@ cudaError_t launch(int vpl, dim3 grid, dim3 block, cudaStream_t st, const T* hs,
 // hs / gh [n, d] rows and cotangent rows at the row type (bf16 if bf16, else
 // f32); a_src [d], gs/gd/den/godot [n] f32; t_ptr [n + 1], t_dst [E], t_eid
 // [E] int32 (transpose CSR); mask [E] f32 over canonical ids or null.
-// Writes dh [n, d] f32. d must be a multiple of 32, at most 512.
+// Writes dh [n, d] f32. d must be a multiple of 32, at most 512. Row r of hs
+// and of gh starts ld elements after row r - 1 (ld = d for contiguous rows;
+// heads * d for one head's rows of an [n, heads, d] tensor).
 PPT_EXPORT int ppt_gat_bwd_src(const void* hs, const void* gh, int bf16, const float* a_src,
                                const float* gs, const float* gd, const float* den,
                                const float* godot, const int* t_ptr, const int* t_dst,
                                const int* t_eid, const float* mask, float* dh, int n, int d,
-                               void* stream) {
-  if (d <= 0 || d % 32 != 0 || d > 512) return cudaErrorInvalidValue;
+                               int ld, void* stream) {
+  if (d <= 0 || d % 32 != 0 || d > 512 || ld < d) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 block(32 * WARPS_PER_BLOCK);
@@ -160,9 +158,9 @@ PPT_EXPORT int ppt_gat_bwd_src(const void* hs, const void* gh, int bf16, const f
   if (bf16) {
     return launch<__nv_bfloat16>(d / 32, grid, block, st, static_cast<const __nv_bfloat16*>(hs),
                                  static_cast<const __nv_bfloat16*>(gh), a_src, gs, gd, den, godot,
-                                 t_ptr, t_dst, t_eid, mask, dh, n);
+                                 t_ptr, t_dst, t_eid, mask, dh, n, ld);
   }
   return launch<float>(d / 32, grid, block, st, static_cast<const float*>(hs),
                        static_cast<const float*>(gh), a_src, gs, gd, den, godot, t_ptr, t_dst,
-                       t_eid, mask, dh, n);
+                       t_eid, mask, dh, n, ld);
 }

@@ -27,21 +27,9 @@
 //     atomics, a fixed order: deterministic.
 // Known limit: a destination with thousands of in-edges (hot items) is one
 // warp's serial loop; splitting such rows across warps is later work.
-#include "common.cuh"
+#include "attention.cuh"
 
 namespace {
-
-constexpr float LEAKY_SLOPE = 0.2f;
-constexpr float LOGIT_CLAMP = 10.0f;
-constexpr float EPS = 1e-9f;
-constexpr int WARPS_PER_BLOCK = 8;
-
-__device__ __forceinline__ void store_row(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_row(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 template <typename T>
 __global__ void node_terms(const float* __restrict__ h, const float* __restrict__ a_src,

@@ -1,7 +1,7 @@
 """Graph layout: destination-sorted edge arrays plus a CSR `row_ptr`.
 
 Counterpart of `plotpointe_tpu/graphs/csr.py` (`Graph`, `build_graph`,
-`build_bipartite_graph`, `degrees`). Edges are sorted by (dst, src), so an
+`build_bipartite_graph`, `degrees`, `symmetric_normalized_weights`). Edges are sorted by (dst, src), so an
 edge's id is its position in that order (the canonical id the hash dropout
 mask keys on) and each destination's in-edges are one contiguous CSR row.
 
@@ -94,3 +94,14 @@ def degrees(graph: Graph) -> np.ndarray:
     """In-degree per node."""
     rp = graph.row_ptr.cpu().numpy().astype(np.int64)
     return rp[1:] - rp[:-1]
+
+
+def symmetric_normalized_weights(graph: Graph) -> np.ndarray:
+    """LightGCN's D^-1/2 A D^-1/2 edge values [E] f32 in canonical (dst, src)
+    order: 1 / sqrt(deg[src] * deg[dst]), deg = max(in-degree, 1). The
+    product is taken in f32 before the square root, as the JAX package does,
+    so the values are bit-equal to its `symmetric_normalized_weights` on the
+    real edges."""
+    src, dst = graph.src.cpu().numpy(), graph.dst.cpu().numpy()
+    deg = np.clip(np.bincount(dst, minlength=graph.n_nodes).astype(np.float32), 1.0, None)
+    return (1.0 / np.sqrt(deg[src] * deg[dst])).astype(np.float32)

@@ -92,7 +92,8 @@ class GATModel(nn.Module):
     def forward(self, item_feats: torch.Tensor, graph: Graph, train: bool = False,
                 seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
         """train=True applies attention dropout `attn_dropout`, with one uint32
-        mask seed per layer in `seeds`."""
+        mask seed per layer in `seeds` (per layer, a list of one seed per
+        head when heads > 8)."""
         drop = self.attn_dropout if train else 0.0
         x = self.node_features(item_feats)
         for li, layer in enumerate(self.layers):

@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "plotpointe_tpu_torch"
-KERNELS = ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "gather_fence", "topk_chunkmax", "topk_rescore")
+KERNELS = ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "gather_fence", "topk_chunkmax", "topk_rescore",
+           "spmm_csr", "gat_fwd_mh", "gat_bwd_dst_mh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 P = ctypes.c_void_p
@@ -36,10 +37,13 @@ I = ctypes.c_int
 SIGNATURES = {
     "gat_fwd": ("ppt_gat_fwd", [P] * 11 + [I, I, P]),
     "gat_bwd_dst": ("ppt_gat_bwd_dst", [P, I] + [P] * 11 + [I, I, I, P]),
-    "gat_bwd_src": ("ppt_gat_bwd_src", [P, P, I] + [P] * 10 + [I, I, P]),
+    "gat_bwd_src": ("ppt_gat_bwd_src", [P, P, I] + [P] * 10 + [I, I, I, P]),
     "gather_fence": ("ppt_gather_fence", [P, I, I, I, P, P]),
     "topk_chunkmax": ("ppt_topk_chunkmax", [P, P, P, I, I, I, I, P]),
     "topk_rescore": ("ppt_topk_rescore", [P, P, P, P, I, I, I, I, I, P]),
+    "spmm_csr": ("ppt_spmm_csr", [P, I, P, P, P, P, I, I, P]),
+    "gat_fwd_mh": ("ppt_gat_fwd_mh", [P] * 11 + [I, I, I, I, P]),
+    "gat_bwd_dst_mh": ("ppt_gat_bwd_dst_mh", [P, I] + [P] * 11 + [I, I, I, I, I, P]),
 }
 MAX_SMEM = 232_448 - 1024  # a block's shared memory on sm_90, less static use
 

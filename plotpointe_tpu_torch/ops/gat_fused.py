@@ -1,12 +1,16 @@
-"""Fused single-head GAT attention, forward and backward: CUDA kernels,
-their plain versions, and the autograd op.
+"""Fused GAT attention, forward and backward, single-head and head-packed:
+CUDA kernels, their plain versions, and the autograd ops.
 
-Counterpart of `plotpointe_tpu/ops/gat_fused.py::attention_v3` and its
-kernels:
-  forward  `_fwd_kernel`   -> `csrc/gat_fwd.cu`       (`attention_fwd`)
-  B1       `_bwd_kernel`   -> `csrc/gat_bwd_dst.cu`   (`attention_bwd_dst`)
-  B2       `_bwd2_kernel`  -> `csrc/gat_bwd_src.cu`   (`attention_bwd_src`)
-  fence    `_gather_fence` -> `csrc/gather_fence.cu`  (`gather_fence`)
+Counterpart of `plotpointe_tpu/ops/gat_fused.py` (`attention_v3`,
+`attention_v3_mh`) and its kernels:
+  forward     `_fwd_kernel`     -> `csrc/gat_fwd.cu`         (`attention_fwd`)
+  B1          `_bwd_kernel`     -> `csrc/gat_bwd_dst.cu`     (`attention_bwd_dst`)
+  B2          `_bwd2_kernel`    -> `csrc/gat_bwd_src.cu`     (`attention_bwd_src`)
+  fence       `_gather_fence`   -> `csrc/gather_fence.cu`    (`gather_fence`)
+  mh forward  `_fwd_kernel_mh`  -> `csrc/gat_fwd_mh.cu`      (`attention_fwd_mh`)
+  mh B1       `_bwd_kernel_mh`  -> `csrc/gat_bwd_dst_mh.cu`  (`attention_bwd_dst_mh`)
+The multi-head backward runs B2 once per head, on that head's rows of the
+[N, H, D] tensors read with a row stride (no per-head copies).
 Each `*_plain` function is the same function in plain PyTorch, used for CPU
 tensors and as the reference its kernel is held to on the card. A wrapper
 launches its kernel for CUDA tensors (or raises) and counts the launch.
@@ -20,9 +24,12 @@ B1 uses the f32 cotangent g; B2 uses g rounded to `hs_dtype` (for its row
 product and its alpha * g term) and recomputes de from it, so in bf16 mode
 B1 and B2 see slightly different de, as in `attn_bwd`.
 
-`reference_versions()` makes `AttentionV3` run the plain versions on any
-device, for checks that hold a kernel step against its reference on the
-card.
+`reference_versions()` makes `AttentionV3`, `AttentionV3MH` and the static
+SpMM operator (`ops/spmm_kernel.py`) run the plain versions on any device,
+for checks that hold a kernel step against its reference on the card.
+
+Multi-head dropout: head k masks with `hash_mask(seed, eid + k * 2**27, rate)`
+over canonical edge ids, one seed for all heads, as the JAX package does.
 
 The training step does not call `gather_fence`: on the TPU it orders two
 XLA row gathers of the backward, and the port's kernels gather rows
@@ -43,6 +50,11 @@ LAUNCHES = cb.COUNTERS["gat_fwd"]
 BWD_DST_LAUNCHES = cb.COUNTERS["gat_bwd_dst"]
 BWD_SRC_LAUNCHES = cb.COUNTERS["gat_bwd_src"]
 FENCE_LAUNCHES = cb.COUNTERS["gather_fence"]
+MH_LAUNCHES = cb.COUNTERS["gat_fwd_mh"]
+MH_BWD_DST_LAUNCHES = cb.COUNTERS["gat_bwd_dst_mh"]
+MAX_PACKED_HEADS = 8
+MAX_PACKED_WIDTH = 1024  # heads * D the head-packed kernels hold in registers
+HEAD_ID_STRIDE = 1 << 27  # head k's mask hashes canonical id + k * 2**27
 B1_MAX_BLOCKS = 1024  # B1's fixed grid: blocks of 8 warps striding over the rows
 _WARPS_PER_BLOCK = 8
 _M32 = 0xFFFFFFFF
@@ -272,7 +284,8 @@ def attention_bwd_dst(rows, gs, gd, g, out, den, graph: Graph,
 def attention_bwd_src(rows, gh, a_src, gs, gd, den, godot, graph: Graph,
                       mask: Optional[torch.Tensor] = None):
     """B2: `attention_bwd_src_plain`'s function; launches `csrc/gat_bwd_src.cu`
-    for CUDA tensors."""
+    for CUDA tensors. rows and gh may be row-strided views (one head's rows
+    of an [N, H, D] tensor): the kernel reads them in place."""
     _check_bwd(rows, graph, mask, gs=gs, gd=gd, den=den, godot=godot)
     n, d = rows.shape
     if gh.dtype != rows.dtype or tuple(gh.shape) != (n, d) or gh.device != rows.device:
@@ -282,14 +295,16 @@ def attention_bwd_src(rows, gh, a_src, gs, gd, den, godot, graph: Graph,
         return attention_bwd_src_plain(rows, gh, a_src, gs, gd, den, godot, graph, mask)
     dev = rows.device
     dh = torch.empty((n, d), dtype=torch.float32, device=dev)
-    args = [t.contiguous() for t in (rows, gh)]
+    if rows.stride(1) != 1 or gh.stride() != rows.stride():
+        rows, gh = rows.contiguous(), gh.contiguous()
     tables = [t.contiguous() for t in (a_src.reshape(d), gs, gd, den, godot, graph.t_ptr,
                                        graph.t_dst, graph.t_eid)]
     m = None if mask is None else mask.contiguous()
     fn = cb.entry("gat_bwd_src")
     with torch.cuda.device(dev):
-        rc = fn(cb.ptr(args[0]), cb.ptr(args[1]), int(rows.dtype == torch.bfloat16),
-                *map(cb.ptr, tables), cb.ptr(m), cb.ptr(dh), n, d, cb.stream_of(rows))
+        rc = fn(cb.ptr(rows), cb.ptr(gh), int(rows.dtype == torch.bfloat16),
+                *map(cb.ptr, tables), cb.ptr(m), cb.ptr(dh), n, d, rows.stride(0),
+                cb.stream_of(rows))
     cb.check(rc, "gat_bwd_src")
     BWD_SRC_LAUNCHES.bump()
     return dh
@@ -322,14 +337,20 @@ def attention_bwd_plain(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tenso
 
 @contextlib.contextmanager
 def reference_versions() -> Iterator[None]:
-    """Inside this block `AttentionV3` runs the plain versions on any
-    device, forward and backward: the reference its kernels are held to."""
+    """Inside this block the autograd ops (`AttentionV3`, `AttentionV3MH`,
+    the static SpMM operator) run the plain versions on any device, forward
+    and backward: the reference their kernels are held to."""
     global _reference
     prev, _reference = _reference, True
     try:
         yield
     finally:
         _reference = prev
+
+
+def reference_active() -> bool:
+    """True inside `reference_versions()`."""
+    return _reference
 
 
 class AttentionV3(torch.autograd.Function):
@@ -369,6 +390,215 @@ def attention_v3(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, grap
     ids drops attention weights (the JAX package draws its seed as
     `jax.random.bits(rng, (), uint32)`)."""
     return AttentionV3.apply(h, a_src, a_dst, graph, float(dropout_rate), seed, hs_dtype)
+
+
+# ---------------------------------------------------------------------------
+# head-packed multi-head attention (2 <= heads <= 8)
+# ---------------------------------------------------------------------------
+
+
+def dropout_mask_mh(graph: Graph, rate: float, seed: Optional[int], heads: int,
+                    device) -> Optional[torch.Tensor]:
+    """[heads, E] hash masks, head k over canonical ids + k * 2**27, or None
+    without dropout."""
+    if rate <= 0.0 or seed is None:
+        return None
+    ids = torch.arange(graph.n_edges, device=device)
+    return torch.stack([hash_mask(seed, ids + k * HEAD_ID_STRIDE, rate) for k in range(heads)])
+
+
+def node_terms_mh_plain(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
+                        hs_dtype: torch.dtype):
+    """h [N, H, D] f32 -> (rows [N, H, D] at hs_dtype, gs [N, H] =
+    rows . a_src, gd [N, H] = h . a_dst)."""
+    rows = h.to(hs_dtype)
+    return (rows, torch.einsum("nhd,hd->nh", rows.float(), a_src),
+            torch.einsum("nhd,hd->nh", h, a_dst))
+
+
+def _check_packed_shape(heads, d):
+    if not (2 <= heads <= MAX_PACKED_HEADS and 32 <= d <= 512 and not d & (d - 1)
+            and heads * d <= MAX_PACKED_WIDTH):
+        raise ValueError(f"the head-packed kernels take 2 to {MAX_PACKED_HEADS} heads, D a power "
+                         f"of two in [32, 512] and heads * D <= {MAX_PACKED_WIDTH}; got "
+                         f"heads={heads}, D={d}")
+
+
+def _check_mh(h, a_src, a_dst, graph, mask, hs_dtype):
+    n, heads, d = h.shape
+    _check_packed_shape(heads, d)
+    if n != graph.n_nodes:
+        raise ValueError(f"h has {n} rows but the graph has {graph.n_nodes} nodes")
+    if hs_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"hs_dtype must be float32 or bfloat16; got {hs_dtype}")
+    for name, t, dt, shape in (("h", h, torch.float32, None),
+                               ("a_src", a_src, torch.float32, (heads, d)),
+                               ("a_dst", a_dst, torch.float32, (heads, d)),
+                               ("src", graph.src, torch.int32, None),
+                               ("row_ptr", graph.row_ptr, torch.int32, None)):
+        _check_tensor(name, t, dt, h.device, shape)
+    if mask is not None:
+        _check_tensor("mask", mask, torch.float32, h.device, (heads, graph.n_edges))
+
+
+def _fwd_mh(h, a_src, a_dst, graph, mask, hs_dtype, plain=False):
+    """h [N, H, D] -> (out [N, H, D], den [N, H], rows, gs, gd)."""
+    n, heads, d = h.shape
+    if plain or h.device.type == "cpu":
+        rows, gs, gd = node_terms_mh_plain(h, a_src, a_dst, hs_dtype)
+        parts = [_aggregate_plain(rows[:, k], gs[:, k], gd[:, k], graph,
+                                  None if mask is None else mask[k]) for k in range(heads)]
+        return (torch.stack([p[0] for p in parts], 1), torch.stack([p[1] for p in parts], 1),
+                rows, gs, gd)
+    dev = h.device
+    h = h.contiguous()
+    a_s, a_d = a_src.contiguous(), a_dst.contiguous()
+    m = None if mask is None else mask.contiguous()
+    hs = torch.empty((n, heads, d), dtype=torch.bfloat16, device=dev) \
+        if hs_dtype == torch.bfloat16 else None
+    gs = torch.empty((n, heads), dtype=torch.float32, device=dev)
+    gd, den = torch.empty_like(gs), torch.empty_like(gs)
+    out = torch.empty((n, heads, d), dtype=torch.float32, device=dev)
+    fn = cb.entry("gat_fwd_mh")
+    with torch.cuda.device(dev):
+        rc = fn(cb.ptr(h), cb.ptr(a_s), cb.ptr(a_d), cb.ptr(graph.row_ptr.contiguous()),
+                cb.ptr(graph.src.contiguous()), cb.ptr(m), cb.ptr(hs), cb.ptr(gs), cb.ptr(gd),
+                cb.ptr(out), cb.ptr(den), n, heads, d, graph.n_edges, cb.stream_of(h))
+    cb.check(rc, "gat_fwd_mh")
+    MH_LAUNCHES.bump()
+    return out, den, (h if hs is None else hs), gs, gd
+
+
+def attention_fwd_mh_plain(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
+                           graph: Graph, mask: Optional[torch.Tensor] = None,
+                           hs_dtype: torch.dtype = torch.bfloat16):
+    """h [N, H, D] f32, a_src/a_dst [H, D], mask [H, E] or None -> (out
+    [N, H, D], den [N, H]): kernel 1's function for each head."""
+    return _fwd_mh(h, a_src, a_dst, graph, mask, hs_dtype, plain=True)[:2]
+
+
+def attention_fwd_mh(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,
+                     mask: Optional[torch.Tensor] = None,
+                     hs_dtype: torch.dtype = torch.bfloat16):
+    """Head-packed attention forward (kernel 8): h [N, H, D] f32 with
+    2 <= H <= 8, D a power of two in [32, 512], H * D <= 1024; a_src/a_dst
+    [H, D] f32; mask [H, E] f32 or None. Returns (out [N, H, D] f32, den
+    [N, H] f32). Launches `csrc/gat_fwd_mh.cu` for CUDA tensors; runs
+    `attention_fwd_mh_plain` for CPU tensors."""
+    _check_mh(h, a_src, a_dst, graph, mask, hs_dtype)
+    return _fwd_mh(h, a_src, a_dst, graph, mask, hs_dtype)[:2]
+
+
+def attention_bwd_dst_mh_plain(rows, gs, gd, g, out, den, graph: Graph,
+                               mask: Optional[torch.Tensor] = None):
+    """B1 per head. rows [N, H, D] at the row type; gs/gd/den [N, H]; g/out
+    [N, H, D] f32; mask [H, E] or None. Returns (de_sum [N, H], godot
+    [N, H], da_src [H, D])."""
+    parts = [attention_bwd_dst_plain(rows[:, k], gs[:, k], gd[:, k], g[:, k], out[:, k],
+                                     den[:, k], graph, None if mask is None else mask[k])
+             for k in range(rows.shape[1])]
+    return (torch.stack([p[0] for p in parts], 1), torch.stack([p[1] for p in parts], 1),
+            torch.cat([p[2] for p in parts], 0))
+
+
+def attention_bwd_dst_mh(rows, gs, gd, g, out, den, graph: Graph,
+                         mask: Optional[torch.Tensor] = None):
+    """Kernel 9: `attention_bwd_dst_mh_plain`'s function; launches
+    `csrc/gat_bwd_dst_mh.cu` for CUDA tensors. The kernel writes one partial
+    row of d a_src per warp; they are summed here in a fixed order."""
+    n, heads, d = rows.shape
+    _check_packed_shape(heads, d)
+    if n != graph.n_nodes or rows.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"rows must be float32 or bfloat16 [{graph.n_nodes}, H, D]")
+    dev = rows.device
+    for name, t in (("gs", gs), ("gd", gd), ("den", den)):
+        _check_tensor(name, t, torch.float32, dev, (n, heads))
+    for name, t in (("g", g), ("out", out)):
+        _check_tensor(name, t, torch.float32, dev, (n, heads, d))
+    if mask is not None:
+        _check_tensor("mask", mask, torch.float32, dev, (heads, graph.n_edges))
+    if dev.type == "cpu":
+        return attention_bwd_dst_mh_plain(rows, gs, gd, g, out, den, graph, mask)
+    n_blocks = max(1, min(B1_MAX_BLOCKS, -(-n // _WARPS_PER_BLOCK)))
+    de_sum = torch.empty((n, heads), dtype=torch.float32, device=dev)
+    godot = torch.empty_like(de_sum)
+    partial = torch.empty((n_blocks * _WARPS_PER_BLOCK, heads * d), dtype=torch.float32, device=dev)
+    args = [t.contiguous() for t in (rows, gs, gd, g, out, den, graph.row_ptr, graph.src)]
+    m = None if mask is None else mask.contiguous()
+    fn = cb.entry("gat_bwd_dst_mh")
+    with torch.cuda.device(dev):
+        rc = fn(cb.ptr(args[0]), int(rows.dtype == torch.bfloat16), *map(cb.ptr, args[1:]),
+                cb.ptr(m), cb.ptr(de_sum), cb.ptr(godot), cb.ptr(partial), n, heads, d,
+                graph.n_edges, n_blocks, cb.stream_of(rows))
+    cb.check(rc, "gat_bwd_dst_mh")
+    MH_BWD_DST_LAUNCHES.bump()
+    return de_sum, godot, partial.sum(0).view(heads, d)
+
+
+def _backward_mh(h, a_src, a_dst, graph, g, out, den, rows, gs, gd, mask, plain):
+    """(dh [N, H, D], da_src [H, D], da_dst [H, D]) of JAX `attention_v3_mh`'s
+    `attn_bwd`: B1 for every head at once, then B2 once per head on that
+    head's rows (row-strided views) and the cotangent rounded to the row
+    type; dh adds de_sum * a_dst and da_dst = sum_n de_sum * h (f32 rows)."""
+    bwd_dst = attention_bwd_dst_mh_plain if plain else attention_bwd_dst_mh
+    bwd_src = attention_bwd_src_plain if plain else attention_bwd_src
+    de_sum, godot, da_src = bwd_dst(rows, gs, gd, g, out, den, graph, mask)
+    gh = g.to(rows.dtype)
+    dh = torch.stack([bwd_src(rows[:, k], gh[:, k], a_src[k:k + 1], gs[:, k].contiguous(),
+                              gd[:, k].contiguous(), den[:, k].contiguous(),
+                              godot[:, k].contiguous(), graph, None if mask is None else mask[k])
+                      for k in range(rows.shape[1])], 1)
+    dh = dh + de_sum[:, :, None] * a_dst
+    return dh, da_src, torch.einsum("nh,nhd->hd", de_sum, h)
+
+
+def attention_bwd_mh_plain(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
+                           graph: Graph, g: torch.Tensor, out: torch.Tensor, den: torch.Tensor,
+                           mask: Optional[torch.Tensor] = None,
+                           hs_dtype: torch.dtype = torch.bfloat16):
+    """The explicit backward of `attention_v3_mh` in plain PyTorch: h, g, out
+    [N, H, D] f32, den [N, H] -> (dh [N, H, D], da_src [H, D], da_dst
+    [H, D]). The reference kernels 8, 9 and B2 are held to."""
+    rows, gs, gd = node_terms_mh_plain(h, a_src, a_dst, hs_dtype)
+    return _backward_mh(h, a_src, a_dst, graph, g, out, den, rows, gs, gd, mask, plain=True)
+
+
+class AttentionV3MH(torch.autograd.Function):
+    """Head-packed attention with the backward of `attention_v3_mh`: kernel
+    8, then kernel 9 and B2 per head (their plain versions for CPU tensors,
+    or on any device when the forward ran inside `reference_versions()`).
+    The masks are rebuilt in the backward from the seed."""
+
+    @staticmethod
+    def forward(ctx, h, a_src, a_dst, graph, dropout_rate, seed, hs_dtype):
+        plain = _reference
+        heads = h.shape[1]
+        mask = dropout_mask_mh(graph, dropout_rate, seed, heads, h.device)
+        _check_mh(h, a_src, a_dst, graph, mask, hs_dtype)
+        h = h.contiguous()
+        out, den, rows, gs, gd = _fwd_mh(h, a_src, a_dst, graph, mask, hs_dtype, plain)
+        ctx.save_for_backward(h, a_src, a_dst, out, den, rows, gs, gd)
+        ctx.graph, ctx.dropout_rate, ctx.seed, ctx.plain = graph, dropout_rate, seed, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, a_src, a_dst, out, den, rows, gs, gd = ctx.saved_tensors
+        mask = dropout_mask_mh(ctx.graph, ctx.dropout_rate, ctx.seed, h.shape[1], h.device)
+        dh, da_src, da_dst = _backward_mh(h, a_src, a_dst, ctx.graph, g.contiguous(), out, den,
+                                          rows, gs, gd, mask, ctx.plain)
+        return dh, da_src, da_dst, None, None, None, None
+
+
+def attention_v3_mh(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,
+                    dropout_rate: float = 0.0, seed: Optional[int] = None,
+                    hs_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Differentiable head-packed attention, h [N, H, D] -> [N, H, D] (2 <=
+    H <= 8, D a power of two in [32, 512], H * D <= 1024). With dropout_rate
+    > 0 and a uint32 `seed`, head k drops with the hash mask over canonical
+    ids + k * 2**27 (the JAX package's seed is `jax.random.bits(rng, (),
+    uint32)`)."""
+    return AttentionV3MH.apply(h, a_src, a_dst, graph, float(dropout_rate), seed, hs_dtype)
 
 
 # ---------------------------------------------------------------------------

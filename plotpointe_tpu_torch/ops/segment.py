@@ -1,8 +1,9 @@
 """Segment ops over the dst-sorted edge layout: the plain PyTorch golden.
 
-Counterpart of `plotpointe_tpu/ops/segment.py::segment_softmax_attention`,
-with its exact math: LeakyReLU 0.2, logits clamped to +-10 with NO segment
-max-subtraction, softmax denominator eps 1e-9. Any number of heads.
+Counterpart of `plotpointe_tpu/ops/segment.py` (`segment_softmax_attention`
+and `spmm`, LightGCN's propagation). Attention keeps its exact math:
+LeakyReLU 0.2, logits clamped to +-10 with NO segment max-subtraction,
+softmax denominator eps 1e-9. Any number of heads.
 
 `gather_rows` is a row gather whose backward is a sorted segment sum, so the
 loss's gradient into the node table is the same on every run: the autograd
@@ -40,6 +41,13 @@ def segment_softmax_attention(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch
     alpha = num / (den[dst] + EPS)
     out = torch.zeros_like(h).index_add_(0, dst, alpha[..., None] * h[src])
     return out
+
+
+def spmm(graph: Graph, values: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y[d] = sum over edges s -> d of values_e * x[s]; x [N, F] -> [N, F], f32
+    sums. `values` [E] in canonical (dst, src) order."""
+    msg = values[:, None] * x[graph.src.long()]
+    return torch.zeros(x.shape, dtype=msg.dtype, device=x.device).index_add_(0, graph.dst.long(), msg)
 
 
 def index_sum_rows(rows: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:

@@ -1,0 +1,169 @@
+"""CSR SpMM (LightGCN's propagation): the CUDA kernel, its plain version, the
+static operator and the generic op.
+
+Counterpart of `plotpointe_tpu/ops/spmm_kernel.py`:
+  `_wreduce_kernel` -> `csrc/spmm_csr.cu` (`spmm_csr`), kernel 7;
+  `make_spmm`       -> `make_spmm`: a fixed (graph, values) pair, forward and
+                       transpose backward both on kernel 7;
+  `spmm_pallas`     -> `spmm`: values as an input, with a gradient.
+`spmm_csr` walks any CSR (`ptr`, `idx`): over the destination CSR
+(`row_ptr`, `src`) it is the forward y_d = sum_{s -> d} v_e x_s; over the
+transpose CSR (`t_ptr`, `t_dst`, values in source order) it is the backward
+dx_s = sum_{s -> d} v_e g_d. x rows are rounded to the row type before they
+are gathered (bf16 rows halve the gather, as the JAX package casts before it
+gathers) and summed in f32. The wrapper runs `spmm_csr_plain` for CPU
+tensors and launches the kernel (or raises) for CUDA tensors.
+
+D must be a multiple of 32 up to 512 for the kernel; the operators pad other
+widths with zero columns (which add nothing) and slice them off. The JAX
+package pads to 128 lanes; the port does not need to.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from plotpointe_tpu_torch.graphs.csr import Graph
+from plotpointe_tpu_torch.ops import cuda_build as cb
+from plotpointe_tpu_torch.ops import gat_fused
+
+LAUNCHES = cb.COUNTERS["spmm_csr"]
+
+
+def spmm_csr_plain(x: torch.Tensor, values: torch.Tensor, ptr: torch.Tensor, idx: torch.Tensor,
+                   rows_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """y [len(ptr) - 1, D] f32: y_r = sum over entries k of row r of
+    values_k * round(x[idx_k]), round = to `rows_dtype` and back to f32."""
+    n_rows = ptr.shape[0] - 1
+    counts = (ptr[1:] - ptr[:-1]).long()
+    seg = torch.repeat_interleave(torch.arange(n_rows, device=x.device), counts,
+                                  output_size=idx.shape[0])
+    rows = x.to(rows_dtype).float()[idx.long()]
+    y = torch.zeros((n_rows, x.shape[1]), dtype=torch.float32, device=x.device)
+    return y.index_add_(0, seg, values[:, None] * rows)
+
+
+def _check(x, values, ptr, idx, rows_dtype):
+    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be a float32 or bfloat16 [N, D] tensor; got {x.dtype} {tuple(x.shape)}")
+    d = x.shape[1]
+    if d % 32 != 0 or d > 512:
+        raise ValueError(f"spmm_csr takes D a multiple of 32 up to 512; got D={d}")
+    if rows_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"rows_dtype must be float32 or bfloat16; got {rows_dtype}")
+    for name, t, dt in (("values", values, torch.float32), ("ptr", ptr, torch.int32),
+                        ("idx", idx, torch.int32)):
+        if t.dim() != 1 or t.dtype != dt or t.device != x.device:
+            raise ValueError(f"{name} must be a 1-d {dt} tensor on {x.device}")
+    if values.shape != idx.shape or ptr.shape[0] < 1:
+        raise ValueError("values and idx must have one entry per CSR entry, ptr at least one")
+
+
+def spmm_csr(x: torch.Tensor, values: torch.Tensor, ptr: torch.Tensor, idx: torch.Tensor,
+             rows_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Kernel 7. x [N, D] f32 or bf16 (D a multiple of 32, <= 512), values
+    [nnz] f32, ptr [R + 1] and idx [nnz] int32 (a CSR whose entries name x
+    rows) -> y [R, D] f32. Launches `csrc/spmm_csr.cu` for CUDA tensors; runs
+    `spmm_csr_plain` for CPU tensors."""
+    _check(x, values, ptr, idx, rows_dtype)
+    if x.device.type == "cpu":
+        return spmm_csr_plain(x, values, ptr, idx, rows_dtype)
+    xs = x.to(rows_dtype).contiguous()
+    if xs.data_ptr() % 16:  # the kernel reads rows in 16-byte loads
+        xs = xs.clone()
+    n_rows, d = ptr.shape[0] - 1, x.shape[1]
+    y = torch.empty((n_rows, d), dtype=torch.float32, device=x.device)
+    v, p, i = values.contiguous(), ptr.contiguous(), idx.contiguous()
+    fn = cb.entry("spmm_csr")
+    with torch.cuda.device(x.device):
+        rc = fn(cb.ptr(xs), int(rows_dtype == torch.bfloat16), cb.ptr(v), cb.ptr(p), cb.ptr(i),
+                cb.ptr(y), n_rows, d, cb.stream_of(x))
+    cb.check(rc, "spmm_csr")
+    LAUNCHES.bump()
+    return y
+
+
+def _csr_spmm(x, values, ptr, idx, rows_dtype, plain):
+    return (spmm_csr_plain if plain else spmm_csr)(x, values, ptr, idx, rows_dtype)
+
+
+def _padded(x: torch.Tensor) -> torch.Tensor:
+    pad = -x.shape[1] % 32
+    return F.pad(x, (0, pad)) if pad else x
+
+
+class _StaticSpmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, op):
+        ctx.op, ctx.plain = op, gat_fused.reference_active()
+        g = op.graph
+        return _csr_spmm(x, op.values, g.row_ptr, g.src, op.xs_dtype, ctx.plain)
+
+    @staticmethod
+    def backward(ctx, gy):
+        op = ctx.op
+        g = op.graph
+        return _csr_spmm(gy.contiguous(), op.values_t, g.t_ptr, g.t_dst, op.xs_dtype, ctx.plain), None
+
+
+class SpmmOperator:
+    """y = A x for a fixed graph and edge values: the LightGCN propagation
+    operator. The values are aligned on the host once, in canonical order
+    for the destination CSR and in source order (`values[t_eid]`) for the
+    transpose CSR the backward walks."""
+
+    def __init__(self, graph: Graph, values, xs_dtype: torch.dtype = torch.bfloat16):
+        v = np.asarray(values, dtype=np.float32)
+        if v.shape != (graph.n_edges,):
+            raise ValueError(f"values must be [{graph.n_edges}]; got {v.shape}")
+        dev = graph.src.device
+        self.graph, self.xs_dtype = graph, xs_dtype
+        self.values = torch.as_tensor(v, device=dev)
+        self.values_t = torch.as_tensor(v[graph.t_eid.cpu().numpy()], device=dev)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """x [N, D] f32 -> y [N, D] f32; differentiable in x. The backward
+        rounds the cotangent to `xs_dtype`, as the JAX operator does."""
+        d = x.shape[1]
+        y = _StaticSpmm.apply(_padded(x), self)
+        return y[:, :d] if y.shape[1] != d else y
+
+
+def make_spmm(graph: Graph, values, xs_dtype: torch.dtype = torch.bfloat16) -> SpmmOperator:
+    """The static operator of `graph` with edge `values` [E] (canonical
+    order, host array or tensor)."""
+    return SpmmOperator(graph, values, xs_dtype)
+
+
+class _Spmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, x, graph, xs_dtype):
+        ctx.save_for_backward(values, x)
+        ctx.graph = graph
+        return spmm_csr(x, values, graph.row_ptr, graph.src, xs_dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        values, x = ctx.saved_tensors
+        g = ctx.graph
+        gy = gy.contiguous()
+        dv = dx = None
+        if ctx.needs_input_grad[0]:
+            dv = (gy[g.dst.long()] * x[g.src.long()]).sum(1)
+        if ctx.needs_input_grad[1]:
+            dx = spmm_csr(gy, values[g.t_eid.long()], g.t_ptr, g.t_dst, torch.float32)
+        return dv, dx, None, None
+
+
+def spmm(graph: Graph, values: torch.Tensor, x: torch.Tensor,
+         xs_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """y[d] = sum over edges s -> d of values_e * x[s], [N, F] -> [N, F], with
+    `values` [E] (canonical order) as an input: the counterpart of
+    `spmm_pallas`. The forward is kernel 7 at `xs_dtype` rows; the gradient
+    to x is kernel 7 over the transpose CSR at f32 rows and the gradient to
+    values is dv_e = g_dst . x_src, the function JAX's backward (the XLA
+    golden's) computes."""
+    d = x.shape[1]
+    y = _Spmm.apply(values, _padded(x), graph, xs_dtype)
+    return y[:, :d] if y.shape[1] != d else y

@@ -2,10 +2,11 @@
 checkpoint + metrics JSON.
 
 Counterpart of `plotpointe_tpu/pipeline.py` (`make_model`,
-`train_from_artifacts`) on its GAT path. Interactions come from
+`train_from_artifacts`) for the GAT and LightGCN. Interactions come from
 `{staging}/interactions.npz` (column arrays) when present, else the parquet
-file; item features from `{embeddings}/fused_interacted.npy` or
+file; the GAT's item features from `{embeddings}/fused_interacted.npy` or
 `txt_interacted.npy` (`item_features`), else `fused.npy` / `txt.npy`.
+LightGCN reads no features.
 """
 from __future__ import annotations
 
@@ -19,26 +20,28 @@ from plotpointe_tpu_torch.config import TrainConfig
 from plotpointe_tpu_torch.data.splits import build_node_maps, build_splits
 from plotpointe_tpu_torch.graphs.csr import build_bipartite_graph
 from plotpointe_tpu_torch.models.gat import GATModel
+from plotpointe_tpu_torch.models.lightgcn import LightGCNModel
 from plotpointe_tpu_torch.ops.gat_kernel import resolve_hs_dtype
 from plotpointe_tpu_torch.train.trainer import Trainer
 from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
 
 
 def _check_ported(cfg: TrainConfig) -> None:
-    if cfg.model_family == "lightgcn":
-        raise NotImplementedError(
-            "LightGCN training needs the CSR SpMM kernel (_wreduce_kernel, kernel 7), "
-            "a later slice of the port")
-    if cfg.model_family != "gat":
+    if cfg.model_family not in ("gat", "lightgcn"):
         raise ValueError(f"unknown model_family {cfg.model_family}")
     if cfg.mesh_shape:
         raise NotImplementedError(
             "sharded training (--mesh) is the multi-GPU slice of the port, not ported yet")
 
 
-def make_model(cfg: TrainConfig, n_users: int, n_items: int, feat_dim: int, device=None) -> GATModel:
-    """The GAT of `cfg`, with the row type its `attn_impl` means on `device`."""
+def make_model(cfg: TrainConfig, n_users: int, n_items: int, feat_dim: int, device=None):
+    """The model of `cfg`, with the row type its `attn_impl` (GAT) or
+    `spmm_impl` (LightGCN) means on `device`."""
     _check_ported(cfg)
+    if cfg.model_family == "lightgcn":
+        return LightGCNModel(n_users=n_users, n_items=n_items, embed_dim=cfg.embed_dim,
+                             n_prop_layers=cfg.n_prop_layers,
+                             xs_dtype=resolve_hs_dtype(cfg.spmm_impl, resolve_device(device)))
     return GATModel(n_users=n_users, n_items=n_items, feat_dim=feat_dim, hidden_dim=cfg.hidden_dim,
                     n_layers=cfg.layers, heads=cfg.heads, attn_dropout=cfg.attn_dropout,
                     hs_dtype=resolve_hs_dtype(cfg.attn_impl, resolve_device(device)))
@@ -70,8 +73,9 @@ def train_from_artifacts(cfg: TrainConfig, staging_prefix: str, embeddings_prefi
     splits = build_splits(interactions, u2i, i2i)
     graph = build_bipartite_graph(splits.train_u, splits.train_i, splits.n_users, splits.n_items,
                                   weight=splits.train_w)
-    feats = _features(store, cfg, embeddings_prefix, splits.n_items)
-    model = make_model(cfg, splits.n_users, splits.n_items, feats.shape[1], device=dev)
+    feats = _features(store, cfg, embeddings_prefix, splits.n_items) if cfg.model_family == "gat" else None
+    model = make_model(cfg, splits.n_users, splits.n_items, 0 if feats is None else feats.shape[1],
+                       device=dev)
     trainer = Trainer(model, cfg, graph, splits, item_feats=feats, device=dev)
 
     cfg.run_id = cfg.run_id or f"{cfg.model_family}_d{cfg.hidden_dim}_{int(time.time())}"

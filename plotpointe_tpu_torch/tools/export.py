@@ -3,8 +3,10 @@
 Counterpart of `plotpointe_tpu/tools/export.py`: rebuild the train split and
 the bipartite graph exactly as training did, restore the model from the
 checkpoint's embedded config, run one full-graph forward, keep the item half,
-save float32. On the GPU the attention layers run the fused CUDA kernel with
-f32 source rows, the same function the JAX export computes.
+save float32. Both families run at f32 rows, the function the JAX export
+computes: on the GPU the GAT's attention layers run the fused kernels (kernel
+1, or 8 for 2 to 8 heads), LightGCN's propagation runs kernel 7. LightGCN
+takes no item features.
 """
 from __future__ import annotations
 
@@ -18,23 +20,24 @@ from plotpointe_tpu_torch import resolve_device
 from plotpointe_tpu_torch.data.splits import build_node_maps, build_splits
 from plotpointe_tpu_torch.graphs.csr import build_bipartite_graph
 from plotpointe_tpu_torch.models.gat import GATModel
+from plotpointe_tpu_torch.models.lightgcn import LightGCNModel
 from plotpointe_tpu_torch.train.checkpoint import load_checkpoint, params_from_jax
 from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
 
 
-def export_item_embeddings(checkpoint_path: str | Path, interactions, item_feats: np.ndarray,
-                           out_uri: str, store: Optional[ArtifactStore] = None,
-                           device=None) -> np.ndarray:
-    """Returns the exported [n_items, hidden] matrix and writes it to out_uri."""
+def export_item_embeddings(checkpoint_path: str | Path, interactions,
+                           item_feats: Optional[np.ndarray], out_uri: str,
+                           store: Optional[ArtifactStore] = None, device=None) -> np.ndarray:
+    """Returns the exported [n_items, hidden] matrix and writes it to out_uri.
+    `item_feats` is needed for a GAT checkpoint and ignored for LightGCN."""
     dev = resolve_device(device)
     store = store or ArtifactStore()
     flat, config = load_checkpoint(checkpoint_path)
     family = config.get("model_family", "gat")
-    if family == "lightgcn":
-        raise NotImplementedError(
-            "LightGCN export needs the CSR SpMM kernel (_wreduce_kernel), a later slice of the port")
-    if family != "gat":
+    if family not in ("gat", "lightgcn"):
         raise ValueError(f"unknown model_family {family}")
+    if family == "gat" and item_feats is None:
+        raise ValueError("a GAT checkpoint needs item features to export")
 
     u2i, i2i = build_node_maps(interactions)
     s = build_splits(interactions, u2i, i2i)
@@ -45,11 +48,14 @@ def export_item_embeddings(checkpoint_path: str | Path, interactions, item_feats
     graph = build_bipartite_graph(s.train_u, s.train_i, s.n_users, s.n_items,
                                   weight=s.train_w).to(dev)
 
-    model = GATModel.from_config(config)
+    model = (GATModel if family == "gat" else LightGCNModel).from_config(config)
     model.load_state_dict(params_from_jax(flat))
     model.to(dev)
     with torch.no_grad():
-        z = model(torch.as_tensor(np.asarray(item_feats, np.float32), device=dev), graph)
+        if family == "lightgcn":
+            z = model(model.operator(graph))
+        else:
+            z = model(torch.as_tensor(np.asarray(item_feats, np.float32), device=dev), graph)
     item_emb = z[s.n_users:].cpu().numpy().astype(np.float32)
     store.save_npy(item_emb, out_uri)
     return item_emb

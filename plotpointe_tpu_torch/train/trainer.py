@@ -1,13 +1,21 @@
-"""Training harness: one optimizer step per epoch over sampled BPR/BCE
-triples, sampled evaluation, best-by-val checkpointing, resume.
+"""Training harness for the GAT and LightGCN: sampled BPR/BCE steps,
+sampled evaluation, best-by-val checkpointing, resume.
 
 Counterpart of `plotpointe_tpu/train/trainer.py` (`make_optimizer`,
-`Trainer` on its GAT path). Per epoch: `steps_per_epoch` steps, each
-sampling `samples_per_epoch` exact (u, i, j) triples on the device, one
-full-graph forward with attention dropout, the loss, the backward (B1 and
-B2 in the attention layers) and an optimizer step; then the val eval. The
-best val NDCG@20 keeps its parameters, which give the final test eval and
-are written as a checkpoint in the JAX npz format.
+`Trainer`). Per epoch, then the val eval:
+  GAT       `steps_per_epoch` steps, each sampling `samples_per_epoch` exact
+            (u, i, j) triples on the device, one full-graph forward with
+            attention dropout, the loss, the backward (B1 and B2 in the
+            attention layers) and an optimizer step;
+  LightGCN  the mini-batch protocol: a permutation of the train
+            interactions, t // batch_size steps of `batch_size` (u, i)
+            positives with `neg_per_pos` exact negatives each, a full
+            propagation (kernel 7 forward and backward through the static
+            operator, built once), the loss of each positive against its
+            negatives and an optimizer step; the losses are summed on the
+            device and read once per epoch.
+The best val NDCG@20 keeps its parameters, which give the final test eval
+and are written as a checkpoint in the JAX npz format.
 
 Randomness: one `torch.Generator` on the device, re-seeded from `cfg.seed`
 at each use (init, each epoch's steps, each eval), so a resumed run draws
@@ -29,12 +37,13 @@ from plotpointe_tpu_torch import resolve_device
 from plotpointe_tpu_torch.config import TrainConfig
 from plotpointe_tpu_torch.data.splits import Splits, padded_positives
 from plotpointe_tpu_torch.graphs.csr import Graph
+from plotpointe_tpu_torch.ops.gat_fused import MAX_PACKED_HEADS
 from plotpointe_tpu_torch.ops.segment import gather_rows
 from plotpointe_tpu_torch.train.checkpoint import (
     load_resume_state, params_to_jax, save_checkpoint, save_resume_state)
 from plotpointe_tpu_torch.train.evaluate import sampled_eval
 from plotpointe_tpu_torch.train.losses import LOSSES
-from plotpointe_tpu_torch.train.sampling import sample_bpr_triples
+from plotpointe_tpu_torch.train.sampling import rank_to_item, sample_bpr_triples, uniform_ranks
 from plotpointe_tpu_torch.utils.logging import log_event
 
 _M64 = (1 << 64) - 1
@@ -80,13 +89,14 @@ def _clone_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 
 class Trainer:
-    """Drives a GATModel through the reference protocol on one device."""
+    """Drives a GATModel or a LightGCNModel through the reference protocol on
+    one device."""
 
     def __init__(self, model, cfg: TrainConfig, graph: Graph, splits: Splits,
                  item_feats: Optional[np.ndarray] = None, max_pos_degree: int = 512, device=None):
-        if model.config_dict().get("model_family") != "gat":
-            raise NotImplementedError(
-                "only the GAT trainer is ported; LightGCN (kernel 7) is a later slice of the port")
+        family = model.config_dict().get("model_family")
+        if family not in ("gat", "lightgcn"):
+            raise ValueError(f"unknown model_family {family}")
         self.device = dev = resolve_device(device)
         self.model = model.to(dev)
         self.cfg = cfg
@@ -99,6 +109,11 @@ class Trainer:
         self.user_pos_padded = torch.as_tensor(pos_table, device=dev)
         self.user_deg = torch.as_tensor(deg, device=dev)
         self.train_users = torch.as_tensor(np.flatnonzero(deg > 0).astype(np.int32), device=dev)
+        self._spmm_op = None  # LightGCN's propagation operator: edge values aligned once
+        if family == "lightgcn":
+            self._spmm_op = model.operator(self.graph)
+            self.train_u = torch.as_tensor(splits.train_u, device=dev)
+            self.train_i = torch.as_tensor(splits.train_i, device=dev)
         self.generator = torch.Generator(device=dev)
         self.optimizer: Optional[torch.optim.Optimizer] = None  # fit() builds both
         self.scheduler: Optional[Any] = None
@@ -109,12 +124,15 @@ class Trainer:
     # -- one step, in phases (chip_smoke.py times each) ------------------------
 
     def _sample(self):
-        """(u, i, j) triples and one uint32 dropout seed per layer."""
+        """(u, i, j) triples and the uint32 dropout seeds: one per layer, or
+        [layers][heads] above 8 heads (one attention pass per head)."""
         u, i, j = sample_bpr_triples(self.generator, self.train_users, self.user_pos_padded,
                                      self.user_deg, self.n_items, self.cfg.samples_per_epoch)
         seeds = None
         if self.model.attn_dropout > 0:
-            seeds = torch.randint(0, 1 << 32, (self.model.n_layers,), generator=self.generator,
+            m = self.model
+            shape = (m.n_layers, m.heads) if m.heads > MAX_PACKED_HEADS else (m.n_layers,)
+            seeds = torch.randint(0, 1 << 32, shape, generator=self.generator,
                                   device=self.device, dtype=torch.int64).tolist()
         return u, i, j, seeds
 
@@ -141,14 +159,63 @@ class Trainer:
 
     def _epoch(self, epoch: int) -> float:
         self._reseed(STREAM_TRAIN, epoch)
+        if self._spmm_op is not None:
+            return self._lightgcn_epoch()
         steps = max(1, self.cfg.steps_per_epoch)
         return sum(self._train_step() for _ in range(steps)) / steps
+
+    # -- LightGCN mini-batch step, in phases -------------------------------------
+
+    def _lightgcn_perm(self) -> Tuple[torch.Tensor, int]:
+        """The epoch's order of the train interactions and its step count: a
+        permutation, wrapped around to one full batch when there are fewer
+        interactions than `batch_size`."""
+        t, bs = self.splits.n_train, self.cfg.batch_size
+        perm = torch.randperm(t, generator=self.generator, device=self.device)
+        if t < bs:
+            return perm.repeat(-(-bs // t))[:bs], 1
+        return perm, t // bs
+
+    def _lightgcn_sample(self, perm: torch.Tensor, step: int):
+        """Batch `step` of `perm`: positives (u, i) [bs] and `neg_per_pos`
+        exact negatives j [bs, npp] per positive."""
+        bs, npp = self.cfg.batch_size, self.cfg.neg_per_pos
+        idx = perm[step * bs:(step + 1) * bs]
+        u, i = self.train_u[idx], self.train_i[idx]
+        bound = (self.n_items - self.user_deg[u])[:, None].expand(bs, npp)
+        j = rank_to_item(uniform_ranks(self.generator, (bs, npp), bound), self.user_pos_padded[u])
+        return u, i, j
+
+    def _lightgcn_loss(self, u, i, j) -> torch.Tensor:
+        """The loss of each positive score U[u].I[i], repeated, against its
+        negatives' U[u].I[j], from a full propagation."""
+        z = self.model(self._spmm_op)
+        bs, npp = j.shape
+        rows = gather_rows(z, torch.cat([u, i + self.n_users, j.reshape(-1) + self.n_users]))
+        zu, zi, zj = rows.split([bs, bs, bs * npp])
+        pos = (zu * zi).sum(-1)
+        neg = (zu[:, None, :] * zj.view(bs, npp, -1)).sum(-1)
+        return LOSSES[self.cfg.loss](pos[:, None].expand(bs, npp).reshape(-1), neg.reshape(-1))
+
+    def _lightgcn_epoch(self) -> float:
+        perm, n_steps = self._lightgcn_perm()
+        total = torch.zeros((), device=self.device)
+        for step in range(n_steps):
+            loss = self._lightgcn_loss(*self._lightgcn_sample(perm, step))
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            self._opt_step()
+            total += loss.detach()
+        return float(total) / n_steps  # the losses are read once per epoch
 
     # -- evaluation ------------------------------------------------------------
 
     @torch.no_grad()
     def _forward_eval(self):
-        z = self.model(self.item_feats, self.graph)
+        if self._spmm_op is not None:
+            z = self.model(self._spmm_op)
+        else:
+            z = self.model(self.item_feats, self.graph)
         return z[: self.n_users], z[self.n_users:]
 
     def evaluate(self, eval_u: np.ndarray, eval_i: np.ndarray, index: int) -> Dict[str, float]:

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+attention (kernels 1, 2, 3 and the head-packed 8, 9), the gather fence (16),
+top-K (4, 5) and the CSR SpMM (7), and same-seed trainer determinism.
 
 Every test here needs an NVIDIA GPU and skips without one. This file imports
 no JAX, so it also runs where JAX is absent:
@@ -8,7 +10,8 @@ no JAX, so it also runs where JAX is absent:
 Tolerances: attention rtol 1e-4 / atol 1e-5 (both sides round the same rows
 and sum in f32; only the summation order differs); attention gradients rtol
 5e-4 / atol 1e-4 (tests/test_gat_fused.py:53-55: sums over every edge of a
-row, with cancellation, in another order); scores rtol 1e-5 / atol 1e-4 (f32
+row, with cancellation, in another order); SpMM rtol 1e-4 / atol 1e-5 (the
+same rounded rows, f32 sums, another order); scores rtol 1e-5 / atol 1e-4 (f32
 dot products of width <= 256, summed in another order).
 """
 import contextlib
@@ -173,14 +176,144 @@ def test_same_seed_fit_is_bit_identical_on_card(cuda):
     assert all(np.isfinite(h["loss"]) for h in runs[0][0])
 
 
-def test_multihead_attention_on_cuda_raises(cuda):
+def test_multihead_attention_on_cuda_launches_kernels_8_and_9(cuda):
     from plotpointe_tpu_torch.ops.gat_kernel import segment_softmax_attention_kernel
 
-    g = _graph(np.random.default_rng(0)).to(cuda)
-    h = torch.zeros((g.n_nodes, 2, 64), device=cuda)
-    a = torch.zeros((2, 64), device=cuda)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        segment_softmax_attention_kernel(h, a, a, g)
+    rng = np.random.default_rng(0)
+    g = _graph(rng).to(cuda)
+    h = torch.as_tensor(rng.normal(size=(g.n_nodes, 2, 48)).astype(np.float32), device=cuda)
+    a = torch.as_tensor(rng.normal(size=(2, 48)).astype(np.float32) * 0.2, device=cuda)
+    x = h.clone().requires_grad_()
+    cuda_build.reset_counters()
+    segment_softmax_attention_kernel(x, a, a, g, dropout_rate=0.1, seed=3).sum().backward()
+    torch.cuda.synchronize()
+    launched = {k: cuda_build.COUNTERS[k].count for k in ("gat_fwd_mh", "gat_bwd_dst_mh", "gat_bwd_src")}
+    assert launched == {"gat_fwd_mh": 1, "gat_bwd_dst_mh": 1, "gat_bwd_src": 2}
+    assert torch.isfinite(x.grad).all()
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("rows_dtype", [torch.float32, torch.bfloat16])
+def test_spmm_kernel_matches_plain_both_directions(cuda, d, rows_dtype):
+    """LightGCN's operator: the symmetric normalized values, so each row is
+    a weighted mean (hot node 3 sums 1,200 entries) and f32 sums in another
+    order stay within the attention band."""
+    from plotpointe_tpu_torch.graphs.csr import symmetric_normalized_weights
+    from plotpointe_tpu_torch.ops.spmm_kernel import spmm_csr, spmm_csr_plain
+
+    rng = np.random.default_rng(d + 7)
+    g = _graph(rng).to(cuda)
+    v = torch.as_tensor(symmetric_normalized_weights(g), device=cuda)
+    x = torch.as_tensor(rng.normal(size=(g.n_nodes, d)).astype(np.float32), device=cuda)
+    before = cuda_build.COUNTERS["spmm_csr"].count
+    for ptr, idx, vals in ((g.row_ptr, g.src, v), (g.t_ptr, g.t_dst, v[g.t_eid.long()])):
+        got = spmm_csr(x, vals, ptr, idx, rows_dtype)
+        torch.testing.assert_close(got, spmm_csr_plain(x, vals, ptr, idx, rows_dtype), rtol=1e-4, atol=1e-5)
+    torch.cuda.synchronize()
+    assert cuda_build.COUNTERS["spmm_csr"].count == before + 2
+    assert torch.all(spmm_csr(x, v, g.row_ptr, g.src, rows_dtype)[250:] == 0)
+
+
+def test_make_spmm_grads_match_golden_autograd(cuda):
+    from plotpointe_tpu_torch.graphs.csr import symmetric_normalized_weights
+    from plotpointe_tpu_torch.ops.segment import spmm as plain_spmm
+    from plotpointe_tpu_torch.ops.spmm_kernel import make_spmm
+
+    rng = np.random.default_rng(4)
+    g = _graph(rng).to(cuda)
+    vals = symmetric_normalized_weights(g)
+    x = torch.as_tensor(rng.normal(size=(g.n_nodes, 64)).astype(np.float32), device=cuda)
+    ct = torch.as_tensor(rng.normal(size=(g.n_nodes, 64)).astype(np.float32), device=cuda)
+    got, want = x.clone().requires_grad_(), x.clone().requires_grad_()
+    (make_spmm(g, vals, torch.float32)(got) * ct).sum().backward()
+    (plain_spmm(g, torch.as_tensor(vals, device=cuda), want) * ct).sum().backward()
+    torch.testing.assert_close(got.grad, want.grad, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("heads,d", [(2, 64), (2, 128), (4, 128), (2, 512)])
+@pytest.mark.parametrize("hs_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_multihead_kernels_match_plain(cuda, heads, d, hs_dtype, masked):
+    from plotpointe_tpu_torch.ops.gat_fused import (
+        attention_bwd_dst_mh, attention_bwd_dst_mh_plain, attention_fwd_mh, attention_fwd_mh_plain,
+        dropout_mask_mh, node_terms_mh_plain)
+
+    rng = np.random.default_rng(heads * d)
+    g = _graph(rng).to(cuda)
+
+    def t(*shape, scale=1.0):
+        return torch.as_tensor((rng.normal(size=shape) * scale).astype(np.float32), device=cuda)
+
+    h, a_s, a_d, ct = t(g.n_nodes, heads, d), t(heads, d, scale=0.2), t(heads, d, scale=0.2), \
+        t(g.n_nodes, heads, d)
+    mask = dropout_mask_mh(g, 0.3, 77, heads, cuda) if masked else None
+    before = {k: cuda_build.COUNTERS[k].count for k in ("gat_fwd_mh", "gat_bwd_dst_mh", "gat_bwd_src")}
+    out, den = attention_fwd_mh(h, a_s, a_d, g, mask=mask, hs_dtype=hs_dtype)
+    want_out, want_den = attention_fwd_mh_plain(h, a_s, a_d, g, mask=mask, hs_dtype=hs_dtype)
+    torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(den, want_den, rtol=1e-4, atol=1e-5)
+    rows, gs, gd = node_terms_mh_plain(h, a_s, a_d, hs_dtype)
+    args = (rows, gs, gd, ct, want_out, want_den, g, mask)
+    got = attention_bwd_dst_mh(*args)
+    for name, a, b in zip(("de_sum", "godot", "da_src"), got, attention_bwd_dst_mh_plain(*args)):
+        torch.testing.assert_close(a, b, **GRAD_TOL, msg=name)
+    # B2 on one head's rows of the [N, H, D] tensors, read with a row stride
+    gh = ct.to(hs_dtype)
+    k = heads - 1
+    args2 = (rows[:, k], gh[:, k], a_s[k:k + 1], gs[:, k].contiguous(), gd[:, k].contiguous(),
+             want_den[:, k].contiguous(), got[1][:, k].contiguous(), g, None if mask is None else mask[k])
+    torch.testing.assert_close(attention_bwd_src(*args2), attention_bwd_src_plain(*args2), **GRAD_TOL)
+    torch.cuda.synchronize()
+    assert {k: cuda_build.COUNTERS[k].count - before[k] for k in before} == \
+        {"gat_fwd_mh": 1, "gat_bwd_dst_mh": 1, "gat_bwd_src": 1}
+    assert torch.all(out[250:] == 0)
+
+
+@pytest.mark.parametrize("hs_dtype", [torch.float32, torch.bfloat16])
+def test_attention_v3_mh_kernels_match_plain_with_dropout(cuda, hs_dtype):
+    from plotpointe_tpu_torch.ops.gat_fused import attention_v3_mh
+
+    rng = np.random.default_rng(5)
+    g = _graph(rng).to(cuda)
+    h = torch.as_tensor(rng.normal(size=(g.n_nodes, 2, 128)).astype(np.float32), device=cuda)
+    a_s, a_d = (torch.as_tensor(rng.normal(size=(2, 128)).astype(np.float32) * 0.2, device=cuda)
+                for _ in range(2))
+    ct = torch.as_tensor(rng.normal(size=(g.n_nodes, 2, 128)).astype(np.float32), device=cuda)
+    grads = []
+    for plain in (False, True):
+        x = [t.clone().requires_grad_() for t in (h, a_s, a_d)]
+        with reference_versions() if plain else contextlib.nullcontext():
+            (attention_v3_mh(*x, g, dropout_rate=0.3, seed=2**31 + 9, hs_dtype=hs_dtype)
+             * ct).sum().backward()
+        grads.append([t.grad for t in x])
+    for name, a, b in zip(("dh", "da_src", "da_dst"), *grads):
+        torch.testing.assert_close(a, b, **GRAD_TOL, msg=name)
+
+
+def test_same_seed_lightgcn_fit_is_bit_identical_on_card(cuda):
+    from plotpointe_tpu_torch.config import TrainConfig
+    from plotpointe_tpu_torch.data.splits import build_node_maps, build_splits
+    from plotpointe_tpu_torch.graphs.csr import build_bipartite_graph
+    from plotpointe_tpu_torch.models.lightgcn import LightGCNModel
+    from plotpointe_tpu_torch.train.trainer import Trainer
+
+    inter = _tiny_dataset(seed=2, n=12_000)
+    s = build_splits(inter, *build_node_maps(inter))
+    runs = []
+    for _ in range(2):
+        cfg = TrainConfig(model_family="lightgcn", epochs=3, batch_size=1024, neg_per_pos=5,
+                          eval_neg_k=100, eval_chunk=128)
+        model = LightGCNModel(s.n_users, s.n_items, 64, 3, xs_dtype=torch.bfloat16)
+        graph = build_bipartite_graph(s.train_u, s.train_i, s.n_users, s.n_items)
+        cuda_build.reset_counters()
+        res = Trainer(model, cfg, graph, s, device=cuda).fit()
+        assert cuda_build.COUNTERS["spmm_csr"].count > 0
+        runs.append(([{k: v for k, v in h.items() if not k.endswith("time_s")} for h in res["history"]],
+                     res["test"], {k: v.cpu() for k, v in model.state_dict().items()}))
+    assert runs[0][0] == runs[1][0] and runs[0][1] == runs[1][1]
+    for k, v in runs[0][2].items():
+        assert torch.equal(v, runs[1][2][k]), k
+    assert all(np.isfinite(h["loss"]) for h in runs[0][0])
 
 
 def test_gat_fwd_rejects_unsupported_width(cuda):

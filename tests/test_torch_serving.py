@@ -48,13 +48,21 @@ def test_export_matches_jax(tiny_dataset, exported, tmp_path):
 
 
 def test_export_rejects_lightgcn_and_mismatch(tiny_dataset, exported, tmp_path):
+    """A LightGCN checkpoint, once refused, now exports the JAX export's
+    values (f32 rows, no features); a checkpoint trained on other
+    interactions is still refused."""
+    from plotpointe_tpu.models.lightgcn import LightGCNModel as JaxLightGCN
     from plotpointe_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 
     _, ckpt, feats, _ = exported
+    n_users, n_items = tiny_dataset["user_id"].nunique(), tiny_dataset["asin"].nunique()
+    jm = JaxLightGCN(n_users, n_items, embed_dim=64, n_prop_layers=3)
+    lg = jax_save(tmp_path / "lg.npz", jm.init(jax.random.key(2)), jm.config_dict())
+    want = jax_export(lg, tiny_dataset, None, str(tmp_path / "jax_lg.npy"))
+    got = export_item_embeddings(lg, tiny_dataset, None, str(tmp_path / "lg.npy"), device="cpu")
+    assert got.shape == want.shape == (n_items, 64)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     flat, config = load_checkpoint(ckpt)
-    lg = save_checkpoint(tmp_path / "lg.npz", flat, {**config, "model_family": "lightgcn"})
-    with pytest.raises(NotImplementedError, match="SpMM"):
-        export_item_embeddings(lg, tiny_dataset, feats, str(tmp_path / "x.npy"), device="cpu")
     bad = save_checkpoint(tmp_path / "bad.npz", flat, {**config, "n_users": 1})
     with pytest.raises(ValueError, match="n_users"):
         export_item_embeddings(bad, tiny_dataset, feats, str(tmp_path / "x.npy"), device="cpu")

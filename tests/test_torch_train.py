@@ -354,6 +354,14 @@ def test_cli_train_on_cpu(setup, tmp_path, capsys):
     ckpts = list((models / "checkpoints").glob("*.npz"))
     assert len(ckpts) == 1 and len(list(models.glob("metrics_*.json"))) == 1
     assert jax_load_config(ckpts[0])["train_config"]["loss"] == "bce"
-    for extra in (["--model-family", "lightgcn"], ["--mesh", "data:2"]):
-        with pytest.raises(NotImplementedError, match="slice"):
-            cli.main(base + extra)
+    # LightGCN trains from the same command line (it reads no features)
+    lg_models = tmp_path / "lg_models"
+    lg = ["train", "--model-family", "lightgcn", "--staging-prefix", str(staging),
+          "--embeddings-prefix", str(tmp_path / "none"), "--models-prefix", str(lg_models),
+          "--epochs", "2", "--eval-neg-k", "50", "--device", "cpu"]
+    cli.main(lg)
+    assert "ndcg@20" in json.loads(capsys.readouterr().out)["test"]
+    (lg_ckpt,) = (lg_models / "checkpoints").glob("*.npz")
+    assert jax_load_config(lg_ckpt)["model_family"] == "lightgcn"
+    with pytest.raises(NotImplementedError, match="slice"):
+        cli.main(base + ["--mesh", "data:2"])
