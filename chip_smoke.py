@@ -42,6 +42,20 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            triples with dropout 0.1 at bf16 rows (kernels 8, 9 and B2 per
            head), the first-step check, and the export on the card (kernel
            8, f32 rows) vs the CPU export
+  graph_build
+           path 5, counters set to 0 first: the graph-build stage at the
+           reference's shapes through the CLI's functions in-process:
+           `build-ui` on the interactions above, `build-subset` of a seeded
+           498,196-row catalog (clustered rows, ~500 duplicated interacted
+           rows) at 128 d (fused) and 384 d (text), `build-knn` on
+           fused_interacted.npy (63,001 x 128, k 20, min similarity 0.3) and
+           `cosine_knn_graph` on txt_interacted.npy (x 384): kernel 10 must
+           have launched; the artifacts must hold no self edge, no index
+           >= N, rows in descending order and the JAX stats keys. Then,
+           counters at 0 again, `cosine_knn(impl="pallas", mode="fast")` on
+           the text rows: kernel 11 must have launched. Then kernel 10 vs its
+           plain version at both shapes, the edges of both graphs vs the
+           plain path's, kernel 11 vs its plain version and vs kernel 10
   timing   CUDA-event times of each kernel, its plain version and, where one
            PyTorch call computes the same function, that call; the bound with
            its reckoning; kernel 1 split into its two CUDA kernels and timed on
@@ -50,7 +64,8 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            device time by kernel with the idle share (torch.profiler); one
            eval pass; kernel 7 in both directions with `torch.sparse.mm` as
            its yardstick; kernels 8 and 9 per layer; the LightGCN and 2-head
-           steps by phase, profiled
+           steps by phase, profiled; kernels 10 and 11 at the graph-build
+           shapes beside a blocked `torch.mm` of the same product
   kernels  one {"kernels": [...]} line
   last     {"ok": true, "device": {...}}
 
@@ -61,6 +76,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import subprocess
@@ -98,6 +114,9 @@ SOURCES = {
     "gat_fwd_mh": ("plotpointe_tpu_torch/csrc/gat_fwd_mh.cu", "plotpointe_tpu/ops/gat_fused.py:460"),
     "gat_bwd_dst_mh": ("plotpointe_tpu_torch/csrc/gat_bwd_dst_mh.cu",
                        "plotpointe_tpu/ops/gat_fused.py:557"),
+    "knn_topk": ("plotpointe_tpu_torch/csrc/knn_topk.cu", "plotpointe_tpu/ops/knn_kernel.py:44"),
+    "knn_topk_fast": ("plotpointe_tpu_torch/csrc/knn_topk_fast.cu",
+                      "plotpointe_tpu/ops/knn_kernel.py:80"),
 }
 # the kernels each path must launch; gather_fence is on none (the port's
 # backward kernels gather rows themselves, so there are no two XLA gathers
@@ -107,9 +126,22 @@ PATH_KERNELS = {"train": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src"),
                 "lightgcn_train": ("spmm_csr",),
                 "lightgcn_serve": ("spmm_csr", "topk_chunkmax", "topk_rescore"),
                 "mh_train": ("gat_fwd_mh", "gat_bwd_dst_mh", "gat_bwd_src"),
-                "mh_export": ("gat_fwd_mh",)}
+                "mh_export": ("gat_fwd_mh",),
+                "graph_build": ("knn_topk",),
+                "graph_build_fast": ("knn_topk_fast",)}
 LIGHTGCN = dict(embed_dim=64, n_prop_layers=3, batch_size=8192, neg_per_pos=5)
 MH_HEADS = 2
+KNN = dict(k=20, min_similarity=0.3)  # the pipeline's build-knn defaults
+KNN_TOL = dict(rtol=1e-5, atol=1e-5)  # f32 scores of the same rows, summed in another order
+TIE_TOL = 1e-5  # candidates whose scores lie this close may swap places
+FAST_RECALL_PLAIN, FAST_RECALL_EXACT = 0.999, 0.998
+KNN_CLUSTERS, KNN_NOISE, KNN_DUPLICATES = 2000, 0.65, 500
+KNN_STATS_KEYS = ["n_items", "n_edges", "k", "min_similarity", "avg_similarity",
+                  "min_similarity_observed", "max_similarity", "avg_neighbors_per_item",
+                  "items_with_full_k", "build_time_sec"]
+UI_STATS_KEYS = ["n_users", "n_items", "n_edges", "sparsity", "user_degree_mean", "user_degree_std",
+                 "user_degree_min", "user_degree_max", "item_degree_mean", "item_degree_std",
+                 "item_degree_min", "item_degree_max", "build_time_sec"]
 
 
 def emit(obj) -> None:
@@ -122,16 +154,21 @@ def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
 
 
 def amazon_shaped_interactions(seed: int, n_users=192_403, n_items=63_001, n=1_689_116):
-    """Interactions as column arrays: lognormal user/item degree weights."""
+    """Interactions as column arrays: lognormal user/item degree weights, and
+    every user and item in at least one row (the reference's counts are of
+    users and items that interacted)."""
     rng = np.random.default_rng(seed)
     wu = rng.lognormal(0.0, 0.83, n_users)
     wi = rng.lognormal(0.0, 1.52, n_items)
-    return {
+    inter = {
         "user_id": rng.choice(n_users, n, p=wu / wu.sum()).astype(np.int64),
         "asin": rng.choice(n_items, n, p=wi / wi.sum()).astype(np.int64),
         "ts": rng.integers(1_100_000_000, 1_500_000_000, n),
         "rating": rng.integers(1, 6, n).astype(np.float64),
     }
+    inter["user_id"][:n_users] = rng.permutation(n_users)
+    inter["asin"][:n_items] = rng.permutation(n_items)
+    return inter
 
 
 def random_gat_params(rng, n_users: int, feat_dim: int, hidden: int, layers: int):
@@ -151,10 +188,10 @@ def random_gat_params(rng, n_users: int, feat_dim: int, hidden: int, layers: int
     return p
 
 
-def time_ms(fn, iters: int = 20) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -455,6 +492,7 @@ def phase_check(errs, rng, graph, h0, a_s, a_d, catalog, dev) -> None:
                 errs.check("topk_rescore", what + f" R={cid.shape[1]}", rescore(x, q, cid),
                            rescore_plain(x, q, cid), SCORE_TOL)
     sync()
+    check_knn(errs, "small", small_knn_rows(rng, dev))
 
 
 def write_artifacts(work: Path, inter, feats):
@@ -671,6 +709,345 @@ def phase_serve(label: str, work: Path, ckpt, inter, feats, n_items: int, width:
     if missing:
         raise AssertionError(f"{label}: kernels not launched on the path: {missing}")
     return launches
+
+
+def check_knn(errs, label: str, xn) -> None:
+    """Kernels 10 and 11 vs their plain versions on the same card rows: the
+    candidate scores within KNN_TOL; kernel 10's columns equal wherever no
+    tie within TIE_TOL straddles a place (the plain version lists one more,
+    to show the tie past the last); kernel 11's column sets with recall >=
+    FAST_RECALL_PLAIN, as bf16 products summed in another order may swap
+    near-tied candidates."""
+    import torch
+
+    from plotpointe_tpu_torch.ops.knn_kernel import (
+        knn_candidates, knn_candidates_fast, knn_candidates_fast_plain, knn_candidates_plain,
+        n_candidates)
+
+    n, d = xn.shape
+    r = n_candidates(KNN["k"], "exact")
+    what = f"{label} N={n} d={d} R={r}"
+    got_i, got_s = knn_candidates(xn, r)
+    want_i, want_s = knn_candidates_plain(xn, r + 1)
+    errs.check("knn_topk", what + " scores", got_s, want_s[:, :r], KNN_TOL)
+    gap = (want_s[:, :-1] - want_s[:, 1:]).abs() <= TIE_TOL  # [N, r]: place j ties place j + 1
+    tied = gap.clone()
+    tied[:, 1:] |= gap[:, :-1]
+    off = int(((got_i != want_i[:, :r]) & ~tied).sum())
+    emit({"phase": "check", "kernel": "knn_topk", "case": what + " columns where untied",
+          "mismatches": off, "tied_places": int(tied.sum()), "ok": off == 0})
+    if off:
+        raise AssertionError(f"knn_topk ({what}): {off} untied candidate columns differ from plain")
+    rf = n_candidates(KNN["k"], "fast")
+    what = f"{label} N={n} d={d} R={rf}"
+    got_i, got_s = knn_candidates_fast(xn, rf)
+    want_i, want_s = knn_candidates_fast_plain(xn, rf)
+    errs.check("knn_topk_fast", what + " scores", got_s, want_s, KNN_TOL)
+    rec = edge_recall(got_i, want_i)
+    emit({"phase": "check", "kernel": "knn_topk_fast", "case": what + " recall vs plain",
+          "recall": rec, "min": FAST_RECALL_PLAIN, "ok": rec >= FAST_RECALL_PLAIN})
+    if rec < FAST_RECALL_PLAIN:
+        raise AssertionError(f"knn_topk_fast ({what}): recall {rec} against its plain version")
+    sync()
+    del got_i, got_s, want_i, want_s
+    torch.cuda.empty_cache()
+
+
+def edge_recall(got_idx, want_idx) -> float:
+    """Share of want's real (row, column) pairs that got also lists."""
+    import torch
+
+    n = want_idx.shape[0]
+    rows = torch.arange(n, device=want_idx.device, dtype=torch.int64)[:, None]
+
+    def keys(idx):
+        idx = idx.to(torch.int64)
+        return (rows * n + idx)[idx >= 0]
+
+    want = keys(want_idx)
+    return float(torch.isin(want, keys(got_idx)).sum()) / max(1, want.numel())
+
+
+def small_knn_rows(rng, dev, n=3000, d=64):
+    """N not a multiple of the 128-row tile, duplicated rows, a zero row."""
+    import torch
+
+    from plotpointe_tpu_torch.graphs.knn import l2_normalize
+
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    src, dst = rng.choice(n, size=(2, 60), replace=False)
+    x[dst] = x[src]
+    x[7] = 0.0
+    return l2_normalize(torch.as_tensor(x, device=dev))
+
+
+def write_graph_inputs(work: Path, inter, seed: int):
+    """The graph-build stage's inputs in directories of their own: the
+    interactions and the catalog's asins (items.npz: the 498,196 asins in a
+    seeded permutation, so the interacted ones are scattered through it) and
+    the full-catalog features fused.npy (128 d) and txt.npy (384 d). Rows sit
+    around KNN_CLUSTERS unit-normal centres plus KNN_NOISE N(0, I) noise (a
+    within-cluster cosine near 0.7, so min similarity 0.3 keeps most edges);
+    KNN_DUPLICATES interacted rows are copies of others (exact ties)."""
+    rng = np.random.default_rng(seed + 4)
+    staging, emb = work / "graph_staging", work / "graph_embeddings"
+    staging.mkdir()
+    emb.mkdir()
+    np.savez(staging / "interactions.npz", **inter)
+    asin = rng.permutation(CATALOG).astype(np.int64)
+    np.savez(staging / "items.npz", asin=asin)
+    row_of = np.argsort(asin)  # catalog row of each asin
+    src, dst = rng.choice(row_of[np.unique(inter["asin"])], size=(2, KNN_DUPLICATES), replace=False)
+    cluster = rng.integers(0, KNN_CLUSTERS, CATALOG)
+    for name, d in (("fused", 128), ("txt", 384)):
+        x = rng.standard_normal((KNN_CLUSTERS, d), dtype=np.float32)[cluster]
+        x += np.float32(KNN_NOISE) * rng.standard_normal((CATALOG, d), dtype=np.float32)
+        x[dst] = x[src]
+        np.save(emb / f"{name}.npy", x)
+        del x
+    return staging, emb
+
+
+def check_knn_artifacts(graphs: Path, name: str, n: int) -> dict:
+    """ii_edges_{name}.npz: no self edge, no index >= N, similarities >= the
+    threshold and descending within a row; the stats JSON has the JAX keys."""
+    z = np.load(graphs / f"ii_edges_{name}.npz")
+    row, col, data = z["row"], z["col"], z["data"]
+    stats = json.loads((graphs / f"ii_{name}_stats.json").read_text())
+    same = row[1:] == row[:-1]
+    problems = {
+        "dtypes": not (row.dtype == col.dtype == np.int32 and data.dtype == np.float32),
+        "self_edges": bool((row == col).any()),
+        "index_out_of_range": bool(((col < 0) | (col >= n) | (row < 0) | (row >= n)).any()),
+        "below_threshold_or_not_finite": bool(not np.isfinite(data).all()
+                                              or (data < KNN["min_similarity"]).any()),
+        "rows_not_descending": bool((data[1:][same] > data[:-1][same]).any()),
+        "rows_not_grouped": bool((row[1:] < row[:-1]).any()),
+        "header": list(z["shape"]) != [n, n] or z["format"].item() != b"coo",
+        "stats_keys": list(stats) != KNN_STATS_KEYS or stats["n_edges"] != len(data),
+    }
+    bad = [k for k, v in problems.items() if v]
+    if bad:
+        raise AssertionError(f"ii_edges_{name}: {bad}")
+    return {"edges": int(len(data)), "avg_similarity": stats["avg_similarity"],
+            "items_with_full_k": stats["items_with_full_k"]}
+
+
+def check_ui_and_subsets(graphs: Path, staging: Path, emb: Path, s) -> dict:
+    """ui_edges.npz, node_maps.json and ui_stats.json of the interactions;
+    each subset's rows are the catalog rows of the node map's asins."""
+    z = np.load(graphs / "ui_edges.npz")
+    maps = json.loads((graphs / "node_maps.json").read_text())
+    ui = json.loads((graphs / "ui_stats.json").read_text())
+    asins = json.loads((emb / "interacted_items.json").read_text())
+    row_of = np.argsort(np.load(staging / "items.npz")["asin"])
+    bad = []
+    if list(z["shape"]) != [s.n_users, s.n_items] or len(z["row"]) != ui["n_edges"]:
+        bad.append("ui_edges")
+    if maps["n_users"] != s.n_users or maps["n_items"] != s.n_items or list(ui) != UI_STATS_KEYS:
+        bad.append("node_maps / ui_stats")
+    if len(asins) != s.n_items or [int(a) for a in maps["idx_to_item"].values()] != asins:
+        bad.append("interacted_items")
+    shapes = {}
+    for name, d in (("fused", 128), ("txt", 384)):
+        sub = np.load(emb / f"{name}_interacted.npy")
+        full = np.load(emb / f"{name}.npy", mmap_mode="r")
+        shapes[name] = list(sub.shape)
+        if sub.shape != (s.n_items, d) or not np.array_equal(sub, full[row_of[asins]]):
+            bad.append(f"{name}_interacted")
+    if bad:
+        raise AssertionError(f"graph-build artifacts wrong: {bad}")
+    return {"ui_edges": int(ui["n_edges"]), "subset_shapes": shapes}
+
+
+def compare_edges(label: str, got, want) -> dict:
+    """Two COO edge sets (row, col, data) of one graph: shared edges' data
+    within TIE_TOL; an edge in only one set must lie within TIE_TOL of the
+    threshold or of its row's last kept similarity (a near-tie at the k-th
+    place); counts equal apart from edges within TIE_TOL of the threshold."""
+    n_max = int(max(got[0].max(initial=0), want[0].max(initial=0))) + 1
+    kg = got[0].astype(np.int64) * n_max + got[1]
+    kw = want[0].astype(np.int64) * n_max + want[1]
+    _, ig, iw = np.intersect1d(kg, kw, assume_unique=True, return_indices=True)
+    data_err = float(np.abs(got[2][ig] - want[2][iw]).max(initial=0.0))
+
+    def unexplained(edges, keep):
+        row, data = edges[0][keep], edges[2][keep]
+        last = np.full(n_max, np.inf, np.float32)
+        np.minimum.at(last, edges[0], edges[2])  # each row's last kept similarity
+        near = (np.abs(data - KNN["min_similarity"]) <= TIE_TOL) | (np.abs(data - last[row]) <= TIE_TOL)
+        return int((~near).sum()), int(keep.sum())
+
+    only_g = np.ones(len(kg), bool)
+    only_g[ig] = False
+    only_w = np.ones(len(kw), bool)
+    only_w[iw] = False
+    bad_g, n_g = unexplained(got, only_g)
+    bad_w, n_w = unexplained(want, only_w)
+    thr_g = int((np.abs(got[2] - KNN["min_similarity"]) <= TIE_TOL).sum())
+    thr_w = int((np.abs(want[2] - KNN["min_similarity"]) <= TIE_TOL).sum())
+    counts_ok = abs(len(kg) - len(kw)) <= max(thr_g, thr_w)
+    ok = data_err <= TIE_TOL and bad_g == 0 and bad_w == 0 and counts_ok
+    line = {"phase": "check", "case": label, "edges": [len(kg), len(kw)], "shared": int(len(ig)),
+            "only_kernel_path": n_g, "only_plain_path": n_w, "unexplained": bad_g + bad_w,
+            "shared_data_max_abs_err": data_err, "tol": TIE_TOL, "ok": bool(ok)}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"{label}: edge sets disagree: {line}")
+    return line
+
+
+def phase_graph_build(errs, work: Path, inter, s, seed: int, dev):
+    """Path 5: build-ui, build-subset (fused, txt), build-knn (fused) and
+    cosine_knn_graph (txt) with every counter at 0 first; then the fast
+    call with the counters at 0 again; then the checks. Returns the two
+    runs' launches and the normalized subsets for the timing phase."""
+    import torch
+
+    from plotpointe_tpu_torch import cli
+    from plotpointe_tpu_torch.graphs.knn import cosine_knn, cosine_knn_graph, l2_normalize
+    from plotpointe_tpu_torch.ops import cuda_build
+    from plotpointe_tpu_torch.ops.gat_fused import reference_versions
+
+    t0 = time.perf_counter()
+    staging, emb = write_graph_inputs(work, inter, seed)
+    graphs = work / "graphs"
+    secs = {"inputs_s": time.perf_counter() - t0}
+    cuda_build.reset_counters()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):  # the commands print indented JSON
+        for step, argv in (
+                ("build_ui_s", ["build-ui", "--staging-prefix", str(staging), "--output-prefix", str(graphs)]),
+                ("build_subset_fused_s", ["build-subset", "--staging-prefix", str(staging), "--features",
+                                          str(emb / "fused.npy"), "--output-prefix", str(emb),
+                                          "--feature-name", "fused"]),
+                ("build_subset_txt_s", ["build-subset", "--staging-prefix", str(staging), "--features",
+                                        str(emb / "txt.npy"), "--output-prefix", str(emb),
+                                        "--feature-name", "txt"]),
+                ("build_knn_s", ["build-knn", "--features", str(emb / "fused_interacted.npy"),
+                                 "--output-prefix", str(graphs)])):
+            t0 = time.perf_counter()
+            cli.main(argv)
+            sync()
+            secs[step] = time.perf_counter() - t0
+    txt = np.load(emb / "txt_interacted.npy")
+    t0 = time.perf_counter()
+    cosine_knn_graph(txt, out_prefix=str(graphs), feature_name="txt", **KNN)
+    secs["knn_graph_txt_s"] = time.perf_counter() - t0
+    launches = counts()
+    missing = [k for k in PATH_KERNELS["graph_build"] if launches[k] == 0]
+    emit({"phase": "graph_build", **secs, "launches": launches, "ok": not missing})
+    if missing:
+        raise AssertionError(f"graph_build: kernels not launched on the path: {missing}")
+
+    cuda_build.reset_counters()
+    t0 = time.perf_counter()
+    fast = cosine_knn(txt, impl="pallas", mode="fast", **KNN)
+    fast_s = time.perf_counter() - t0
+    fast_launches = counts()
+    missing = [k for k in PATH_KERNELS["graph_build_fast"] if fast_launches[k] == 0]
+    emit({"phase": "graph_build_fast", "cosine_knn_fast_s": fast_s, "launches": fast_launches,
+          "ok": not missing})
+    if missing:
+        raise AssertionError(f"graph_build_fast: kernels not launched: {missing}")
+
+    n = s.n_items
+    emit({"phase": "graph_build", "check": "artifacts", **check_ui_and_subsets(graphs, staging, emb, s),
+          "fused": check_knn_artifacts(graphs, "fused", n), "txt": check_knn_artifacts(graphs, "txt", n),
+          "ok": True})
+    feats = {}
+    for name in ("fused", "txt"):
+        x = np.load(emb / f"{name}_interacted.npy")
+        feats[name] = l2_normalize(torch.as_tensor(x, device=dev))
+        check_knn(errs, f"graph_build {name}", feats[name])
+        z = np.load(graphs / f"ii_edges_{name}.npz")
+        with reference_versions():
+            plain, _ = cosine_knn_graph(x, feature_name=name, device=dev, **KNN)
+        compare_edges(f"graph_build {name} ii_edges, kernel path vs plain path",
+                      (z["row"], z["col"], z["data"]), plain)
+    # kernel 11's graph against kernel 10's, both after the exact re-score
+    z = np.load(graphs / "ii_edges_txt.npz")
+    fi, fsim, fvalid = fast
+    fr = np.repeat(np.arange(n), fi.shape[1])[fvalid.ravel()]
+    fast_edges = (fr, fi.ravel()[fvalid.ravel()].astype(np.int64), fsim.ravel()[fvalid.ravel()])
+    kw = z["row"].astype(np.int64) * n + z["col"]
+    kf = fast_edges[0].astype(np.int64) * n + fast_edges[1]
+    _, iw, jf = np.intersect1d(kw, kf, assume_unique=True, return_indices=True)
+    rec = len(iw) / max(1, len(kw))
+    err = float(np.abs(z["data"][iw] - fast_edges[2][jf]).max(initial=0.0))
+    ok = rec >= FAST_RECALL_EXACT and err <= TIE_TOL
+    emit({"phase": "check", "kernel": "knn_topk_fast",
+          "case": f"graph_build txt N={n} d=384: fast-mode edges vs exact-mode edges",
+          "recall": rec, "min": FAST_RECALL_EXACT, "shared_sim_max_abs_err": err, "tol": TIE_TOL,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"fast mode vs exact: recall {rec}, shared similarity err {err}")
+    return launches, fast_launches, feats, secs["build_knn_s"]
+
+
+def blocked_mm(x, rows: int = 1024, ld_mult: int = 8):
+    """x @ x.T in strips of `rows` rows into one reused buffer: the product
+    kernel 10 or 11 computes, with no selection (a context figure). x gets
+    zero rows up to a multiple of `ld_mult`, so the output's row stride is
+    16-byte aligned for cuBLAS's tensor-core paths; ld_mult=1 keeps N's own
+    stride (63,001: unaligned)."""
+    import torch
+
+    n = x.shape[0]
+    xp = torch.nn.functional.pad(x, (0, 0, 0, (-n) % ld_mult))
+    out = torch.empty((rows, xp.shape[0]), dtype=x.dtype, device=x.device)
+
+    def run():
+        for r0 in range(0, n, rows):
+            r1 = min(n, r0 + rows)
+            torch.mm(xp[r0:r1], xp.T, out=out[:r1 - r0])
+    return run
+
+
+def time_knn(rows_out, feats, build_knn_s: float) -> None:
+    """Kernels 10 and 11 at both shapes: 1 warm-up and 3 timed calls
+    (the plain versions 1 and 1). The bound counts each unordered pair's dot
+    product once, N (N - 1) d operations (the scores are symmetric), at the
+    f32 (kernel 10) or bf16 tensor-core (kernel 11) peak, against the bytes
+    of x once plus the candidate lists; `design_bound_ms` is the full
+    matrix's 2 N^2 d, which the row-owned kernels compute. Beside them a
+    blocked torch.mm of the same full product, with its output's row stride
+    aligned and at N's own."""
+    import torch
+
+    from plotpointe_tpu_torch.ops.knn_kernel import (
+        knn_candidates, knn_candidates_fast, knn_candidates_fast_plain, knn_candidates_plain,
+        n_candidates)
+
+    for name, x in feats.items():
+        n, d = x.shape
+        for kname, mode, fn, plain, dt in (
+                ("knn_topk", "exact", knn_candidates, knn_candidates_plain, torch.float32),
+                ("knn_topk_fast", "fast", knn_candidates_fast, knn_candidates_fast_plain, torch.bfloat16)):
+            r = n_candidates(KNN["k"], mode)
+            dname = str(dt)[6:]
+            isz = 4 if dt == torch.float32 else 2
+            nbytes = {"x": n * d * isz, "cand_idx": n * r * 4, "cand_score": n * r * 4}
+            ops = n * (n - 1) * d
+            b_ms, b_by = bound(sum(nbytes.values()), ops, dname)
+            xd = x.to(dt)
+            line = {"phase": "timing", "kernel": kname, "shape": f"N={n} d={d} R={r} {name}",
+                    "ms": time_ms(lambda: fn(x, r), 3, 1),
+                    "plain_ms": time_ms(lambda: plain(x, r), 1, 1),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "design_bound_ms": bound(sum(nbytes.values()), 2 * n * n * d, dname)[0],
+                    "gemm_ms": time_ms(blocked_mm(xd), 3, 1),
+                    "gemm_ld_unaligned_ms": time_ms(blocked_mm(xd, ld_mult=1), 3, 1),
+                    "gemm_what": f"context only: blocked {dname} torch.mm of the full product "
+                                 "(1,024-row strips, output row stride padded to a multiple of 8; "
+                                 "and at N's own stride), no selection",
+                    "bound_bytes": nbytes, "bound_ops": ops}
+            if kname == "knn_topk" and name == "fused":
+                line["build_knn_wall_s"] = build_knn_s
+            emit(line)
+            if d == 384:
+                rows_out[kname] = line
+            torch.cuda.empty_cache()
 
 
 def time_backward(rows_out, graph, h0, a_s, a_d, dev, rng):
@@ -1017,6 +1394,9 @@ def run(args, work: Path, dev="cuda") -> int:
     phase_step_parity("train_mh", mh_trainer)
     by_path["mh_export"] = phase_serve("export_mh", work, mh_ckpt, inter, feats, s.n_items, 128,
                                        0, 0, dev, PATH_KERNELS["mh_export"])
+    # path 5: the graph-build stage, then kNN's fast mode
+    by_path["graph_build"], by_path["graph_build_fast"], knn_feats, build_knn_s = phase_graph_build(
+        errs, work, inter, s, args.seed, dev)
 
     rows = phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev)
     time_train_step("gat", trainer, s, samples=trainer.cfg.samples_per_epoch)
@@ -1024,6 +1404,7 @@ def run(args, work: Path, dev="cuda") -> int:
                     negatives_per_positive=LIGHTGCN["neg_per_pos"], steps_per_epoch=lg_steps,
                     epoch_s=lg_res["history"][0]["step_time_s"])
     time_train_step("gat_2_heads", mh_trainer, s, samples=mh_trainer.cfg.samples_per_epoch)
+    time_knn(rows, knn_feats, build_knn_s)
 
     kernels = []
     for kname, (src_path, replaces) in SOURCES.items():

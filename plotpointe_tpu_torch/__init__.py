@@ -9,12 +9,18 @@ C++ kernel under `csrc/`, built with nvcc at first use and bound with ctypes
 tensors on the CPU and launches the kernel (or raises) for tensors on CUDA.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`.
+Inside `reference_versions()` every kernel op runs its plain version on any
+device: the reference a kernel path is held to on the card.
 """
 from __future__ import annotations
+
+import contextlib
+from typing import Iterator
 
 import torch
 
 __version__ = "0.1.0"
+_reference = False  # True only inside `reference_versions()`
 
 
 def resolve_device(device=None) -> torch.device:
@@ -25,3 +31,34 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+@contextlib.contextmanager
+def full_f32_matmul() -> Iterator[None]:
+    """CUDA f32 matrix products in full f32 inside the block (TF32 off), as
+    the JAX package's HIGH/HIGHEST precisions ask; the setting is restored."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@contextlib.contextmanager
+def reference_versions() -> Iterator[None]:
+    """Inside this block the attention autograd ops (`AttentionV3`,
+    `AttentionV3MH`), the static SpMM operator and `knn_topk`'s candidate
+    selection run their plain versions on any device, forward and backward:
+    the reference their kernels are held to."""
+    global _reference
+    prev, _reference = _reference, True
+    try:
+        yield
+    finally:
+        _reference = prev
+
+
+def reference_active() -> bool:
+    """True inside `reference_versions()`."""
+    return _reference

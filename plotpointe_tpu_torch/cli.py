@@ -6,7 +6,14 @@ Counterpart of `plotpointe_tpu/cli.py` for the ported commands:
   export  checkpoint + interactions (+ item features for the GAT) ->
           item_embeddings.npy
   serve   stdlib HTTP top-K server (--stdlib; the FastAPI app is not ported)
-All run on the GPU unless given `--device cpu`.
+  build-ui      interactions -> ui_edges.npz + node_maps.json + ui_stats.json
+  build-subset  full-catalog features + items + interactions ->
+                {name}_interacted.npy + interacted_items.json
+  build-knn     interacted features -> ii_edges_{name}.npz + ii_{name}_stats.json
+train, export, serve and build-knn run on the GPU unless given `--device
+cpu`; build-ui and build-subset are numpy on the host. Tables are read from
+`{prefix}/interactions.npz` and `{prefix}/items.npz` (column arrays) when
+they exist, else from the parquet files.
 """
 from __future__ import annotations
 
@@ -77,6 +84,40 @@ def _cmd_serve(args):
           micro_batch_max=args.micro_batch_max, micro_batch_wait_ms=args.micro_batch_wait_ms)
 
 
+def _cmd_build_ui(args):
+    from plotpointe_tpu_torch.graphs.ui_graph import build_ui_artifacts
+    from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
+
+    store = ArtifactStore()
+    _, stats = build_ui_artifacts(store.load_interactions(args.staging_prefix), args.output_prefix,
+                                  store=store)
+    print(json.dumps(stats, indent=2))
+
+
+def _cmd_build_subset(args):
+    from plotpointe_tpu_torch.data.subset import build_interacted_subset
+    from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
+
+    store = ArtifactStore()
+    subset, asins = build_interacted_subset(
+        store.load_npy(args.features, mmap=True), store.load_items(args.staging_prefix),
+        store.load_interactions(args.staging_prefix), out_prefix=args.output_prefix,
+        feature_name=args.feature_name, store=store)
+    print(json.dumps({"shape": list(subset.shape), "n_interacted": len(asins)}))
+
+
+def _cmd_build_knn(args):
+    from plotpointe_tpu_torch.graphs.knn import cosine_knn_graph
+    from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
+
+    store = ArtifactStore()
+    _, stats = cosine_knn_graph(np.asarray(store.load_npy(args.features)),
+                                out_prefix=args.output_prefix, feature_name=args.feature_name,
+                                k=args.k, min_similarity=args.min_similarity, store=store,
+                                device=args.device)
+    print(json.dumps(stats, indent=2))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="plotpointe_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -133,6 +174,29 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--micro-batch-wait-ms", type=float, default=3.0)
     s.add_argument("--device", default=None, help="default: cuda")
     s.set_defaults(fn=_cmd_serve)
+
+    b = sub.add_parser("build-ui", help="build U-I graph artifacts")
+    b.add_argument("--staging-prefix", required=True,
+                   help="holds interactions.npz (column arrays) or interactions.parquet")
+    b.add_argument("--output-prefix", required=True)
+    b.set_defaults(fn=_cmd_build_ui)
+
+    b = sub.add_parser("build-subset", help="slice full-catalog features to interacted items")
+    b.add_argument("--staging-prefix", required=True,
+                   help="holds items and interactions, each .npz (column arrays) or .parquet")
+    b.add_argument("--features", required=True)
+    b.add_argument("--output-prefix", required=True)
+    b.add_argument("--feature-name", default="txt")
+    b.set_defaults(fn=_cmd_build_subset)
+
+    b = sub.add_parser("build-knn", help="build item-item cosine kNN graph")
+    b.add_argument("--features", required=True)
+    b.add_argument("--output-prefix", required=True)
+    b.add_argument("--feature-name", default="fused")
+    b.add_argument("--k", type=int, default=20)
+    b.add_argument("--min-similarity", type=float, default=0.3)
+    b.add_argument("--device", default=None, help="default: cuda")
+    b.set_defaults(fn=_cmd_build_knn)
     return p
 
 

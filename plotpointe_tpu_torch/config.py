@@ -1,8 +1,8 @@
-"""Training config: a dataclass with environment-variable overrides.
+"""Training and kNN configs: dataclasses with environment-variable overrides.
 
 Counterpart of `plotpointe_tpu/config.py::TrainConfig` (same fields, same
 defaults, same `from_env` / `to_dict` / `from_dict`), so a checkpoint's
-embedded `train_config` reads in both packages.
+embedded `train_config` reads in both packages, and of its `KnnConfig`.
 
 `attn_impl` (GAT) and `spmm_impl` (LightGCN) keep the JAX values and pick
 the type the kernels round gathered rows to (`ops/gat_kernel.resolve_hs_dtype`):
@@ -88,3 +88,15 @@ class TrainConfig:
     def from_dict(cls, d: Dict[str, Any]) -> "TrainConfig":
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclass
+class KnnConfig:
+    """Item-item cosine-kNN config (the JAX package's `KnnConfig`)."""
+
+    k: int = 20
+    min_similarity: float = 0.3
+    block_rows: int = 1024
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)

@@ -1,9 +1,9 @@
 """Chronological leave-last-2 splits and node index maps, numpy only.
 
 Counterpart of `plotpointe_tpu/data/splits.py` (`build_node_maps`,
-`build_splits`, `padded_positives`). The interactions may be a pandas DataFrame or a plain dict
-of numpy arrays with `user_id`, `asin`, `ts` and optional `rating` columns;
-nothing here needs pandas.
+`node_maps_json`, `build_splits`, `padded_positives`). The interactions may
+be a pandas DataFrame or a plain dict of numpy arrays with `user_id`, `asin`,
+`ts` and optional `rating` columns; nothing here needs pandas.
 
 Split semantics, per user sorted by ts: >=3 interactions -> train=[:-2],
 val=[-2], test=[-1]; ==2 -> train=[:-1], test=[-1]; <2 -> dropped.
@@ -56,17 +56,38 @@ def build_node_maps(interactions) -> Tuple[Dict, Dict]:
     return {u: i for i, u in enumerate(users)}, {a: i for i, a in enumerate(items)}
 
 
-def _map_ids(values: np.ndarray, mapping: Dict) -> np.ndarray:
-    """Vectorised `mapping[v]` for every v; raises KeyError on an unknown id."""
+def node_maps_json(user_to_idx: Dict, item_to_idx: Dict) -> Dict:
+    """The node_maps.json contract: both maps, their inverses and sizes."""
+    return {
+        "user_to_idx": user_to_idx,
+        "item_to_idx": item_to_idx,
+        "idx_to_user": {idx: uid for uid, idx in user_to_idx.items()},
+        "idx_to_item": {idx: iid for iid, idx in item_to_idx.items()},
+        "n_users": len(user_to_idx),
+        "n_items": len(item_to_idx),
+    }
+
+
+def lookup_ids(values: np.ndarray, mapping: Dict) -> Tuple[np.ndarray, np.ndarray]:
+    """Vectorised `mapping.get(v)` for every v: (index, found) arrays; the
+    index is meaningless where `found` is False."""
+    values = np.asarray(values)
     keys = np.asarray(list(mapping.keys()))
     idx = np.asarray(list(mapping.values()), dtype=np.int64)
+    if len(keys) == 0:
+        return np.zeros(len(values), np.int64), np.zeros(len(values), bool)
     order = np.argsort(keys, kind="stable")
     keys, idx = keys[order], idx[order]
     pos = np.clip(np.searchsorted(keys, values), 0, len(keys) - 1)
-    hit = keys[pos] == values
+    return idx[pos], keys[pos] == values
+
+
+def _map_ids(values: np.ndarray, mapping: Dict) -> np.ndarray:
+    """Vectorised `mapping[v]` for every v; raises KeyError on an unknown id."""
+    idx, hit = lookup_ids(values, mapping)
     if not np.all(hit):
-        raise KeyError(f"id not in node map: {values[~hit][0]!r}")
-    return idx[pos]
+        raise KeyError(f"id not in node map: {np.asarray(values)[~hit][0]!r}")
+    return idx
 
 
 def build_splits(interactions, user_to_idx: Dict, item_to_idx: Dict) -> Splits:

@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "plotpointe_tpu_torch"
 KERNELS = ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "gather_fence", "topk_chunkmax", "topk_rescore",
-           "spmm_csr", "gat_fwd_mh", "gat_bwd_dst_mh")
+           "spmm_csr", "gat_fwd_mh", "gat_bwd_dst_mh", "knn_topk", "knn_topk_fast")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 P = ctypes.c_void_p
@@ -44,6 +44,8 @@ SIGNATURES = {
     "spmm_csr": ("ppt_spmm_csr", [P, I, P, P, P, P, I, I, P]),
     "gat_fwd_mh": ("ppt_gat_fwd_mh", [P] * 11 + [I, I, I, I, P]),
     "gat_bwd_dst_mh": ("ppt_gat_bwd_dst_mh", [P, I] + [P] * 11 + [I, I, I, I, I, P]),
+    "knn_topk": ("ppt_knn_topk", [P, P, P, I, I, I, P]),
+    "knn_topk_fast": ("ppt_knn_topk_fast", [P, P, P, I, I, I, P]),
 }
 MAX_SMEM = 232_448 - 1024  # a block's shared memory on sm_90, less static use
 
@@ -148,11 +150,12 @@ def entry(name: str):
     return getattr(_load(name), SIGNATURES[name][0])
 
 
-def require_smem(name: str, d: int) -> None:
-    """Raise ValueError if the kernel's shared memory for width d exceeds a block's."""
-    need = getattr(_load(name), SIGNATURES[name][0] + "_smem")(d)
+def require_smem(name: str, size: int, what: str = "D") -> None:
+    """Raise ValueError if the kernel's shared memory for `size` (the row
+    width D, or what `what` names) exceeds a block's."""
+    need = getattr(_load(name), SIGNATURES[name][0] + "_smem")(size)
     if need > MAX_SMEM:
-        raise ValueError(f"{name}: D={d} needs {need} bytes of shared memory; "
+        raise ValueError(f"{name}: {what}={size} needs {need} bytes of shared memory; "
                          f"a block has {MAX_SMEM}")
 
 
@@ -169,4 +172,11 @@ def stream_of(t: torch.Tensor) -> int:
 
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous with a 16-byte aligned start (a fresh copy if it is not),
+    for kernels that read rows in 16-byte loads."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 

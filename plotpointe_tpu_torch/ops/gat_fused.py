@@ -24,9 +24,9 @@ B1 uses the f32 cotangent g; B2 uses g rounded to `hs_dtype` (for its row
 product and its alpha * g term) and recomputes de from it, so in bf16 mode
 B1 and B2 see slightly different de, as in `attn_bwd`.
 
-`reference_versions()` makes `AttentionV3`, `AttentionV3MH` and the static
-SpMM operator (`ops/spmm_kernel.py`) run the plain versions on any device,
-for checks that hold a kernel step against its reference on the card.
+Inside `reference_versions()` (the package root's switch, re-exported
+here) `AttentionV3` and `AttentionV3MH` run the plain versions on any device,
+for checks that hold a kernel path against its reference on the card.
 
 Multi-head dropout: head k masks with `hash_mask(seed, eid + k * 2**27, rate)`
 over canonical edge ids, one seed for all heads, as the JAX package does.
@@ -37,11 +37,11 @@ themselves, so no such pair remains.
 """
 from __future__ import annotations
 
-import contextlib
-from typing import Iterator, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from plotpointe_tpu_torch import reference_active, reference_versions  # noqa: F401 (re-exported)
 from plotpointe_tpu_torch.graphs.csr import Graph
 from plotpointe_tpu_torch.ops import cuda_build as cb
 from plotpointe_tpu_torch.ops.segment import EPS, LEAKY_SLOPE, LOGIT_CLAMP, edge_numerators
@@ -58,7 +58,6 @@ HEAD_ID_STRIDE = 1 << 27  # head k's mask hashes canonical id + k * 2**27
 B1_MAX_BLOCKS = 1024  # B1's fixed grid: blocks of 8 warps striding over the rows
 _WARPS_PER_BLOCK = 8
 _M32 = 0xFFFFFFFF
-_reference = False  # True only inside `reference_versions()`
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -335,24 +334,6 @@ def attention_bwd_plain(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tenso
     return dh[:, None, :], da_src, da_dst
 
 
-@contextlib.contextmanager
-def reference_versions() -> Iterator[None]:
-    """Inside this block the autograd ops (`AttentionV3`, `AttentionV3MH`,
-    the static SpMM operator) run the plain versions on any device, forward
-    and backward: the reference their kernels are held to."""
-    global _reference
-    prev, _reference = _reference, True
-    try:
-        yield
-    finally:
-        _reference = prev
-
-
-def reference_active() -> bool:
-    """True inside `reference_versions()`."""
-    return _reference
-
-
 class AttentionV3(torch.autograd.Function):
     """Single-head fused attention with the backward of `attention_v3`:
     the forward kernel, then B1 and B2 (their plain versions for CPU
@@ -362,7 +343,7 @@ class AttentionV3(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, a_src, a_dst, graph, dropout_rate, seed, hs_dtype):
-        plain = _reference
+        plain = reference_active()
         n, _, d = h.shape
         mask = dropout_mask(graph, dropout_rate, seed, h.device)
         _check(h, a_src, a_dst, graph, mask, hs_dtype)
@@ -571,7 +552,7 @@ class AttentionV3MH(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, a_src, a_dst, graph, dropout_rate, seed, hs_dtype):
-        plain = _reference
+        plain = reference_active()
         heads = h.shape[1]
         mask = dropout_mask_mh(graph, dropout_rate, seed, heads, h.device)
         _check_mh(h, a_src, a_dst, graph, mask, hs_dtype)

@@ -24,9 +24,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from plotpointe_tpu_torch import reference_active
 from plotpointe_tpu_torch.graphs.csr import Graph
 from plotpointe_tpu_torch.ops import cuda_build as cb
-from plotpointe_tpu_torch.ops import gat_fused
 
 LAUNCHES = cb.COUNTERS["spmm_csr"]
 
@@ -96,7 +96,7 @@ def _padded(x: torch.Tensor) -> torch.Tensor:
 class _StaticSpmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, op):
-        ctx.op, ctx.plain = op, gat_fused.reference_active()
+        ctx.op, ctx.plain = op, reference_active()
         g = op.graph
         return _csr_spmm(x, op.values, g.row_ptr, g.src, op.xs_dtype, ctx.plain)
 

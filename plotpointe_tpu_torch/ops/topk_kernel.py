@@ -76,12 +76,6 @@ def _check_table(item_vecs: torch.Tensor, queries: torch.Tensor) -> None:
         raise ValueError(f"D must be a multiple of {vec} for {item_vecs.dtype}; got {item_vecs.shape[1]}")
 
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """x contiguous with a 16-byte aligned start (a fresh copy if it is not)."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
-
-
 def chunk_max(item_vecs: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     """Phase 1. item_vecs [N, D], queries [B, D], both float32 or both
     bfloat16 -> [B, ceil(N / 128)] f32 chunk maxima."""
@@ -89,7 +83,7 @@ def chunk_max(item_vecs: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     if item_vecs.device.type == "cpu":
         return chunk_max_plain(item_vecs, queries)
     (n, d), b = item_vecs.shape, queries.shape[0]
-    x, q = _aligned(item_vecs), queries.contiguous()
+    x, q = cb.aligned(item_vecs), queries.contiguous()
     cb.require_smem("topk_chunkmax", d)
     out = torch.empty((b, n_chunks_of(n)), dtype=torch.float32, device=x.device)
     fn = cb.entry("topk_chunkmax")
@@ -112,7 +106,7 @@ def rescore(item_vecs: torch.Tensor, queries: torch.Tensor, chunk_id: torch.Tens
     if item_vecs.device.type == "cpu":
         return rescore_plain(item_vecs, queries, chunk_id)
     r = chunk_id.shape[1]
-    x, q, cid = _aligned(item_vecs), queries.contiguous(), chunk_id.contiguous()
+    x, q, cid = cb.aligned(item_vecs), queries.contiguous(), chunk_id.contiguous()
     cb.require_smem("topk_rescore", d)
     out = torch.empty((b, r, CHUNK), dtype=torch.float32, device=x.device)
     fn = cb.entry("topk_rescore")

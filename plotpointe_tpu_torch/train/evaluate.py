@@ -19,6 +19,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from plotpointe_tpu_torch import full_f32_matmul
 from plotpointe_tpu_torch.train.sampling import sample_eval_negatives
 
 
@@ -64,9 +65,7 @@ def sampled_eval(U: torch.Tensor, I: torch.Tensor, eval_users: np.ndarray, eval_
     pos[:n] = torch.as_tensor(np.asarray(eval_pos, np.int32), device=dev)
     valid[:n] = 1.0
 
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with full_f32_matmul():
         sums: Dict[str, torch.Tensor] = {}
         for c in range(0, n_pad, chunk):
             sl = slice(c, c + chunk)
@@ -74,8 +73,6 @@ def sampled_eval(U: torch.Tensor, I: torch.Tensor, eval_users: np.ndarray, eval_
                                          I.shape[0], neg_k)
             for k, v in eval_from_negatives(U, I, users[sl], pos[sl], negs, valid[sl], ks).items():
                 sums[k] = sums[k] + v if k in sums else v
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
     totals = {k: float(v) for k, v in sums.items()}
     count = max(totals["count"], 1.0)
     metrics = {}

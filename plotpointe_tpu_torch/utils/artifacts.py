@@ -38,8 +38,8 @@ class ArtifactStore:
         p.parent.mkdir(parents=True, exist_ok=True)
         return p
 
-    def load_npy(self, uri: str) -> np.ndarray:
-        return np.load(self.fetch(uri))
+    def load_npy(self, uri: str, mmap: bool = False) -> np.ndarray:
+        return np.load(self.fetch(uri), mmap_mode="r" if mmap else None)
 
     def save_npy(self, arr: np.ndarray, uri: str) -> str:
         np.save(self.target(uri), arr)
@@ -70,7 +70,15 @@ class ArtifactStore:
     def load_interactions(self, prefix: str):
         """`{prefix}/interactions.npz` (a dict of column arrays, no pandas
         needed) when it exists, else `{prefix}/interactions.parquet`."""
-        npz = f"{prefix}/interactions.npz"
+        return self._load_table(prefix, "interactions")
+
+    def load_items(self, prefix: str):
+        """`{prefix}/items.npz` (column arrays) when it exists, else
+        `{prefix}/items.parquet`."""
+        return self._load_table(prefix, "items")
+
+    def _load_table(self, prefix: str, name: str):
+        npz = f"{prefix}/{name}.npz"
         if self.exists(npz):
             return self.load_npz(npz)
-        return self.load_parquet(f"{prefix}/interactions.parquet")
+        return self.load_parquet(f"{prefix}/{name}.parquet")

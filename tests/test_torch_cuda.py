@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 attention (kernels 1, 2, 3 and the head-packed 8, 9), the gather fence (16),
-top-K (4, 5) and the CSR SpMM (7), and same-seed trainer determinism.
+top-K (4, 5), the CSR SpMM (7) and the kNN candidates (10, 11), and
+same-seed trainer determinism.
 
 Every test here needs an NVIDIA GPU and skips without one. This file imports
 no JAX, so it also runs where JAX is absent:
@@ -12,7 +13,10 @@ and sum in f32; only the summation order differs); attention gradients rtol
 5e-4 / atol 1e-4 (tests/test_gat_fused.py:53-55: sums over every edge of a
 row, with cancellation, in another order); SpMM rtol 1e-4 / atol 1e-5 (the
 same rounded rows, f32 sums, another order); scores rtol 1e-5 / atol 1e-4 (f32
-dot products of width <= 256, summed in another order).
+dot products of width <= 256, summed in another order); kNN candidate
+scores rtol 1e-5 / atol 1e-5 (f32 dot products of unit rows, another order),
+their columns equal wherever no tie within 1e-5 straddles a place (kernel 11:
+recall >= 0.999 against its plain version).
 """
 import contextlib
 
@@ -360,3 +364,102 @@ def test_chunkmax_rejects_width_over_shared_memory(cuda):
         chunk_max(x, torch.zeros((4, 1024), device=cuda))
     with pytest.raises(ValueError):  # bf16 rows are read 8 values at a time
         chunk_max(torch.zeros((256, 36), device=cuda).bfloat16(), torch.zeros((4, 36), device=cuda).bfloat16())
+
+
+def _knn_rows(cuda, n, d, seed):
+    """Rows clustered around n // 30 centres (within-cluster cosine near
+    0.7), 5% of them copies of others (exact ties) and one zero row."""
+    from plotpointe_tpu_torch.graphs.knn import l2_normalize
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(max(1, n // 30), d))[rng.integers(0, max(1, n // 30), n)]
+    x = (x + 0.65 * rng.normal(size=(n, d))).astype(np.float32)
+    src, dst = rng.choice(n, size=(2, max(1, n // 20)), replace=False)
+    x[dst] = x[src]
+    x[n // 2] = 0.0
+    return l2_normalize(torch.as_tensor(x, device=cuda))
+
+
+def _untied_mismatches(got_i, want_i, want_s, r, tol=1e-5):
+    """Candidate columns that differ where no tie within tol straddles the
+    place (want lists one more candidate than got, to show the tie past the
+    last place)."""
+    gap = (want_s[:, :-1] - want_s[:, 1:]).abs() <= tol
+    tied = gap.clone()
+    tied[:, 1:] |= gap[:, :-1]
+    return int(((got_i != want_i[:, :r]) & ~tied).sum())
+
+
+@pytest.mark.parametrize("n,d", [(300, 64), (1037, 128), (777, 384), (130, 16)])
+def test_knn_exact_kernel_matches_plain(cuda, n, d):
+    from plotpointe_tpu_torch.ops.knn_kernel import knn_candidates, knn_candidates_plain
+
+    xn = _knn_rows(cuda, n, d, n + d)
+    for r in (28, 9, 128):
+        before = cuda_build.COUNTERS["knn_topk"].count
+        got_i, got_s = knn_candidates(xn, r)
+        torch.cuda.synchronize()
+        assert cuda_build.COUNTERS["knn_topk"].count == before + 1
+        want_i, want_s = knn_candidates_plain(xn, r + 1)
+        torch.testing.assert_close(got_s, want_s[:, :r], rtol=1e-5, atol=1e-5)
+        assert _untied_mismatches(got_i, want_i, want_s, r) == 0
+        assert not (got_i == torch.arange(n, device=cuda)[:, None]).any()
+        assert ((got_i >= -1) & (got_i < n)).all()
+        assert (got_s.diff(dim=1) <= 0).all()
+        real = got_i >= 0
+        assert (got_s[~real] == -1e30).all() and int(real.sum(1).min()) == min(r, n - 1)
+
+
+@pytest.mark.parametrize("n,d", [(300, 64), (1037, 128), (777, 384), (130, 16)])
+def test_knn_fast_kernel_matches_plain(cuda, n, d):
+    from plotpointe_tpu_torch.ops.knn_kernel import knn_candidates_fast, knn_candidates_fast_plain
+
+    xn = _knn_rows(cuda, n, d, n + d + 1)
+    before = cuda_build.COUNTERS["knn_topk_fast"].count
+    got_i, got_s = knn_candidates_fast(xn, 29)
+    torch.cuda.synchronize()
+    assert cuda_build.COUNTERS["knn_topk_fast"].count == before + 1
+    want_i, want_s = knn_candidates_fast_plain(xn, 29)
+    torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=1e-5)
+    hits = sum(len(set(a) & set(b)) for a, b in zip(got_i.tolist(), want_i.tolist()))
+    assert hits / want_i.numel() >= 0.999
+    assert not (got_i == torch.arange(n, device=cuda)[:, None]).any()
+    assert (got_s.diff(dim=1) <= 0).all()
+
+
+def test_knn_fast_recall_against_exact(cuda):
+    from plotpointe_tpu_torch.ops.knn_kernel import knn_topk
+
+    xn = _knn_rows(cuda, 6000, 384, 11)
+    ei, es = knn_topk(xn, 20)
+    fi, fs = knn_topk(xn, 20, mode="fast")
+    hits = sum(len(set(a) & set(b)) for a, b in zip(ei.tolist(), fi.tolist()))
+    assert hits / ei.numel() >= 0.995
+    exact = (xn[fi.long()] * xn[:, None, :]).sum(-1)
+    torch.testing.assert_close(fs, exact, rtol=1e-5, atol=1e-5)
+
+
+def test_cosine_knn_graph_on_card_matches_cpu(cuda, tmp_path):
+    from plotpointe_tpu_torch.graphs.knn import cosine_knn_graph
+
+    x = _knn_rows(cuda, 2000, 128, 5).cpu().numpy() * 3.0
+    cuda_build.reset_counters()
+    (gr, gc, gd), gstats = cosine_knn_graph(x, out_prefix=str(tmp_path), feature_name="fused",
+                                            k=10, min_similarity=0.3)
+    assert cuda_build.COUNTERS["knn_topk"].count == 1
+    (cr, cc, cd), cstats = cosine_knn_graph(x, k=10, min_similarity=0.3, device="cpu")
+    near = np.abs(cd - 0.3) <= 1e-5
+    assert abs(len(gd) - len(cd)) <= int(near.sum())
+    got = dict(zip(zip(gr.tolist(), gc.tolist()), gd.tolist()))
+    want = dict(zip(zip(cr.tolist(), cc.tolist()), cd.tolist()))
+    shared = got.keys() & want.keys()
+    assert len(shared) >= 0.995 * len(want)  # the CPU's xla path breaks ties either way
+    assert max(abs(got[e] - want[e]) for e in shared) <= 1e-5
+    assert (tmp_path / "ii_edges_fused.npz").exists() and gstats.keys() == cstats.keys()
+
+
+def test_knn_rejects_k_above_128_on_card(cuda):
+    from plotpointe_tpu_torch.ops.knn_kernel import knn_topk
+
+    with pytest.raises(ValueError):
+        knn_topk(torch.zeros((300, 16), device=cuda), 129)
