@@ -56,6 +56,25 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            the text rows: kernel 11 must have launched. Then kernel 10 vs its
            plain version at both shapes, the edges of both graphs vs the
            plain path's, kernel 11 vs its plain version and vs kernel 10
+  tooling  path 6, counters set to 0 first: `run_smoke()` in-process (its
+           five checks; kernel 12), `python -m plotpointe_tpu_torch.cli smoke`
+           in a subprocess (exit 0), then `measure_device_peaks()` (a bf16
+           4096 x 8192 x 4096 matmul loop and kernel 6 over 256 MB), printed
+           as {"measured_peaks": ...} and held to 0.5-1.05x the spec memory
+           rate and <= 1.05x the spec bf16 rate; kernels 6 and 12 must have
+           launched. Then kernels 6 and 12 vs their plain versions (exact) at
+           the smoke's shape, a small one and 256 MB
+  legacy   path 7, the legacy attention contracts on the main graph marked
+           `.with_tiling()`: `GATModel.forward(train=True)` (dropout 0.1,
+           384-d features, `--layers` deep) and the backward of a fixed
+           linear loss at hidden 128 / 1 head (v2, kernel 14), hidden 64 /
+           1 head (v1, kernel 13) and hidden 128 / 2 heads (v1, kernel 15),
+           counters at 0 before each; each against the same call under
+           `reference_versions()` (gradients within GRAD_TOL; the output
+           within ATTN_TOL where rows stay f32, and for v2 within the
+           training step's band: layer 2 rounds rows to bf16, and rows that
+           differ in the last f32 bit may round apart); each kernel must
+           have launched
   timing   CUDA-event times of each kernel, its plain version and, where one
            PyTorch call computes the same function, that call; the bound with
            its reckoning; kernel 1 split into its two CUDA kernels and timed on
@@ -66,7 +85,9 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            its yardstick; kernels 8 and 9 per layer; the LightGCN and 2-head
            steps by phase, profiled; kernels 10 and 11 at the graph-build
            shapes beside a blocked `torch.mm` of the same product
-  kernels  one {"kernels": [...]} line
+  kernels  one {"kernels": [...]} line, each kernel with its bound at the spec
+           peaks (`utils/profiling.GPU_SPECS`) and `sol_fraction_dev`, its
+           bound at the measured peaks over its time
   last     {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, without CUDA or without the package.
@@ -90,11 +111,10 @@ from pathlib import Path
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 off the tensor cores; bf16 tensor cores
 ATTN_TOL = dict(rtol=1e-4, atol=1e-5)  # same rows, f32 sums, another order
 GRAD_TOL = dict(rtol=5e-4, atol=1e-4)  # tests/test_gat_fused.py:53-55: sums with cancellation
 FENCE_TOL = dict(rtol=1e-5, atol=1e-5)  # at most 8 x 128 f32 terms, another order
+EXACT = dict(rtol=0.0, atol=0.0)  # max (kernel 6) and x * 2 + 1 (kernel 12) round alike
 SCORE_TOL = dict(rtol=1e-5, atol=1e-4)  # f32 dot products of width 128, another order
 # one training step, kernels vs plain versions, bf16 rows: the first layers
 # differ in the last f32 bit, so a few second-layer rows round to another
@@ -117,6 +137,12 @@ SOURCES = {
     "knn_topk": ("plotpointe_tpu_torch/csrc/knn_topk.cu", "plotpointe_tpu/ops/knn_kernel.py:44"),
     "knn_topk_fast": ("plotpointe_tpu_torch/csrc/knn_topk_fast.cu",
                       "plotpointe_tpu/ops/knn_kernel.py:80"),
+    "stream_probe": ("plotpointe_tpu_torch/csrc/stream_probe.cu", "plotpointe_tpu/utils/profiling.py:79"),
+    "smoke_affine": ("plotpointe_tpu_torch/csrc/smoke_affine.cu", "plotpointe_tpu/tools/smoke_tpu.py:60"),
+    "fused_segment_reduce": ("plotpointe_tpu_torch/csrc/spmm_csr.cu",
+                             "plotpointe_tpu/ops/gat_kernel.py:47"),
+    "fused_layer": ("plotpointe_tpu_torch/csrc/gat_fwd.cu", "plotpointe_tpu/ops/gat_kernel.py:129"),
+    "onehot_reduce": ("plotpointe_tpu_torch/csrc/spmm_csr.cu", "plotpointe_tpu/ops/gat_fused.py:291"),
 }
 # the kernels each path must launch; gather_fence is on none (the port's
 # backward kernels gather rows themselves, so there are no two XLA gathers
@@ -128,7 +154,14 @@ PATH_KERNELS = {"train": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src"),
                 "mh_train": ("gat_fwd_mh", "gat_bwd_dst_mh", "gat_bwd_src"),
                 "mh_export": ("gat_fwd_mh",),
                 "graph_build": ("knn_topk",),
-                "graph_build_fast": ("knn_topk_fast",)}
+                "graph_build_fast": ("knn_topk_fast",),
+                "tooling": ("smoke_affine", "stream_probe"),
+                "legacy_v2": ("fused_layer",),
+                "legacy_v1": ("fused_segment_reduce",),
+                "legacy_v1_mh": ("onehot_reduce",)}
+# the legacy phase's configurations: (path, hidden, heads); v2 takes 1 head
+# with D % 128 == 0, v1 the rest (64 is the reference's hidden-dim ablation)
+LEGACY = (("legacy_v2", 128, 1), ("legacy_v1", 64, 1), ("legacy_v1_mh", 128, 2))
 LIGHTGCN = dict(embed_dim=64, n_prop_layers=3, batch_size=8192, neg_per_pos=5)
 MH_HEADS = 2
 KNN = dict(k=20, min_similarity=0.3)  # the pipeline's build-knn defaults
@@ -148,9 +181,34 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def spec() -> dict:
+    """The card's published peaks: the port's one table."""
+    from plotpointe_tpu_torch.utils.profiling import GPU_SPECS, detect_generation
+
+    return GPU_SPECS[detect_generation()]
+
+
 def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    """Least time in ms for `nbytes` of memory traffic and `ops` operations
+    of `dtype` at the spec peaks (f32 off the tensor cores; bf16 on them)."""
+    s = spec()
+    peak = {"float32": s["f32_tflops"], "bfloat16": s["bf16_tflops"]}[dtype] * 1e12
+    t_bytes, t_ops = nbytes / (s["hbm_gbps"] * 1e9), ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sol_fraction_dev(row: dict, peaks: dict) -> float:
+    """The row's bound at the measured peaks over its time: a bytes bound
+    scales with the measured memory rate, a bf16 operations bound with the
+    measured matmul rate; an f32 operations bound keeps the spec rate (no
+    probe measures f32 off the tensor cores)."""
+    s = spec()
+    b = row["bound_ms"]
+    if row["bound_by"] == "bytes":
+        b *= s["hbm_gbps"] / peaks["hbm_gbps"]
+    elif row.get("ops_dtype") == "bfloat16":
+        b *= s["bf16_tflops"] / peaks["tflops"]
+    return b / row["ms"]
 
 
 def amazon_shaped_interactions(seed: int, n_users=192_403, n_items=63_001, n=1_689_116):
@@ -171,7 +229,7 @@ def amazon_shaped_interactions(seed: int, n_users=192_403, n_items=63_001, n=1_6
     return inter
 
 
-def random_gat_params(rng, n_users: int, feat_dim: int, hidden: int, layers: int):
+def random_gat_params(rng, n_users: int, feat_dim: int, hidden: int, layers: int, heads: int = 1):
     """JAX-keyed parameters with the JAX package's init distributions."""
     def xavier(shape, fan_in, fan_out):
         a = math.sqrt(6.0 / (fan_in + fan_out))
@@ -182,9 +240,9 @@ def random_gat_params(rng, n_users: int, feat_dim: int, hidden: int, layers: int
          "['item_proj']['w']": rng.uniform(-lim, lim, (feat_dim, hidden)).astype(np.float32),
          "['item_proj']['b']": np.zeros(hidden, np.float32)}
     for li in range(layers):
-        p[f"['layers'][{li}]['w']"] = xavier((hidden, 1, hidden), hidden, hidden)
-        p[f"['layers'][{li}]['a_src']"] = xavier((1, hidden), 1, hidden)
-        p[f"['layers'][{li}]['a_dst']"] = xavier((1, hidden), 1, hidden)
+        p[f"['layers'][{li}]['w']"] = xavier((hidden, heads, hidden), hidden, hidden)
+        p[f"['layers'][{li}]['a_src']"] = xavier((heads, hidden), 1, hidden)
+        p[f"['layers'][{li}]['a_dst']"] = xavier((heads, hidden), 1, hidden)
     return p
 
 
@@ -456,6 +514,43 @@ def check_multihead(errs, rng, label, g, dev, layer=None):
     sync()
 
 
+def check_legacy_kernels(errs, rng, label, g, h, a_s, a_d, dev) -> None:
+    """Kernels 13, 14 and 15 vs their plain versions on the legacy paths'
+    inputs: kernel 14 with and without the Bernoulli mask; kernel 13 on
+    alpha and rows gathered at 64 and 128 features; kernel 15 on the 2-head
+    rows pre-scaled by alpha (256 wide; on the small graph also 1,100 wide,
+    three column strips)."""
+    import torch
+
+    from plotpointe_tpu_torch.ops.gat_fused import segment_sum_rows, segment_sum_rows_plain
+    from plotpointe_tpu_torch.ops.gat_kernel import (
+        fused_layer, fused_layer_plain, fused_segment_reduce, fused_segment_reduce_plain, legacy_mask)
+    from plotpointe_tpu_torch.ops.segment import attention_weights
+
+    what = f"{label} N={g.n_nodes} E={g.n_edges}"
+    mask = legacy_mask(g, 1, 0.1, 7, dev)
+    with torch.no_grad():
+        for mk in (None, mask[:, 0].contiguous()):
+            errs.check("fused_layer", f"{what} D=128 rows=bfloat16 mask={mk is not None}",
+                       fused_layer(h, a_s, a_d, g, mk), fused_layer_plain(h, a_s, a_d, g, mk), ATTN_TOL)
+        src = g.src.long()
+        for d in (64, 128):
+            alpha = attention_weights(h[..., :d], a_s[:, :d], a_d[:, :d], g, mask)[:, 0].contiguous()
+            hs = h[:, 0, :d][src]
+            errs.check("fused_segment_reduce", f"{what} D={d} mask=0.1",
+                       fused_segment_reduce(alpha, hs, g), fused_segment_reduce_plain(alpha, hs, g),
+                       ATTN_TOL)
+        widths = (256, 1100) if label == "small" else (256,)
+        for w in widths:
+            x = torch.cat([torch.roll(hs, 17 * k, -1) for k in range(-(-w // 128))], 1)[:, :w]
+            x *= alpha[:, None]
+            errs.check("onehot_reduce", f"{what} W={w} rows pre-scaled by alpha",
+                       segment_sum_rows(x, g), segment_sum_rows_plain(x, g), ATTN_TOL)
+            del x
+        del hs
+    sync()
+
+
 def phase_check(errs, rng, graph, h0, a_s, a_d, catalog, dev) -> None:
     import torch
 
@@ -471,6 +566,8 @@ def phase_check(errs, rng, graph, h0, a_s, a_d, catalog, dev) -> None:
     hsmall = torch.as_tensor(rng.normal(size=(small_n, 1, 128)).astype(np.float32), device=dev)
     check_attention(errs, rng, "small", gsmall, hsmall, a_s, a_d, dev)
     check_attention(errs, rng, "main", graph, h0, a_s, a_d, dev)
+    check_legacy_kernels(errs, rng, "small", gsmall, hsmall, a_s, a_d, dev)
+    check_legacy_kernels(errs, rng, "main", graph, h0, a_s, a_d, dev)
     for label, g, layer in (("small", gsmall, None), ("main", graph, (h0, a_s, a_d))):
         check_spmm(errs, rng, label, g, dev)
         check_multihead(errs, rng, label, g, dev, layer)
@@ -1034,7 +1131,7 @@ def time_knn(rows_out, feats, build_knn_s: float) -> None:
             line = {"phase": "timing", "kernel": kname, "shape": f"N={n} d={d} R={r} {name}",
                     "ms": time_ms(lambda: fn(x, r), 3, 1),
                     "plain_ms": time_ms(lambda: plain(x, r), 1, 1),
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "bound_ms": b_ms, "bound_by": b_by, "ops_dtype": dname, "library_ms": None,
                     "design_bound_ms": bound(sum(nbytes.values()), 2 * n * n * d, dname)[0],
                     "gemm_ms": time_ms(blocked_mm(xd), 3, 1),
                     "gemm_ld_unaligned_ms": time_ms(blocked_mm(xd, ld_mult=1), 3, 1),
@@ -1261,6 +1358,201 @@ def time_multihead(rows_out, graph, dev, rng) -> None:
             del rows, out, den, a1
 
 
+def phase_tooling(errs, dev):
+    """Path 6, every counter at 0 first: the smoke check in-process and
+    through the CLI in a subprocess, then the measured peaks. Then kernels 6
+    and 12 vs their plain versions. Returns (launches, measured peaks)."""
+    import torch
+
+    from plotpointe_tpu_torch.ops import cuda_build
+    from plotpointe_tpu_torch.ops.elementwise import affine, affine_plain
+    from plotpointe_tpu_torch.tools.smoke_gpu import run_smoke
+    from plotpointe_tpu_torch.utils.profiling import measure_device_peaks, stream_probe, stream_probe_plain
+
+    cuda_build.reset_counters()
+    t0 = time.perf_counter()
+    report = run_smoke()
+    smoke_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "plotpointe_tpu_torch.cli", "smoke"],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=600)
+    cli_s = time.perf_counter() - t0
+    cli_report = json.loads(proc.stdout) if proc.returncode == 0 else {"ok": False, "checks": {}}
+    t0 = time.perf_counter()
+    peaks = measure_device_peaks(dev)
+    peaks_s = time.perf_counter() - t0
+    launches = counts()
+    s = spec()
+    band_ok = (0.5 * s["hbm_gbps"] <= peaks["hbm_gbps"] <= 1.05 * s["hbm_gbps"]
+               and peaks["tflops"] <= 1.05 * s["bf16_tflops"])
+    missing = [k for k in PATH_KERNELS["tooling"] if launches[k] == 0]
+    emit({"phase": "tooling", "smoke_s": smoke_s, "smoke": {k: {kk: v for kk, v in c.items() if kk != "kind"}
+                                                            for k, c in report["checks"].items()},
+          "cli_smoke": {"rc": proc.returncode, "s": cli_s, "ok": cli_report["ok"],
+                        "checks": {k: c["ok"] for k, c in cli_report["checks"].items()}},
+          "peaks_s": peaks_s, "launches": launches,
+          "ok": report["ok"] and proc.returncode == 0 and band_ok and not missing})
+    emit({"measured_peaks": peaks, "spec": {"tflops": s["bf16_tflops"], "hbm_gbps": s["hbm_gbps"]},
+          "band": "0.5-1.05x spec hbm_gbps, <= 1.05x spec tflops", "ok": band_ok})
+    if not report["ok"]:
+        raise AssertionError(f"run_smoke failed: {report}")
+    if proc.returncode != 0:
+        raise AssertionError(f"cli smoke exited {proc.returncode}: {proc.stderr[-2000:]}")
+    if not band_ok:
+        raise AssertionError(f"measured peaks {peaks} outside the band around {s}")
+    if missing:
+        raise AssertionError(f"tooling: kernels not launched on the path: {missing}")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    with torch.no_grad():
+        for label, (m, d, bm) in (("small", (512, 256, 64)), ("main", (32768, 4096, 512))):
+            x = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
+            errs.check("stream_probe", f"{label} [{m}, {d}] bfloat16 BM={bm} c=0.375",
+                       stream_probe(x, bm, 0.375), stream_probe_plain(x, bm, 0.375), EXACT)
+        for label, shape in (("smoke", (256, 128)), ("odd", (1000, 1001)), ("256 MB", (65536, 1024))):
+            x = torch.randn(shape, generator=gen, device=dev) * 1e3
+            errs.check("smoke_affine", f"{label} {list(shape)} float32", affine(x), affine_plain(x), EXACT)
+        del x
+    sync()
+    return launches, peaks
+
+
+def phase_legacy(errs, rng, s, feats, graph, layers: int, dev) -> dict:
+    """Path 7: the GAT forward (train=True, dropout 0.1) and the backward of
+    a fixed linear loss on the main graph marked `.with_tiling()`, per
+    LEGACY configuration, with the kernels (counters at 0 first) and under
+    `reference_versions()`. Returns each configuration's launches."""
+    import torch
+
+    from plotpointe_tpu_torch.models.gat import GATModel
+    from plotpointe_tpu_torch.ops import cuda_build
+    from plotpointe_tpu_torch.ops.gat_fused import reference_versions
+    from plotpointe_tpu_torch.train.checkpoint import params_from_jax
+
+    tiled = graph.with_tiling()
+    x_feats = torch.as_tensor(feats, device=dev)
+    by_path = {}
+    for label, hidden, heads in LEGACY:
+        model = GATModel(s.n_users, s.n_items, 384, hidden, n_layers=layers, heads=heads,
+                         attn_dropout=0.1)
+        model.load_state_dict(params_from_jax(random_gat_params(rng, s.n_users, 384, hidden, layers,
+                                                                heads)))
+        model.to(dev)
+        ct = torch.as_tensor(rng.normal(size=(graph.n_nodes, hidden)).astype(np.float32), device=dev)
+        seeds = [int(x) for x in rng.integers(0, 2**32, layers)]
+        runs = {}
+        for plain in (False, True):
+            model.zero_grad(set_to_none=True)
+            cuda_build.reset_counters()
+            sync()
+            t0 = time.perf_counter()
+            with reference_versions() if plain else contextlib.nullcontext():
+                out = model(x_feats, tiled, train=True, seeds=seeds)
+                (out * ct).sum().backward()
+            sync()
+            runs[plain] = (out.detach(), {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+                           counts(), time.perf_counter() - t0)
+            del out
+        (out_k, grads_k, launches, wall_k), (out_p, grads_p, plain_launches, wall_p) = runs[False], runs[True]
+        f32_rows = label != "legacy_v2"
+        scale = float(out_p.abs().max())
+        out_tol = ATTN_TOL if f32_rows else dict(rtol=STEP_RTOL, atol=STEP_ATOL_OF_MAX * scale)
+        out_err = float((out_k - out_p).abs().max())
+        out_ok = bool(torch.allclose(out_k, out_p, **out_tol)) and bool(torch.isfinite(out_k).all())
+        grad_err = {n: float((grads_k[n] - g).abs().max()) for n, g in grads_p.items()}
+        bad = [n for n, g in grads_p.items() if not torch.allclose(grads_k[n], g, **GRAD_TOL)]
+        missing = [k for k in PATH_KERNELS[label] if launches[k] == 0]
+        in_plain = [k for k in PATH_KERNELS[label] if plain_launches[k]]
+        ok = out_ok and not bad and not missing and not in_plain
+        emit({"phase": "legacy", "path": label, "hidden": hidden, "heads": heads, "layers": layers,
+              "contract": "v2" if label == "legacy_v2" else "v1", "dropout": 0.1,
+              "fwd_bwd_s": wall_k, "fwd_bwd_plain_s": wall_p, "out_shape": list(out_k.shape),
+              "out_max_abs_err_vs_plain": out_err, "out_tol": out_tol,
+              "grad_max_abs_err_vs_plain": grad_err, "grad_tol": GRAD_TOL,
+              "launches": {k: v for k, v in launches.items() if v}, "ok": ok})
+        if not ok:
+            raise AssertionError(f"{label}: output ok {out_ok}, gradients off {bad}, kernels not "
+                                 f"launched {missing}, launched under the plain versions {in_plain}")
+        by_path[label] = launches
+        del model, runs, out_k, out_p, grads_k, grads_p, ct
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def time_tooling_and_legacy(rows_out, rng, graph, h0, a_s, a_d, dev) -> None:
+    """Kernels 6, 12 (the tooling path's shapes) and 13, 14, 15 (the legacy
+    path's, at the main graph), with the library call that computes the
+    same function where there is one."""
+    import torch
+
+    from plotpointe_tpu_torch.ops.elementwise import affine, affine_plain
+    from plotpointe_tpu_torch.ops.gat_fused import segment_sum_rows, segment_sum_rows_plain
+    from plotpointe_tpu_torch.ops.gat_kernel import (
+        fused_layer, fused_layer_plain, fused_segment_reduce, fused_segment_reduce_plain, legacy_mask)
+    from plotpointe_tpu_torch.ops.segment import attention_weights
+    from plotpointe_tpu_torch.utils.profiling import stream_probe, stream_probe_plain
+
+    n, e = graph.n_nodes, graph.n_edges
+
+    def row(kname, shape, fn, plain, nbytes, ops, dtype, library=None, keep=True, **extra):
+        b_ms, b_by = bound(sum(nbytes.values()), ops, dtype)
+        line = {"phase": "timing", "kernel": kname, "shape": shape, "ms": time_ms(fn),
+                "plain_ms": time_ms(plain, 5), "bound_ms": b_ms, "bound_by": b_by, "ops_dtype": dtype,
+                "library_ms": None if library is None else time_ms(library), "bound_bytes": nbytes,
+                "bound_ops": ops, **extra}
+        emit(line)
+        if keep:
+            rows_out[kname] = line
+
+    with torch.no_grad():
+        mask = legacy_mask(graph, 1, 0.1, 7, dev)
+        m1 = mask[:, 0].contiguous()
+        d = h0.shape[-1]
+        row("fused_layer", f"N={n} E={e} D={d} rows=bfloat16 mask=0.1",
+            lambda: fused_layer(h0, a_s, a_d, graph, m1), lambda: fused_layer_plain(h0, a_s, a_d, graph, m1),
+            {"h": n * d * 4, "a": 2 * d * 4, "row_ptr": (n + 1) * 4, "src": e * 4, "mask": e * 4,
+             "out": n * d * 4, "den": n * 4}, 2 * e * d + 4 * n * d, "float32")
+        cols = torch.arange(e, device=dev, dtype=torch.int32)
+        for d in (64, 128):  # 64: the path's (hidden 64); 128: the flagship width
+            alpha = attention_weights(h0[..., :d], a_s[:, :d], a_d[:, :d], graph, mask)[:, 0].contiguous()
+            hs = h0[:, 0, :d][graph.src.long()]
+            mat = torch.sparse_csr_tensor(graph.row_ptr, cols, alpha, size=(n, e))
+            row("fused_segment_reduce", f"N={n} E={e} D={d} f32 pre-gathered rows",
+                lambda: fused_segment_reduce(alpha, hs, graph),
+                lambda: fused_segment_reduce_plain(alpha, hs, graph),
+                {"hs": e * d * 4, "w": e * 4, "ptr": (n + 1) * 4, "out": n * d * 4}, 2 * e * d, "float32",
+                library=lambda: torch.sparse.mm(mat, hs), keep=d == 64,
+                library_what="torch.sparse.mm(CSR [N, E] of w, hs)")
+        x = torch.cat([hs, torch.roll(hs, 17, -1)], 1) * alpha[:, None]  # the 2-head path's [E, 256]
+        del hs, mat
+        w = x.shape[1]
+        deg = (graph.row_ptr[1:] - graph.row_ptr[:-1]).long()
+        row("onehot_reduce", f"N={n} E={e} W={w} f32 pre-gathered rows",
+            lambda: segment_sum_rows(x, graph), lambda: segment_sum_rows_plain(x, graph),
+            {"x": e * w * 4, "ptr": (n + 1) * 4, "out": n * w * 4}, e * w, "float32",
+            library=lambda: torch.segment_reduce(x, "sum", lengths=deg),
+            library_what="torch.segment_reduce(x, 'sum', lengths=in-degrees)")
+        del x
+        m, d, bm = 32768, 4096, 512
+        xp = torch.randn((m, d), device=dev).to(torch.bfloat16)
+        view = xp.view(m // bm * 8, bm // 8, d // 128, 128)
+        row("stream_probe", f"[{m}, {d}] bfloat16 BM={bm}", lambda: stream_probe(xp, bm),
+            lambda: stream_probe_plain(xp, bm), {"x": m * d * 2, "out": m // bm * 8 * 128 * 4}, m * d,
+            "float32", library=lambda: torch.amax(view, dim=(1, 2)),
+            library_what="torch.amax over the (slab, column-group) dims")
+        del xp, view
+        one = torch.ones((), device=dev)
+        two = torch.full((), 2.0, device=dev)
+        for label, shape in (("smoke", (256, 128)), ("256 MB", (8192, 8192))):
+            x = torch.randn(shape, device=dev)
+            k = x.numel()
+            row("smoke_affine", f"{label} {list(shape)} float32", lambda: affine(x),
+                lambda: affine_plain(x), {"x": k * 4, "out": k * 4}, 2 * k, "float32",
+                library=lambda: torch.addcmul(one, x, two), keep=label == "smoke",
+                library_what="torch.addcmul(1, x, 2)")
+        del x
+
+
 def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev):
     import torch
 
@@ -1338,7 +1630,8 @@ def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev):
                 }
                 for kname, (k_ms, p_ms, (b_ms, b_by), lib) in lines.items():
                     line = {"phase": "timing", "kernel": kname, "shape": shape, "ms": k_ms,
-                            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+                            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "ops_dtype": dname,
+                            "library_ms": lib}
                     emit(line)
                     if dt == torch.float32 and b == 64:
                         rows[kname] = line  # the served dtype at the batcher's cap
@@ -1397,6 +1690,10 @@ def run(args, work: Path, dev="cuda") -> int:
     # path 5: the graph-build stage, then kNN's fast mode
     by_path["graph_build"], by_path["graph_build_fast"], knn_feats, build_knn_s = phase_graph_build(
         errs, work, inter, s, args.seed, dev)
+    # path 6: the smoke check and the measured peaks
+    by_path["tooling"], peaks = phase_tooling(errs, dev)
+    # path 7: the legacy attention contracts on a tiled graph
+    by_path.update(phase_legacy(errs, rng, s, feats, graph, args.layers, dev))
 
     rows = phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev)
     time_train_step("gat", trainer, s, samples=trainer.cfg.samples_per_epoch)
@@ -1405,6 +1702,7 @@ def run(args, work: Path, dev="cuda") -> int:
                     epoch_s=lg_res["history"][0]["step_time_s"])
     time_train_step("gat_2_heads", mh_trainer, s, samples=mh_trainer.cfg.samples_per_epoch)
     time_knn(rows, knn_feats, build_knn_s)
+    time_tooling_and_legacy(rows, rng, graph, h0, a_s, a_d, dev)
 
     kernels = []
     for kname, (src_path, replaces) in SOURCES.items():
@@ -1414,7 +1712,8 @@ def run(args, work: Path, dev="cuda") -> int:
                         "launches": sum(paths.values()), "launches_by_path": paths,
                         "max_abs_err": errs.max[kname], "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                        "library_ms": t["library_ms"], "shape": t["shape"]})
+                        "library_ms": t["library_ms"], "sol_fraction": t["bound_ms"] / t["ms"],
+                        "sol_fraction_dev": sol_fraction_dev(t, peaks), "shape": t["shape"]})
     if "jax" in sys.modules or any(m.startswith("plotpointe_tpu.") or m == "plotpointe_tpu"
                                    for m in sys.modules):
         raise AssertionError("the port pulled in JAX or the JAX package")

@@ -10,8 +10,10 @@ Counterpart of `plotpointe_tpu/cli.py` for the ported commands:
   build-subset  full-catalog features + items + interactions ->
                 {name}_interacted.npy + interacted_items.json
   build-knn     interacted features -> ii_edges_{name}.npz + ii_{name}_stats.json
-train, export, serve and build-knn run on the GPU unless given `--device
-cpu`; build-ui and build-subset are numpy on the host. Tables are read from
+  smoke   the five capability checks of tools/smoke_gpu.py (kernel 12
+          among them); exit 1 unless every check passes
+train, export, serve, build-knn and smoke run on the GPU unless given
+`--device cpu`; build-ui and build-subset are numpy on the host. Tables are read from
 `{prefix}/interactions.npz` and `{prefix}/items.npz` (column arrays) when
 they exist, else from the parquet files.
 """
@@ -118,6 +120,12 @@ def _cmd_build_knn(args):
     print(json.dumps(stats, indent=2))
 
 
+def _cmd_smoke(args):
+    from plotpointe_tpu_torch.tools.smoke_gpu import main as smoke_main
+
+    smoke_main(["--device", args.device])
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="plotpointe_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -197,6 +205,10 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--min-similarity", type=float, default=0.3)
     b.add_argument("--device", default=None, help="default: cuda")
     b.set_defaults(fn=_cmd_build_knn)
+
+    b = sub.add_parser("smoke", help="GPU capability smoke test (5 checks)")
+    b.add_argument("--device", default="cuda", help="default: cuda; cpu runs the plain kernel")
+    b.set_defaults(fn=_cmd_smoke)
     return p
 
 

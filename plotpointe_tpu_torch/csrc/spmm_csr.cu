@@ -6,6 +6,18 @@
 // (row_ptr, src, values) and its backward over the transpose CSR (t_ptr,
 // t_dst, values in source order): one entry point for both directions.
 //
+// Two modes for rows that were gathered before the call (x [E, *], row e
+// belonging to entry e), which the legacy attention contracts take:
+//   idx == null     entry e reads x row e (no index stream is read);
+//                   replaces plotpointe_tpu/ops/gat_kernel.py::_reduce_kernel
+//                   (v1's weighted one-hot reduce over chunk tiles);
+//   values == null  unit weights; with a null idx it replaces
+//                   plotpointe_tpu/ops/gat_fused.py::_reduce_kernel (the
+//                   unweighted one-hot reduce over the aligned layout).
+// x rows may be a column strip of a wider array: `ld` is x's row stride in
+// elements. With an index and values it is kernel 7 as before: the same
+// loads, products and sums in the same order.
+//
 // What bounds it: bytes. Each entry reads one x row chosen by the graph
 // (D * 2 bytes in bf16 rows), so the traffic is a data-dependent gather of E
 // rows, above the compulsory read of x, idx, values and ptr and the write of
@@ -33,7 +45,8 @@ constexpr int WARPS_PER_BLOCK = 8;
 template <typename T, int C>
 __global__ void spmm_rows(const T* __restrict__ x, const float* __restrict__ values,
                           const int* __restrict__ ptr, const int* __restrict__ idx,
-                          float* __restrict__ y, int n_rows, int nc, int groups) {
+                          float* __restrict__ y, int n_rows, int nc, int groups,
+                          long long ld) {
   constexpr int VEC = RowVec<T>::kElems;
   // entries in flight per lane: 32 row values in registers at most (8 f32
   // or 4 bf16 rows at C = 1). More registers cost warps per SM, and with an
@@ -48,7 +61,7 @@ __global__ void spmm_rows(const T* __restrict__ x, const float* __restrict__ val
   const int grp = lane / span;         // this lane's entry slot within a step
   const int c0 = lane - grp * span;    // this lane's first chunk of the row
   const bool active = grp < groups;
-  const long long d = static_cast<long long>(nc) * VEC;
+  const long long d = static_cast<long long>(nc) * VEC;  // y's row stride
   const int beg = ptr[row];
   const int end = ptr[row + 1];
 
@@ -63,8 +76,8 @@ __global__ void spmm_rows(const T* __restrict__ x, const float* __restrict__ val
     int s = 0;
     float v = 0.f;
     if (e < end) {
-      s = idx[e];
-      v = values[e];
+      s = idx != nullptr ? idx[e] : e;
+      v = values != nullptr ? values[e] : 1.f;
     }
     const int cnt = min(32, end - base);
     // group grp takes batch slots grp + groups * k, k = k0 .. k0 + EDGE_ILP - 1
@@ -82,7 +95,7 @@ __global__ void spmm_rows(const T* __restrict__ x, const float* __restrict__ val
       float xv[EDGE_ILP][C][VEC];
 #pragma unroll
       for (int q = 0; q < EDGE_ILP; ++q) {
-        const T* r = x + sj[q] * d;
+        const T* r = x + sj[q] * ld;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           const int ch = c0 + 32 * c;
@@ -131,7 +144,7 @@ __global__ void spmm_rows(const T* __restrict__ x, const float* __restrict__ val
 }
 
 template <typename T>
-cudaError_t launch(int d, int n_rows, cudaStream_t st, const T* x, const float* values,
+cudaError_t launch(int d, int ld, int n_rows, cudaStream_t st, const T* x, const float* values,
                    const int* ptr, const int* idx, float* y) {
   const int nc = d / RowVec<T>::kElems;  // 16-byte chunks per row
   const int groups = nc >= 32 ? 1 : 32 / nc;
@@ -140,7 +153,8 @@ cudaError_t launch(int d, int n_rows, cudaStream_t st, const T* x, const float* 
   switch ((nc + 31) / 32) {
 #define PPT_CASE(C) \
   case C:           \
-    spmm_rows<T, C><<<grid, block, 0, st>>>(x, values, ptr, idx, y, n_rows, nc, groups); break;
+    spmm_rows<T, C><<<grid, block, 0, st>>>(x, values, ptr, idx, y, n_rows, nc, groups, ld); \
+    break;
     PPT_CASE(1) PPT_CASE(2) PPT_CASE(3) PPT_CASE(4)
 #undef PPT_CASE
     default:
@@ -151,18 +165,22 @@ cudaError_t launch(int d, int n_rows, cudaStream_t st, const T* x, const float* 
 
 }  // namespace
 
-// x [*, d] rows (bf16 if bf16, else f32), 16-byte aligned; values [E] f32;
-// ptr [n_rows + 1], idx [E] int32 (a CSR: row r's entries are
-// ptr[r] .. ptr[r + 1] - 1, each naming an x row); y [n_rows, d] f32,
-// 16-byte aligned. d must be a multiple of 32, at most 512.
+// x [*, ld] rows (bf16 if bf16, else f32), 16-byte aligned, of which each
+// entry reads the first d columns; values [E] f32, or null for unit weights;
+// ptr [n_rows + 1] int32 (a CSR: row r's entries are ptr[r] .. ptr[r + 1] -
+// 1); idx [E] int32 naming each entry's x row, or null for row e itself;
+// y [n_rows, d] f32, 16-byte aligned. d must be a multiple of 32, at most
+// 512; ld >= d, with ld rows 16-byte aligned.
 PPT_EXPORT int ppt_spmm_csr(const void* x, int bf16, const float* values, const int* ptr,
-                            const int* idx, float* y, int n_rows, int d, void* stream) {
-  if (d <= 0 || d % 32 != 0 || d > 512) return cudaErrorInvalidValue;
+                            const int* idx, float* y, int n_rows, int d, int ld, void* stream) {
+  if (d <= 0 || d % 32 != 0 || d > 512 || ld < d || ld % (bf16 ? 8 : 4) != 0) {
+    return cudaErrorInvalidValue;
+  }
   if (n_rows == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    return launch<__nv_bfloat16>(d, n_rows, st, static_cast<const __nv_bfloat16*>(x), values, ptr,
-                                 idx, y);
+    return launch<__nv_bfloat16>(d, ld, n_rows, st, static_cast<const __nv_bfloat16*>(x), values,
+                                 ptr, idx, y);
   }
-  return launch<float>(d, n_rows, st, static_cast<const float*>(x), values, ptr, idx, y);
+  return launch<float>(d, ld, n_rows, st, static_cast<const float*>(x), values, ptr, idx, y);
 }

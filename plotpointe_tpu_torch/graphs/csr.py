@@ -6,10 +6,16 @@ edge's id is its position in that order (the canonical id the hash dropout
 mask keys on) and each destination's in-edges are one contiguous CSR row.
 
 The TPU layout pieces are not carried over: no sentinel padding edges, no
-chunk tiling. The attention kernels walk plain CSR rows, one warp per row,
+chunk arrays. The attention kernels walk plain CSR rows, one warp per row,
 so they need neither. The backward's source-order pass walks a transpose
 CSR (`t_ptr`, `t_dst`, `t_eid`): the same edges grouped by source, each
 carrying its destination and its canonical id.
+
+`with_tiling()` keeps only the mark: `tiling = (nb, eb)`. In the JAX package
+a graph with chunk tiling and no aligned layout takes the legacy attention
+contracts (v1, v2); the mark selects them here in the same way
+(`ops/gat_kernel.py`). The tile sizes are recorded, not used: the port's
+kernels walk CSR rows.
 
 Node id convention: users occupy [0, n_users), items [n_users, n_users + n_items).
 """
@@ -34,6 +40,7 @@ class Graph:
     t_ptr: torch.Tensor  # int32 [n_nodes + 1], CSR over src
     t_dst: torch.Tensor  # int32 [E], (src, dst)-sorted: each edge's destination
     t_eid: torch.Tensor  # int32 [E], each edge's canonical id: its position in (dst, src) order
+    tiling: tuple[int, int] | None = None  # (nb, eb) of `with_tiling`: the legacy contracts
 
     @property
     def n_edges(self) -> int:
@@ -50,6 +57,13 @@ class Graph:
             t_dst=self.t_dst.to(device),
             t_eid=self.t_eid.to(device),
         )
+
+    def with_tiling(self, nb: int = 256, eb: int = 1024) -> "Graph":
+        """A copy marked as tiled (nb destination nodes, eb edges per chunk),
+        which attention serves with the legacy v1/v2 contracts."""
+        if nb <= 0 or eb <= 0:
+            raise ValueError(f"tile sizes must be positive; got nb={nb}, eb={eb}")
+        return dataclasses.replace(self, tiling=(int(nb), int(eb)))
 
 
 def _csr_ptr(keys: np.ndarray, n_nodes: int) -> np.ndarray:

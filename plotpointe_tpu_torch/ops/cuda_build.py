@@ -9,7 +9,8 @@ per source at once and waits for all of them.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check` raises on a non-zero code. Every wrapper counts
-its launches on a `LaunchCounter`.
+its launches on a `LaunchCounter`: one per source, plus one for each TPU
+kernel that a source serves in another mode (`SHARED`).
 """
 from __future__ import annotations
 
@@ -28,7 +29,13 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "plotpointe_tpu_torch"
 KERNELS = ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "gather_fence", "topk_chunkmax", "topk_rescore",
-           "spmm_csr", "gat_fwd_mh", "gat_bwd_dst_mh", "knn_topk", "knn_topk_fast")
+           "spmm_csr", "gat_fwd_mh", "gat_bwd_dst_mh", "knn_topk", "knn_topk_fast", "stream_probe",
+           "smoke_affine")
+# TPU kernels that a source above computes in another mode, each with a
+# counter of its own: the legacy attention contracts' reduces (v1's weighted
+# one and the unweighted one) are spmm_csr over pre-gathered rows; v2's
+# fused layer is gat_fwd with an explicit mask.
+SHARED = ("fused_segment_reduce", "onehot_reduce", "fused_layer")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 P = ctypes.c_void_p
@@ -41,11 +48,13 @@ SIGNATURES = {
     "gather_fence": ("ppt_gather_fence", [P, I, I, I, P, P]),
     "topk_chunkmax": ("ppt_topk_chunkmax", [P, P, P, I, I, I, I, P]),
     "topk_rescore": ("ppt_topk_rescore", [P, P, P, P, I, I, I, I, I, P]),
-    "spmm_csr": ("ppt_spmm_csr", [P, I, P, P, P, P, I, I, P]),
+    "spmm_csr": ("ppt_spmm_csr", [P, I, P, P, P, P, I, I, I, P]),
     "gat_fwd_mh": ("ppt_gat_fwd_mh", [P] * 11 + [I, I, I, I, P]),
     "gat_bwd_dst_mh": ("ppt_gat_bwd_dst_mh", [P, I] + [P] * 11 + [I, I, I, I, I, P]),
     "knn_topk": ("ppt_knn_topk", [P, P, P, I, I, I, P]),
     "knn_topk_fast": ("ppt_knn_topk_fast", [P, P, P, I, I, I, P]),
+    "stream_probe": ("ppt_stream_probe", [P, ctypes.c_float, P, I, I, I, P]),
+    "smoke_affine": ("ppt_smoke_affine", [P, P, ctypes.c_longlong, P]),
 }
 MAX_SMEM = 232_448 - 1024  # a block's shared memory on sm_90, less static use
 
@@ -69,7 +78,7 @@ class LaunchCounter:
             self.count = 0
 
 
-COUNTERS = {name: LaunchCounter() for name in KERNELS}
+COUNTERS = {name: LaunchCounter() for name in KERNELS + SHARED}
 
 
 def reset_counters() -> None:

@@ -9,6 +9,8 @@ Counterpart of `plotpointe_tpu/ops/gat_fused.py` (`attention_v3`,
   fence       `_gather_fence`   -> `csrc/gather_fence.cu`    (`gather_fence`)
   mh forward  `_fwd_kernel_mh`  -> `csrc/gat_fwd_mh.cu`      (`attention_fwd_mh`)
   mh B1       `_bwd_kernel_mh`  -> `csrc/gat_bwd_dst_mh.cu`  (`attention_bwd_dst_mh`)
+  reduce      `_reduce_kernel`  -> `csrc/spmm_csr.cu`, pre-gathered rows and
+                                   unit weights (`segment_sum_rows`)
 The multi-head backward runs B2 once per head, on that head's rows of the
 [N, H, D] tensors read with a row stride (no per-head copies).
 Each `*_plain` function is the same function in plain PyTorch, used for CPU
@@ -30,6 +32,7 @@ for checks that hold a kernel path against its reference on the card.
 
 Multi-head dropout: head k masks with `hash_mask(seed, eid + k * 2**27, rate)`
 over canonical edge ids, one seed for all heads, as the JAX package does.
+`attention_v3`'s `id_offset` lets one single-head pass draw head k's mask.
 
 The training step does not call `gather_fence`: on the TPU it orders two
 XLA row gathers of the backward, and the port's kernels gather rows
@@ -45,6 +48,7 @@ from plotpointe_tpu_torch import reference_active, reference_versions  # noqa: F
 from plotpointe_tpu_torch.graphs.csr import Graph
 from plotpointe_tpu_torch.ops import cuda_build as cb
 from plotpointe_tpu_torch.ops.segment import EPS, LEAKY_SLOPE, LOGIT_CLAMP, edge_numerators
+from plotpointe_tpu_torch.ops.spmm_kernel import spmm_gathered, spmm_gathered_plain
 
 LAUNCHES = cb.COUNTERS["gat_fwd"]
 BWD_DST_LAUNCHES = cb.COUNTERS["gat_bwd_dst"]
@@ -52,6 +56,7 @@ BWD_SRC_LAUNCHES = cb.COUNTERS["gat_bwd_src"]
 FENCE_LAUNCHES = cb.COUNTERS["gather_fence"]
 MH_LAUNCHES = cb.COUNTERS["gat_fwd_mh"]
 MH_BWD_DST_LAUNCHES = cb.COUNTERS["gat_bwd_dst_mh"]
+ONEHOT_LAUNCHES = cb.COUNTERS["onehot_reduce"]
 MAX_PACKED_HEADS = 8
 MAX_PACKED_WIDTH = 1024  # heads * D the head-packed kernels hold in registers
 HEAD_ID_STRIDE = 1 << 27  # head k's mask hashes canonical id + k * 2**27
@@ -78,11 +83,13 @@ def hash_mask(seed: int, ids: torch.Tensor, rate: float) -> torch.Tensor:
     return (x < thresh).to(torch.float32) * (1.0 / (1.0 - rate))
 
 
-def dropout_mask(graph: Graph, rate: float, seed: Optional[int], device) -> Optional[torch.Tensor]:
-    """The hash mask over canonical edge ids, or None without dropout."""
+def dropout_mask(graph: Graph, rate: float, seed: Optional[int], device,
+                 id_offset: int = 0) -> Optional[torch.Tensor]:
+    """The hash mask over canonical edge ids + `id_offset`, or None without
+    dropout."""
     if rate <= 0.0 or seed is None:
         return None
-    return hash_mask(seed, torch.arange(graph.n_edges, device=device), rate)
+    return hash_mask(seed, torch.arange(graph.n_edges, device=device) + id_offset, rate)
 
 
 # ---------------------------------------------------------------------------
@@ -153,9 +160,9 @@ def _check(h, a_src, a_dst, graph, mask, hs_dtype):
     _check_mask(mask, graph, h.device)
 
 
-def _fwd(h2, a_src, a_dst, graph, mask, hs_dtype, plain=False):
+def _fwd(h2, a_src, a_dst, graph, mask, hs_dtype, plain=False, counter=LAUNCHES):
     """h2 [N, D] -> (out [N, D], den, rows, gs, gd): the output plus the
-    per-node terms the backward reads."""
+    per-node terms the backward reads. A launch counts on `counter`."""
     if plain or h2.device.type == "cpu":
         rows, gs, gd = node_terms_plain(h2, a_src, a_dst, hs_dtype)
         return (*_aggregate_plain(rows, gs, gd, graph, mask), rows, gs, gd)
@@ -175,7 +182,7 @@ def _fwd(h2, a_src, a_dst, graph, mask, hs_dtype, plain=False):
                 cb.ptr(hs), cb.ptr(gs), cb.ptr(gd), cb.ptr(out), cb.ptr(den), n, d,
                 cb.stream_of(h2))
     cb.check(rc, "gat_fwd")
-    LAUNCHES.bump()
+    counter.bump()
     return out, den, (h2 if hs is None else hs), gs, gd
 
 
@@ -339,38 +346,41 @@ class AttentionV3(torch.autograd.Function):
     the forward kernel, then B1 and B2 (their plain versions for CPU
     tensors, or on any device when the forward ran inside
     `reference_versions()`). The mask is rebuilt in the backward from its
-    seed."""
+    seed and id offset."""
 
     @staticmethod
-    def forward(ctx, h, a_src, a_dst, graph, dropout_rate, seed, hs_dtype):
+    def forward(ctx, h, a_src, a_dst, graph, dropout_rate, seed, hs_dtype, id_offset):
         plain = reference_active()
         n, _, d = h.shape
-        mask = dropout_mask(graph, dropout_rate, seed, h.device)
+        mask = dropout_mask(graph, dropout_rate, seed, h.device, id_offset)
         _check(h, a_src, a_dst, graph, mask, hs_dtype)
         h2 = h.reshape(n, d).contiguous()
         out2, den, rows, gs, gd = _fwd(h2, a_src, a_dst, graph, mask, hs_dtype, plain)
         ctx.save_for_backward(h2, a_src, a_dst, out2, den, rows, gs, gd)
         ctx.graph, ctx.dropout_rate, ctx.seed, ctx.plain = graph, dropout_rate, seed, plain
+        ctx.id_offset = id_offset
         return out2.view(n, 1, d)
 
     @staticmethod
     def backward(ctx, g):
         h2, a_src, a_dst, out2, den, rows, gs, gd = ctx.saved_tensors
         n, d = h2.shape
-        mask = dropout_mask(ctx.graph, ctx.dropout_rate, ctx.seed, h2.device)
+        mask = dropout_mask(ctx.graph, ctx.dropout_rate, ctx.seed, h2.device, ctx.id_offset)
         dh, da_src, da_dst = _backward(h2, a_src, a_dst, ctx.graph, g.reshape(n, d).contiguous(),
                                        out2, den, rows, gs, gd, mask, ctx.plain)
-        return dh.view(n, 1, d), da_src, da_dst, None, None, None, None
+        return dh.view(n, 1, d), da_src, da_dst, None, None, None, None, None
 
 
 def attention_v3(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,
                  dropout_rate: float = 0.0, seed: Optional[int] = None,
-                 hs_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                 hs_dtype: torch.dtype = torch.bfloat16, id_offset: int = 0) -> torch.Tensor:
     """Differentiable single-head attention, h [N, 1, D] -> [N, 1, D]. With
     dropout_rate > 0 and a uint32 `seed`, the hash mask over canonical edge
-    ids drops attention weights (the JAX package draws its seed as
-    `jax.random.bits(rng, (), uint32)`)."""
-    return AttentionV3.apply(h, a_src, a_dst, graph, float(dropout_rate), seed, hs_dtype)
+    ids + `id_offset` drops attention weights (the JAX package draws its seed
+    as `jax.random.bits(rng, (), uint32)`; head k of a packed call offsets
+    the ids by k * HEAD_ID_STRIDE)."""
+    return AttentionV3.apply(h, a_src, a_dst, graph, float(dropout_rate), seed, hs_dtype,
+                             int(id_offset))
 
 
 # ---------------------------------------------------------------------------
@@ -611,3 +621,27 @@ def gather_fence(x: torch.Tensor) -> torch.Tensor:
     cb.check(rc, "gather_fence")
     FENCE_LAUNCHES.bump()
     return out
+
+
+# ---------------------------------------------------------------------------
+# unweighted segment reduce of pre-gathered rows
+# ---------------------------------------------------------------------------
+
+
+def segment_sum_rows_plain(x: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """[E, W] f32 rows in canonical edge order -> [N, W] f32: each
+    destination's sum of its in-edges' rows."""
+    return spmm_gathered_plain(x, None, graph.row_ptr)
+
+
+def segment_sum_rows(x: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """The function of `_reduce_kernel` (`_reduce_call`): an unweighted
+    per-destination sum of rows gathered per edge, x [E, W] f32 in canonical
+    (dst, src) order -> [N, W] f32. JAX reads the rows in its aligned
+    layout; the port reads them in canonical order, which groups each
+    destination's edges as one CSR row. Launches `csrc/spmm_csr.cu` in its
+    pre-gathered, unit-weight mode for CUDA tensors (counted on
+    `ONEHOT_LAUNCHES`); runs the plain version for CPU tensors."""
+    if x.dim() != 2 or x.shape[0] != graph.n_edges:
+        raise ValueError(f"x must be [{graph.n_edges}, W]; got {tuple(x.shape)}")
+    return spmm_gathered(x, None, graph.row_ptr, ONEHOT_LAUNCHES)

@@ -3,7 +3,9 @@
 Counterpart of `plotpointe_tpu/ops/segment.py` (`segment_softmax_attention`
 and `spmm`, LightGCN's propagation). Attention keeps its exact math:
 LeakyReLU 0.2, logits clamped to +-10 with NO segment max-subtraction,
-softmax denominator eps 1e-9. Any number of heads.
+softmax denominator eps 1e-9. Any number of heads. Dropout, as in the
+JAX golden, is a keep-scaled [E, H] multiplier on alpha after
+normalisation (`bernoulli_mask` draws one).
 
 `gather_rows` is a row gather whose backward is a sorted segment sum, so the
 loss's gradient into the node table is the same on every run: the autograd
@@ -11,6 +13,8 @@ of `x[idx]` accumulates duplicate rows in an order that can change from run
 to run on CUDA.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -28,19 +32,35 @@ def edge_numerators(gs: torch.Tensor, gd: torch.Tensor, graph: Graph) -> torch.T
     return torch.exp(torch.clamp(e, -LOGIT_CLAMP, LOGIT_CLAMP))
 
 
+def bernoulli_mask(n_edges: int, heads: int, rate: float,
+                   generator: torch.Generator) -> torch.Tensor:
+    """[n_edges, heads] f32 dropout multiplier: 1 / (1 - rate) where a
+    uniform draw from `generator` (on its device) is below 1 - rate, else
+    0. The JAX golden draws `bernoulli(rng, 1 - rate, [E, H])`; the draws
+    differ, so tests hand JAX's keep to both."""
+    keep = torch.rand((n_edges, heads), generator=generator, device=generator.device) < 1.0 - rate
+    return keep.to(torch.float32) * (1.0 / (1.0 - rate))
+
+
 def segment_softmax_attention(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
-                              graph: Graph) -> torch.Tensor:
+                              graph: Graph, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """h [N, H, D], a_src/a_dst [H, D] -> [N, H, D]: per edge s -> d and head,
-    alpha = exp(e) / sum_{s' -> d} exp(e'), out[d] = sum alpha * h[s]."""
-    n = graph.n_nodes
-    src, dst = graph.src.long(), graph.dst.long()
+    alpha = exp(e) / sum_{s' -> d} exp(e'), out[d] = sum alpha * h[s]. mask
+    [E, H] (or None) multiplies alpha after normalisation."""
+    alpha = attention_weights(h, a_src, a_dst, graph, mask)
+    return torch.zeros_like(h).index_add_(0, graph.dst.long(), alpha[..., None] * h[graph.src.long()])
+
+
+def attention_weights(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """alpha [E, H] of `segment_softmax_attention`, times `mask` if given."""
+    dst = graph.dst.long()
     gs = torch.einsum("nhd,hd->nh", h, a_src)
     gd = torch.einsum("nhd,hd->nh", h, a_dst)
     num = edge_numerators(gs, gd, graph)  # [E, H]
-    den = torch.zeros(n, h.shape[1], dtype=num.dtype, device=h.device).index_add_(0, dst, num)
+    den = torch.zeros(graph.n_nodes, h.shape[1], dtype=num.dtype, device=h.device).index_add_(0, dst, num)
     alpha = num / (den[dst] + EPS)
-    out = torch.zeros_like(h).index_add_(0, dst, alpha[..., None] * h[src])
-    return out
+    return alpha if mask is None else alpha * mask
 
 
 def spmm(graph: Graph, values: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

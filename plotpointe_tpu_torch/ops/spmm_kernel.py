@@ -17,6 +17,11 @@ tensors and launches the kernel (or raises) for CUDA tensors.
 D must be a multiple of 32 up to 512 for the kernel; the operators pad other
 widths with zero columns (which add nothing) and slice them off. The JAX
 package pads to 128 lanes; the port does not need to.
+
+`spmm_gathered` runs the same kernel over rows gathered before the call
+(row e of x belongs to CSR entry e, so no index stream is read), with
+weights or unit weights, in column strips of <= 512: the legacy attention
+contracts' reduces (kernels 13 and 15) call it with counters of their own.
 """
 from __future__ import annotations
 
@@ -69,19 +74,62 @@ def spmm_csr(x: torch.Tensor, values: torch.Tensor, ptr: torch.Tensor, idx: torc
     _check(x, values, ptr, idx, rows_dtype)
     if x.device.type == "cpu":
         return spmm_csr_plain(x, values, ptr, idx, rows_dtype)
-    xs = x.to(rows_dtype).contiguous()
-    if xs.data_ptr() % 16:  # the kernel reads rows in 16-byte loads
-        xs = xs.clone()
-    n_rows, d = ptr.shape[0] - 1, x.shape[1]
-    y = torch.empty((n_rows, d), dtype=torch.float32, device=x.device)
-    v, p, i = values.contiguous(), ptr.contiguous(), idx.contiguous()
+    xs = cb.aligned(x.to(rows_dtype))  # the kernel reads rows in 16-byte loads
+    return _launch(xs, values.contiguous(), ptr.contiguous(), idx.contiguous(), LAUNCHES)
+
+
+def _launch(xs, values, ptr, idx, counter):
+    """One launch of `csrc/spmm_csr.cu` over x rows `xs` (a contiguous
+    array, or a column strip of one: the row stride is passed); values or
+    idx may be None (unit weights; entry e reads row e)."""
+    n_rows, d = ptr.shape[0] - 1, xs.shape[1]
+    y = torch.empty((n_rows, d), dtype=torch.float32, device=xs.device)
     fn = cb.entry("spmm_csr")
-    with torch.cuda.device(x.device):
-        rc = fn(cb.ptr(xs), int(rows_dtype == torch.bfloat16), cb.ptr(v), cb.ptr(p), cb.ptr(i),
-                cb.ptr(y), n_rows, d, cb.stream_of(x))
+    with torch.cuda.device(xs.device):
+        rc = fn(cb.ptr(xs), int(xs.dtype == torch.bfloat16), cb.ptr(values), cb.ptr(ptr),
+                cb.ptr(idx), cb.ptr(y), n_rows, d, xs.stride(0), cb.stream_of(xs))
     cb.check(rc, "spmm_csr")
-    LAUNCHES.bump()
+    counter.bump()
     return y
+
+
+STRIP = 512  # the widest row kernel 7 takes
+
+
+def spmm_gathered_plain(rows: torch.Tensor, values, ptr: torch.Tensor) -> torch.Tensor:
+    """y [len(ptr) - 1, W] f32: y_r = sum over entries e of row r of
+    values_e * rows[e] (values None: unit weights), rows [E, W] f32."""
+    n_rows = ptr.shape[0] - 1
+    counts = (ptr[1:] - ptr[:-1]).long()
+    seg = torch.repeat_interleave(torch.arange(n_rows, device=rows.device), counts,
+                                  output_size=rows.shape[0])
+    msg = rows if values is None else values[:, None] * rows
+    y = torch.zeros((n_rows, rows.shape[1]), dtype=torch.float32, device=rows.device)
+    return y.index_add_(0, seg, msg)
+
+
+def spmm_gathered(rows: torch.Tensor, values, ptr: torch.Tensor, counter) -> torch.Tensor:
+    """`spmm_gathered_plain`'s function on kernel 7 in its pre-gathered mode,
+    one launch per column strip of <= 512 (the reduce is separable by
+    column), each counted on `counter`. rows [E, W] f32 with E = ptr[-1];
+    values [E] f32 or None; ptr int32. Runs the plain version for CPU
+    tensors."""
+    if rows.dim() != 2 or rows.dtype != torch.float32:
+        raise ValueError(f"rows must be a float32 [E, W] tensor; got {rows.dtype} {tuple(rows.shape)}")
+    if ptr.dim() != 1 or ptr.dtype != torch.int32 or ptr.device != rows.device or ptr.shape[0] < 1:
+        raise ValueError(f"ptr must be a non-empty 1-d int32 tensor on {rows.device}")
+    if values is not None and (values.shape != (rows.shape[0],) or values.dtype != torch.float32
+                               or values.device != rows.device):
+        raise ValueError(f"values must be float32 [{rows.shape[0]}] on {rows.device}")
+    if rows.device.type == "cpu":
+        return spmm_gathered_plain(rows, values, ptr)
+    w = rows.shape[1]
+    xs = cb.aligned(_padded(rows))
+    v = None if values is None else values.contiguous()
+    p = ptr.contiguous()
+    ys = [_launch(xs[:, c0:c0 + STRIP], v, p, None, counter) for c0 in range(0, xs.shape[1], STRIP)]
+    y = ys[0] if len(ys) == 1 else torch.cat(ys, 1)
+    return y[:, :w] if y.shape[1] != w else y
 
 
 def _csr_spmm(x, values, ptr, idx, rows_dtype, plain):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 attention (kernels 1, 2, 3 and the head-packed 8, 9), the gather fence (16),
-top-K (4, 5), the CSR SpMM (7) and the kNN candidates (10, 11), and
-same-seed trainer determinism.
+top-K (4, 5), the CSR SpMM (7), the kNN candidates (10, 11), the read-stream
+probe (6), the smoke's affine pass (12), the legacy attention contracts
+(13, 14, 15), and same-seed trainer determinism.
 
 Every test here needs an NVIDIA GPU and skips without one. This file imports
 no JAX, so it also runs where JAX is absent:
@@ -463,3 +464,134 @@ def test_knn_rejects_k_above_128_on_card(cuda):
 
     with pytest.raises(ValueError):
         knn_topk(torch.zeros((300, 16), device=cuda), 129)
+
+
+# -- the last five TPU kernels: 6, 12 (tooling), 13, 14, 15 (legacy attention) --
+
+
+@pytest.mark.parametrize("m,d,bm", [(512, 256, 64), (4096, 4096, 512), (1024, 384, 8)])
+def test_stream_probe_kernel_matches_plain(cuda, m, d, bm):
+    from plotpointe_tpu_torch.utils.profiling import stream_probe, stream_probe_plain
+
+    rng = np.random.default_rng(m)
+    x = torch.as_tensor(rng.normal(size=(m, d)).astype(np.float32), device=cuda).to(torch.bfloat16)
+    before = cuda_build.COUNTERS["stream_probe"].count
+    got = stream_probe(x, bm=bm, c=0.25)
+    torch.cuda.synchronize()
+    assert cuda_build.COUNTERS["stream_probe"].count == before + 1
+    assert torch.equal(got, stream_probe_plain(x, bm, 0.25))  # max is exact
+
+
+@pytest.mark.parametrize("shape", [(256, 128), (3, 5), (1, 1), (1000, 1001)])
+def test_smoke_affine_kernel_matches_plain(cuda, shape):
+    from plotpointe_tpu_torch.ops.elementwise import affine, affine_plain
+
+    x = torch.as_tensor(np.random.default_rng(0).normal(size=shape).astype(np.float32) * 1e3,
+                        device=cuda)
+    before = cuda_build.COUNTERS["smoke_affine"].count
+    got = affine(x)
+    torch.cuda.synchronize()
+    assert cuda_build.COUNTERS["smoke_affine"].count == before + 1
+    assert torch.equal(got, affine_plain(x))  # x * 2 is exact: one rounding on both sides
+
+
+def test_run_smoke_on_card(cuda):
+    from plotpointe_tpu_torch.tools.smoke_gpu import run_smoke
+
+    report = run_smoke()
+    assert report["ok"], report
+
+
+@pytest.mark.parametrize("width", [32, 64, 128, 200, 512, 1100])
+def test_legacy_reduces_match_plain(cuda, width):
+    """Kernel 13 (weights) and 15 (unit weights) over pre-gathered rows, in
+    column strips of <= 512 above 512, padded to a multiple of 32 below. The
+    weights sum to 1 over each destination, as alpha does (node 3's 1,200
+    rows of N(0, 1) summed with weights of order 1 would cancel below the
+    band's atol)."""
+    from plotpointe_tpu_torch.ops.gat_fused import segment_sum_rows, segment_sum_rows_plain
+    from plotpointe_tpu_torch.ops.gat_kernel import fused_segment_reduce, fused_segment_reduce_plain
+
+    rng = np.random.default_rng(width)
+    g = _graph(rng).to(cuda)
+    u = rng.random(g.n_edges)
+    dst = g.dst.cpu().numpy()
+    w = torch.as_tensor((u / np.bincount(dst, u)[dst]).astype(np.float32), device=cuda)
+    hs = torch.as_tensor(rng.normal(size=(g.n_edges, width)).astype(np.float32), device=cuda)
+    strips = -(-width // 512)
+    before = {k: cuda_build.COUNTERS[k].count for k in ("fused_segment_reduce", "onehot_reduce", "spmm_csr")}
+    scaled = hs * w[:, None]
+    got13, got15 = fused_segment_reduce(w, hs, g), segment_sum_rows(scaled, g)
+    torch.cuda.synchronize()
+    after = {k: cuda_build.COUNTERS[k].count for k in before}
+    assert after == {"fused_segment_reduce": before["fused_segment_reduce"] + strips,
+                     "onehot_reduce": before["onehot_reduce"] + strips, "spmm_csr": before["spmm_csr"]}
+    torch.testing.assert_close(got13, fused_segment_reduce_plain(w, hs, g), rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got15, segment_sum_rows_plain(scaled, g), rtol=1e-4, atol=1e-5)
+    assert torch.all(got13[250:] == 0) and torch.all(got15[250:] == 0)
+
+
+@pytest.mark.parametrize("d", [128, 256, 512])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fused_layer_kernel_matches_plain(cuda, d, masked):
+    from plotpointe_tpu_torch.ops.gat_kernel import fused_layer, fused_layer_plain, legacy_mask
+
+    rng = np.random.default_rng(d)
+    g = _graph(rng).to(cuda)
+    h = torch.as_tensor(rng.normal(size=(g.n_nodes, 1, d)).astype(np.float32), device=cuda)
+    a_s, a_d = (torch.as_tensor(rng.normal(size=(1, d)).astype(np.float32) * 0.2, device=cuda)
+                for _ in range(2))
+    mask = legacy_mask(g, 1, 0.3, 7, cuda)[:, 0].contiguous() if masked else None
+    before = {k: cuda_build.COUNTERS[k].count for k in ("fused_layer", "gat_fwd")}
+    got = fused_layer(h, a_s, a_d, g, mask)
+    torch.cuda.synchronize()
+    assert {k: cuda_build.COUNTERS[k].count for k in before} == {
+        "fused_layer": before["fused_layer"] + 1, "gat_fwd": before["gat_fwd"]}
+    torch.testing.assert_close(got, fused_layer_plain(h, a_s, a_d, g, mask), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("heads,d", [(1, 128), (1, 64), (2, 64)])
+def test_legacy_dispatch_on_card_matches_reference_versions(cuda, heads, d):
+    """v2 / v1 through the dispatch on a tiled graph with dropout: output
+    and gradients with the kernels vs inside `reference_versions()`."""
+    from plotpointe_tpu_torch.ops.gat_kernel import segment_softmax_attention_kernel
+
+    rng = np.random.default_rng(heads * d)
+    g = _graph(rng).with_tiling().to(cuda)
+    h = torch.as_tensor(rng.normal(size=(g.n_nodes, heads, d)).astype(np.float32), device=cuda)
+    a_s, a_d = (torch.as_tensor(rng.normal(size=(heads, d)).astype(np.float32) * 0.2, device=cuda)
+                for _ in range(2))
+    ct = torch.as_tensor(rng.normal(size=(g.n_nodes, heads, d)).astype(np.float32), device=cuda)
+    name = "fused_layer" if d == 128 else ("fused_segment_reduce" if heads == 1 else "onehot_reduce")
+    res = []
+    for plain in (False, True):
+        x = [t.clone().requires_grad_() for t in (h, a_s, a_d)]
+        before = cuda_build.COUNTERS[name].count
+        with reference_versions() if plain else contextlib.nullcontext():
+            out = segment_softmax_attention_kernel(*x, g, dropout_rate=0.1, seed=11)
+            (out * ct).sum().backward()
+        torch.cuda.synchronize()
+        assert cuda_build.COUNTERS[name].count == before + (0 if plain else 1)
+        res.append((out.detach(), [t.grad for t in x]))
+    torch.testing.assert_close(res[0][0], res[1][0], rtol=1e-4, atol=1e-5)
+    for a, b in zip(res[0][1], res[1][1]):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+
+
+def test_wide_multihead_runs_one_pass_per_head_on_card(cuda):
+    """4 heads of D 512 (above the packed kernels' width): one `attention_v3`
+    pass per head, kernel 1 launched 4 times and kernel 8 not at all."""
+    from plotpointe_tpu_torch.ops.gat_kernel import segment_softmax_attention_kernel
+
+    rng = np.random.default_rng(3)
+    g = _graph(rng).to(cuda)
+    h = torch.as_tensor(rng.normal(size=(g.n_nodes, 4, 512)).astype(np.float32), device=cuda)
+    a_s, a_d = (torch.as_tensor(rng.normal(size=(4, 512)).astype(np.float32) * 0.05, device=cuda)
+                for _ in range(2))
+    before = {k: cuda_build.COUNTERS[k].count for k in ("gat_fwd", "gat_fwd_mh")}
+    got = segment_softmax_attention_kernel(h, a_s, a_d, g, dropout_rate=0.2, seed=5)
+    torch.cuda.synchronize()
+    assert {k: cuda_build.COUNTERS[k].count - before[k] for k in before} == {"gat_fwd": 4, "gat_fwd_mh": 0}
+    with reference_versions():
+        want = segment_softmax_attention_kernel(h, a_s, a_d, g, dropout_rate=0.2, seed=5)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)

@@ -26,7 +26,8 @@ def test_port_imports_no_jax():
     for m in ("ops.gat_fused", "cli", "config", "pipeline", "train.trainer", "train.sampling",
               "train.evaluate", "train.losses", "utils.logging", "ops.spmm_kernel",
               "models.lightgcn", "ops.gat_kernel", "ops.knn_kernel", "graphs.knn",
-              "graphs.ui_graph", "data.subset"):
+              "graphs.ui_graph", "data.subset", "ops.elementwise", "utils.profiling",
+              "tools.smoke_gpu", "models.encoders"):
         assert f"plotpointe_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, json, sys\n"

@@ -122,6 +122,23 @@ def test_dispatch_matches_jax_dispatch(graphs, heads, d):
                                              dropout_rate=0.2, seed=seed[0])
 
 
+@pytest.mark.parametrize("dropout", [0.0, 0.3])
+def test_wide_heads_run_one_pass_per_head_like_jax_packed(graphs, dropout):
+    """4 heads of D 512 (packed width 2,048, above the packed kernels'
+    1,024): the dispatch runs one `attention_v3` pass per head with head
+    k's ids offset by k * 2**27, and matches JAX's `attention_v3_mh` (which
+    has no width limit) at bf16 rows, forward and gradients."""
+    g, jg = graphs
+    h, a_s, a_d, ct = _inputs(4, 512, seed=11)
+    key = jax.random.key(6)
+    seed = int(jax.random.bits(key, (), jnp.uint32))
+    want = _jax_out_and_grads(lambda *a: jax_attention_v3_mh(*a, jg, dropout_rate=dropout, rng=key),
+                              h, a_s, a_d, ct)
+    got = _port_out_and_grads(lambda *a: segment_softmax_attention_kernel(
+        *a, g, dropout_rate=dropout, seed=seed), h, a_s, a_d, ct)
+    _assert_match(got, want)
+
+
 def test_plain_backward_matches_autograd_of_golden(graphs):
     g, _ = graphs
     h, a_s, a_d, ct = _inputs(2, 64, seed=2)
