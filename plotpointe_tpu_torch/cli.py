@@ -5,7 +5,9 @@ Counterpart of `plotpointe_tpu/cli.py` for the ported commands:
           metrics JSON (GAT or LightGCN; --mesh is a later slice)
   export  checkpoint + interactions (+ item features for the GAT) ->
           item_embeddings.npy
-  serve   stdlib HTTP top-K server (--stdlib; the FastAPI app is not ported)
+  serve   stdlib HTTP top-K server (--stdlib or $PLOTPOINTE_STDLIB_HTTP; the
+          FastAPI app is not ported); --item-embeddings, else
+          $ITEM_EMBEDDINGS_URI, is loaded at start
   build-ui      interactions -> ui_edges.npz + node_maps.json + ui_stats.json
   build-subset  full-catalog features + items + interactions ->
                 {name}_interacted.npy + interacted_items.json
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
@@ -70,15 +73,16 @@ def _cmd_export(args):
 
 
 def _cmd_serve(args):
-    if not args.stdlib:
-        sys.exit("only the stdlib HTTP server is ported: pass --stdlib")
+    if not (args.stdlib or os.environ.get("PLOTPOINTE_STDLIB_HTTP")):
+        sys.exit("only the stdlib HTTP server is ported: pass --stdlib or set PLOTPOINTE_STDLIB_HTTP")
     from plotpointe_tpu_torch.serving.httpd import serve
     from plotpointe_tpu_torch.serving.runtime import RecommenderRuntime, ServingConfig
 
     rt = None
-    if args.item_embeddings:
-        rt = RecommenderRuntime(ServingConfig(item_embeddings_uri=args.item_embeddings,
-                                              topk=args.topk, device=args.device))
+    uri = args.item_embeddings or os.environ.get("ITEM_EMBEDDINGS_URI")
+    if uri:
+        rt = RecommenderRuntime(ServingConfig(item_embeddings_uri=uri, topk=args.topk,
+                                              device=args.device))
         rt.startup()
     print(json.dumps({"serving": f"http://{args.host}:{args.port}", "loaded": rt is not None,
                       "micro_batch": args.micro_batch}), flush=True)
@@ -172,10 +176,12 @@ def build_parser() -> argparse.ArgumentParser:
     e.set_defaults(fn=_cmd_export)
 
     s = sub.add_parser("serve", help="top-K retrieval over HTTP")
-    s.add_argument("--stdlib", action="store_true", help="stdlib http.server transport")
+    s.add_argument("--stdlib", action="store_true",
+                   help="stdlib http.server transport (also: $PLOTPOINTE_STDLIB_HTTP)")
     s.add_argument("--host", default="0.0.0.0")
     s.add_argument("--port", type=int, default=8080)
-    s.add_argument("--item-embeddings", default=None, help="npy to load at start")
+    s.add_argument("--item-embeddings", default=None,
+                   help="npy to load at start (default: $ITEM_EMBEDDINGS_URI)")
     s.add_argument("--topk", type=int, default=20)
     s.add_argument("--micro-batch", action="store_true")
     s.add_argument("--micro-batch-max", type=int, default=64)

@@ -25,6 +25,10 @@
 //     in flight (16 for D <= 128, 8 for D <= 256, 4 above). The gather
 //     happens here by CSR index: no [E, D] gathered stream is written. No
 //     atomics, a fixed order: deterministic.
+// Rows wider than STRIP (512) columns: node_terms takes gs and gd from the
+// full rows, then `aggregate` runs once per column strip of <= 512, every
+// strip fed the same gs and gd (the weighted sum is separable by column);
+// the first strip writes den. Any multiple of 32 is taken.
 // Known limit: a destination with thousands of in-edges (hot items) is one
 // warp's serial loop; splitting such rows across warps is later work.
 #include "attention.cuh"
@@ -55,14 +59,17 @@ __global__ void node_terms(const float* __restrict__ h, const float* __restrict_
   }
 }
 
-template <typename T, int VPL>
+// STRIPPED: hs and out are a column strip of rows `ld` apart (a wider row),
+// and den_out may be null; else rows are VPL * 32 apart, a constant
+template <typename T, int VPL, bool STRIPPED>
 __global__ void aggregate(const T* __restrict__ hs, const float* __restrict__ gs,
                           const float* __restrict__ gd, const int* __restrict__ row_ptr,
                           const int* __restrict__ src, const float* __restrict__ mask,
-                          float* __restrict__ out, float* __restrict__ den_out, int n) {
-  constexpr int D = VPL * 32;
+                          float* __restrict__ out, float* __restrict__ den_out, int n,
+                          long long ld) {
   // source rows in flight per warp: 64 registers of row values at any width
   constexpr int EDGE_ILP = VPL <= 4 ? 16 : (VPL <= 8 ? 8 : 4);
+  const long long stride = STRIPPED ? ld : VPL * 32;
   const int row = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= n) return;
@@ -100,7 +107,7 @@ __global__ void aggregate(const T* __restrict__ hs, const float* __restrict__ gs
       float x[EDGE_ILP][VPL];
 #pragma unroll
       for (int q = 0; q < EDGE_ILP; ++q) {
-        const T* r = hs + static_cast<long long>(sj[q]) * D + lane;
+        const T* r = hs + static_cast<long long>(sj[q]) * stride + lane;
 #pragma unroll
         for (int v = 0; v < VPL; ++v) x[q][v] = (j + q < cnt) ? to_f32(r[v * 32]) : 0.f;
       }
@@ -114,20 +121,28 @@ __global__ void aggregate(const T* __restrict__ hs, const float* __restrict__ gs
     }
   }
   den = warp_sum(den);
-  float* o = out + static_cast<long long>(row) * D + lane;
+  float* o = out + static_cast<long long>(row) * stride + lane;
 #pragma unroll
   for (int v = 0; v < VPL; ++v) o[v * 32] = acc[v] / (den + EPS);
-  if (lane == 0) den_out[row] = den;
+  if (lane == 0 && (!STRIPPED || den_out != nullptr)) den_out[row] = den;
 }
 
 template <typename T>
 cudaError_t launch_aggregate(int vpl, dim3 grid, dim3 block, cudaStream_t st, const T* hs,
                              const float* gs, const float* gd, const int* row_ptr, const int* src,
-                             const float* mask, float* out, float* den, int n) {
+                             const float* mask, float* out, float* den, int n, long long ld) {
+  const bool stripped = ld != 32LL * vpl;
   switch (vpl) {
-#define PPT_CASE(V) \
-  case V:           \
-    aggregate<T, V><<<grid, block, 0, st>>>(hs, gs, gd, row_ptr, src, mask, out, den, n); break;
+#define PPT_CASE(V)                                                                              \
+  case V:                                                                                        \
+    if (stripped) {                                                                              \
+      aggregate<T, V, true><<<grid, block, 0, st>>>(hs, gs, gd, row_ptr, src, mask, out, den, n, \
+                                                    ld);                                         \
+    } else {                                                                                     \
+      aggregate<T, V, false><<<grid, block, 0, st>>>(hs, gs, gd, row_ptr, src, mask, out, den,  \
+                                                     n, ld);                                     \
+    }                                                                                            \
+    break;
     PPT_CASE(1) PPT_CASE(2) PPT_CASE(3) PPT_CASE(4) PPT_CASE(5) PPT_CASE(6) PPT_CASE(7)
     PPT_CASE(8) PPT_CASE(9) PPT_CASE(10) PPT_CASE(11) PPT_CASE(12) PPT_CASE(13) PPT_CASE(14)
     PPT_CASE(15) PPT_CASE(16)
@@ -138,32 +153,41 @@ cudaError_t launch_aggregate(int vpl, dim3 grid, dim3 block, cudaStream_t st, co
   return cudaGetLastError();
 }
 
+// node_terms over the full rows, then one aggregate per column strip
+template <typename T>
+cudaError_t forward(const float* h, const float* a_src, const float* a_dst, const int* row_ptr,
+                    const int* src, const float* mask, T* hs_out, const T* hs, float* gs,
+                    float* gd, float* out, float* den, int n, int d, cudaStream_t st) {
+  const dim3 block(32 * WARPS_PER_BLOCK);
+  const dim3 grid((n + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK);
+  node_terms<T><<<grid, block, 0, st>>>(h, a_src, a_dst, hs_out, gs, gd, n, d);
+  cudaError_t err = cudaGetLastError();
+  for (int c0 = 0; c0 < d && err == cudaSuccess; c0 += STRIP) {
+    const int w = d - c0 < STRIP ? d - c0 : STRIP;
+    err = launch_aggregate<T>(w / 32, grid, block, st, hs + c0, gs, gd, row_ptr, src, mask,
+                              out + c0, c0 == 0 ? den : nullptr, n, d);
+  }
+  return err;
+}
+
 }  // namespace
 
 // h [n, d] f32; a_src/a_dst [d] f32; row_ptr [n + 1], src [E] int32 (CSR by
 // destination); mask [E] f32 or null; hs_bf16 [n, d] bf16 scratch (bf16 rows)
 // or null (f32 rows: h itself is read); gs/gd [n] f32 scratch;
-// out [n, d] f32; den [n] f32. d must be a multiple of 32, at most 512.
+// out [n, d] f32; den [n] f32. d must be a positive multiple of 32.
 PPT_EXPORT int ppt_gat_fwd(const float* h, const float* a_src, const float* a_dst,
                            const int* row_ptr, const int* src, const float* mask, void* hs_bf16,
                            float* gs, float* gd, float* out, float* den, int n, int d,
                            void* stream) {
-  if (d <= 0 || d % 32 != 0 || d > 512) return cudaErrorInvalidValue;
+  if (d <= 0 || d % 32 != 0) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 block(32 * WARPS_PER_BLOCK);
-  const dim3 grid((n + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK);
-  const int vpl = d / 32;
   if (hs_bf16 != nullptr) {
     auto* hs = static_cast<__nv_bfloat16*>(hs_bf16);
-    node_terms<__nv_bfloat16><<<grid, block, 0, st>>>(h, a_src, a_dst, hs, gs, gd, n, d);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    return launch_aggregate<__nv_bfloat16>(vpl, grid, block, st, hs, gs, gd, row_ptr, src, mask,
-                                           out, den, n);
+    return forward<__nv_bfloat16>(h, a_src, a_dst, row_ptr, src, mask, hs, hs, gs, gd, out, den,
+                                  n, d, st);
   }
-  node_terms<float><<<grid, block, 0, st>>>(h, a_src, a_dst, nullptr, gs, gd, n, d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_aggregate<float>(vpl, grid, block, st, h, gs, gd, row_ptr, src, mask, out, den, n);
+  return forward<float>(h, a_src, a_dst, row_ptr, src, mask, nullptr, h, gs, gd, out, den, n, d,
+                        st);
 }

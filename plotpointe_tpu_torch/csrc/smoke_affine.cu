@@ -10,12 +10,15 @@
 // Design: a grid-stride loop, one 16-byte load and store (float4) per
 // thread per step, the grid capped at a few blocks per SM; the n % 4 tail is
 // taken by scalar steps. x * 2 is exact in f32, so one rounding, as on the
-// TPU.
+// TPU. At the smoke's size a call costs what the host spends to issue it,
+// so the entry queries the SM count once, on its first call, and keeps it
+// (the cap only sizes the grid: any count gives the same result).
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
+int sm_count = 0;  // the card's SMs, read on the first call
 
 __global__ void affine(const float4* __restrict__ x, float4* __restrict__ o, long long n4) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -41,11 +44,14 @@ PPT_EXPORT int ppt_smoke_affine(const float* x, float* o, long long n, void* str
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long n4 = n / 4;
   if (n4 > 0) {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sm_count == 0) {
+      int dev = 0, sms = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      sm_count = sms > 0 ? sms : 1;
+    }
     const long long want = (n4 + THREADS - 1) / THREADS;
-    const int blocks = static_cast<int>(want < 8LL * sms ? want : 8LL * sms);
+    const int blocks = static_cast<int>(want < 8LL * sm_count ? want : 8LL * sm_count);
     affine<<<blocks, THREADS, 0, st>>>(reinterpret_cast<const float4*>(x),
                                        reinterpret_cast<float4*>(o), n4);
     const cudaError_t err = cudaGetLastError();

@@ -8,21 +8,28 @@ source is rebuilt and an unchanged one is reused. `build_all` starts one nvcc
 per source at once and waits for all of them.
 
 Every C entry point launches on the stream it is given and returns
-`cudaGetLastError()`; `check` raises on a non-zero code. Every wrapper counts
-its launches on a `LaunchCounter`: one per source, plus one for each TPU
-kernel that a source serves in another mode (`SHARED`).
+`cudaGetLastError()`; `launch` calls one on the tensor's device and current
+stream and raises on a non-zero code. Every wrapper counts its launches on a
+`LaunchCounter`: one per source, plus one for each TPU kernel that a source
+serves in another mode (`SHARED`).
+
+The launch path is on every wrapper's hot path (LightGCN calls kernel 7 six
+times a step), so once a library is loaded `launch` takes no lock, enters
+`torch.cuda.device` only for a tensor off the current device, and reads the
+stream as a raw pointer without building a `torch.cuda.Stream`.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable
 
 import torch
 
@@ -43,12 +50,12 @@ I = ctypes.c_int
 # C entry point and argument types of each library
 SIGNATURES = {
     "gat_fwd": ("ppt_gat_fwd", [P] * 11 + [I, I, P]),
-    "gat_bwd_dst": ("ppt_gat_bwd_dst", [P, I] + [P] * 11 + [I, I, I, P]),
-    "gat_bwd_src": ("ppt_gat_bwd_src", [P, P, I] + [P] * 10 + [I, I, I, P]),
+    "gat_bwd_dst": ("ppt_gat_bwd_dst", [P, I] + [P] * 11 + [I, I, I, P, P]),
+    "gat_bwd_src": ("ppt_gat_bwd_src", [P, P, I] + [P] * 10 + [I, I, I, P, P]),
     "gather_fence": ("ppt_gather_fence", [P, I, I, I, P, P]),
     "topk_chunkmax": ("ppt_topk_chunkmax", [P, P, P, I, I, I, I, P]),
     "topk_rescore": ("ppt_topk_rescore", [P, P, P, P, I, I, I, I, I, P]),
-    "spmm_csr": ("ppt_spmm_csr", [P, I, P, P, P, P, I, I, I, P]),
+    "spmm_csr": ("ppt_spmm_csr", [P, I] + [P] * 9 + [I, I, I, I, P]),
     "gat_fwd_mh": ("ppt_gat_fwd_mh", [P] * 11 + [I, I, I, I, P]),
     "gat_bwd_dst_mh": ("ppt_gat_bwd_dst_mh", [P, I] + [P] * 11 + [I, I, I, I, I, P]),
     "knn_topk": ("ppt_knn_topk", [P, P, P, I, I, I, P]),
@@ -60,22 +67,32 @@ MAX_SMEM = 232_448 - 1024  # a block's shared memory on sm_90, less static use
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[str, Callable[..., int]] = {}  # filled once per library, read without the lock
 
 
 class LaunchCounter:
-    """Number of kernel launches a wrapper made; thread-safe."""
+    """Number of kernel launches a wrapper made; thread-safe. A bump is one
+    `next()` of an `itertools.count` (atomic, and cheaper than a lock on
+    every launch); reading the count takes one tick more, which `count`
+    subtracts."""
 
     def __init__(self):
-        self.count = 0
         self._lock = threading.Lock()
+        self.reset()
 
     def bump(self) -> None:
+        next(self._ticks)
+
+    @property
+    def count(self) -> int:
         with self._lock:
-            self.count += 1
+            n = next(self._ticks) - self._reads  # ticks so far = bumps + earlier reads
+            self._reads += 1
+            return n
 
     def reset(self) -> None:
         with self._lock:
-            self.count = 0
+            self._ticks, self._reads = itertools.count(), 0
 
 
 COUNTERS = {name: LaunchCounter() for name in KERNELS + SHARED}
@@ -137,6 +154,9 @@ def _build_locked(names) -> Dict[str, float]:
 
 
 def _load(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -154,9 +174,27 @@ def _load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def entry(name: str):
+def entry(name: str) -> Callable[..., int]:
     """The C entry point of `csrc/<name>.cu`, building the library if missing."""
-    return getattr(_load(name), SIGNATURES[name][0])
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries.setdefault(name, getattr(_load(name), SIGNATURES[name][0]))
+    return fn
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call `csrc/<name>.cu`'s entry point with `args` and the current
+    stream of `device` (a CUDA device with an index, as a tensor's is), and
+    raise if it returns a CUDA error."""
+    fn = _entries.get(name) or entry(name)
+    index = device.index
+    if index == torch._C._cuda_getDevice():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if rc:
+        check(rc, name)
 
 
 def require_smem(name: str, size: int, what: str = "D") -> None:
@@ -173,10 +211,6 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         msg = _load(name).ppt_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cuda error {rc})")
-
-
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def ptr(t) -> int | None:

@@ -25,13 +25,10 @@ def affine(x: torch.Tensor) -> torch.Tensor:
     tensors."""
     if x.dtype != torch.float32:
         raise ValueError(f"affine takes float32; got {x.dtype}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return affine_plain(x)
     xs = cb.aligned(x)  # 16-byte loads
     out = torch.empty_like(xs)
-    fn = cb.entry("smoke_affine")
-    with torch.cuda.device(x.device):
-        rc = fn(cb.ptr(xs), cb.ptr(out), xs.numel(), cb.stream_of(xs))
-    cb.check(rc, "smoke_affine")
+    cb.launch("smoke_affine", xs.device, xs.data_ptr(), out.data_ptr(), xs.numel())
     LAUNCHES.bump()
     return out

@@ -57,6 +57,7 @@ FENCE_LAUNCHES = cb.COUNTERS["gather_fence"]
 MH_LAUNCHES = cb.COUNTERS["gat_fwd_mh"]
 MH_BWD_DST_LAUNCHES = cb.COUNTERS["gat_bwd_dst_mh"]
 ONEHOT_LAUNCHES = cb.COUNTERS["onehot_reduce"]
+STRIP = 512  # rows wider than this run in column strips in the kernels (csrc/attention.cuh)
 MAX_PACKED_HEADS = 8
 MAX_PACKED_WIDTH = 1024  # heads * D the head-packed kernels hold in registers
 HEAD_ID_STRIDE = 1 << 27  # head k's mask hashes canonical id + k * 2**27
@@ -132,8 +133,8 @@ def _check_tensor(name, t, dtype, device, shape=None):
 
 
 def _check_width(d):
-    if d % 32 != 0 or d > 512:
-        raise ValueError(f"the attention kernels take D a multiple of 32 up to 512; got D={d}")
+    if d % 32 != 0:
+        raise ValueError(f"the attention kernels take D a multiple of 32; got D={d}")
 
 
 def _check_mask(mask, graph, device):
@@ -163,7 +164,7 @@ def _check(h, a_src, a_dst, graph, mask, hs_dtype):
 def _fwd(h2, a_src, a_dst, graph, mask, hs_dtype, plain=False, counter=LAUNCHES):
     """h2 [N, D] -> (out [N, D], den, rows, gs, gd): the output plus the
     per-node terms the backward reads. A launch counts on `counter`."""
-    if plain or h2.device.type == "cpu":
+    if plain or h2.is_cpu:
         rows, gs, gd = node_terms_plain(h2, a_src, a_dst, hs_dtype)
         return (*_aggregate_plain(rows, gs, gd, graph, mask), rows, gs, gd)
     n, d = h2.shape
@@ -176,12 +177,9 @@ def _fwd(h2, a_src, a_dst, graph, mask, hs_dtype, plain=False, counter=LAUNCHES)
     gd = torch.empty_like(gs)
     out = torch.empty((n, d), dtype=torch.float32, device=h2.device)
     den = torch.empty_like(gs)
-    fn = cb.entry("gat_fwd")
-    with torch.cuda.device(h2.device):
-        rc = fn(cb.ptr(h2), cb.ptr(a_s), cb.ptr(a_d), cb.ptr(row_ptr), cb.ptr(src), cb.ptr(m),
-                cb.ptr(hs), cb.ptr(gs), cb.ptr(gd), cb.ptr(out), cb.ptr(den), n, d,
-                cb.stream_of(h2))
-    cb.check(rc, "gat_fwd")
+    cb.launch("gat_fwd", h2.device, cb.ptr(h2), cb.ptr(a_s), cb.ptr(a_d), cb.ptr(row_ptr),
+              cb.ptr(src), cb.ptr(m), cb.ptr(hs), cb.ptr(gs), cb.ptr(gd), cb.ptr(out), cb.ptr(den),
+              n, d)
     counter.bump()
     return out, den, (h2 if hs is None else hs), gs, gd
 
@@ -189,12 +187,12 @@ def _fwd(h2, a_src, a_dst, graph, mask, hs_dtype, plain=False, counter=LAUNCHES)
 def attention_fwd(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,
                   mask: Optional[torch.Tensor] = None,
                   hs_dtype: torch.dtype = torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused attention forward. h [N, 1, D] f32 (D a multiple of 32, <= 512),
+    """Fused attention forward. h [N, 1, D] f32 (D a multiple of 32),
     a_src/a_dst [1, D] f32, mask [E] f32 over canonical edge ids or None.
     Returns (out [N, 1, D] f32, den [N] f32). Launches the CUDA kernel for
     CUDA tensors; runs `attention_fwd_plain` for CPU tensors."""
     _check(h, a_src, a_dst, graph, mask, hs_dtype)
-    if h.device.type == "cpu":
+    if h.is_cpu:
         return attention_fwd_plain(h, a_src, a_dst, graph, mask, hs_dtype)
     n, _, d = h.shape
     out, den = _fwd(h.reshape(n, d), a_src, a_dst, graph, mask, hs_dtype)[:2]
@@ -261,13 +259,21 @@ def _check_bwd(rows, graph, mask, **f32):
     _check_mask(mask, graph, rows.device)
 
 
+def _edge_scratch(graph: Graph, d: int, device) -> Optional[torch.Tensor]:
+    """The backward kernels' [E] f32 buffer of per-edge dot products over
+    the full row, which rows wider than one column strip (512) need; None
+    below."""
+    return torch.empty(max(1, graph.n_edges), dtype=torch.float32, device=device) \
+        if d > STRIP else None
+
+
 def attention_bwd_dst(rows, gs, gd, g, out, den, graph: Graph,
                       mask: Optional[torch.Tensor] = None):
     """B1: `attention_bwd_dst_plain`'s function; launches `csrc/gat_bwd_dst.cu`
     for CUDA tensors. The kernel writes one partial row of d a_src per warp;
     they are summed here in a fixed order."""
     _check_bwd(rows, graph, mask, gs=gs, gd=gd, g=g, out=out, den=den)
-    if rows.device.type == "cpu":
+    if rows.is_cpu:
         return attention_bwd_dst_plain(rows, gs, gd, g, out, den, graph, mask)
     n, d = rows.shape
     n_blocks = max(1, min(B1_MAX_BLOCKS, -(-n // _WARPS_PER_BLOCK)))
@@ -277,12 +283,10 @@ def attention_bwd_dst(rows, gs, gd, g, out, den, graph: Graph,
     partial = torch.empty((n_blocks * _WARPS_PER_BLOCK, d), dtype=torch.float32, device=dev)
     args = [t.contiguous() for t in (rows, gs, gd, g, out, den, graph.row_ptr, graph.src)]
     m = None if mask is None else mask.contiguous()
-    fn = cb.entry("gat_bwd_dst")
-    with torch.cuda.device(dev):
-        rc = fn(cb.ptr(args[0]), int(rows.dtype == torch.bfloat16), *map(cb.ptr, args[1:]),
-                cb.ptr(m), cb.ptr(de_sum), cb.ptr(godot), cb.ptr(partial), n, d, n_blocks,
-                cb.stream_of(rows))
-    cb.check(rc, "gat_bwd_dst")
+    ghs = _edge_scratch(graph, d, dev)  # held until the launch is queued
+    cb.launch("gat_bwd_dst", dev, cb.ptr(args[0]), int(rows.dtype == torch.bfloat16),
+              *map(cb.ptr, args[1:]), cb.ptr(m), cb.ptr(de_sum), cb.ptr(godot), cb.ptr(partial),
+              n, d, n_blocks, cb.ptr(ghs))
     BWD_DST_LAUNCHES.bump()
     return de_sum, godot, partial.sum(0, keepdim=True)
 
@@ -297,7 +301,7 @@ def attention_bwd_src(rows, gh, a_src, gs, gd, den, godot, graph: Graph,
     if gh.dtype != rows.dtype or tuple(gh.shape) != (n, d) or gh.device != rows.device:
         raise ValueError(f"gh must be {rows.dtype} [{n}, {d}] on {rows.device}")
     _check_tensor("a_src", a_src, torch.float32, rows.device, (1, d))
-    if rows.device.type == "cpu":
+    if rows.is_cpu:
         return attention_bwd_src_plain(rows, gh, a_src, gs, gd, den, godot, graph, mask)
     dev = rows.device
     dh = torch.empty((n, d), dtype=torch.float32, device=dev)
@@ -306,12 +310,9 @@ def attention_bwd_src(rows, gh, a_src, gs, gd, den, godot, graph: Graph,
     tables = [t.contiguous() for t in (a_src.reshape(d), gs, gd, den, godot, graph.t_ptr,
                                        graph.t_dst, graph.t_eid)]
     m = None if mask is None else mask.contiguous()
-    fn = cb.entry("gat_bwd_src")
-    with torch.cuda.device(dev):
-        rc = fn(cb.ptr(rows), cb.ptr(gh), int(rows.dtype == torch.bfloat16),
-                *map(cb.ptr, tables), cb.ptr(m), cb.ptr(dh), n, d, rows.stride(0),
-                cb.stream_of(rows))
-    cb.check(rc, "gat_bwd_src")
+    ghs = _edge_scratch(graph, d, dev)  # held until the launch is queued
+    cb.launch("gat_bwd_src", dev, cb.ptr(rows), cb.ptr(gh), int(rows.dtype == torch.bfloat16),
+              *map(cb.ptr, tables), cb.ptr(m), cb.ptr(dh), n, d, rows.stride(0), cb.ptr(ghs))
     BWD_SRC_LAUNCHES.bump()
     return dh
 
@@ -435,7 +436,7 @@ def _check_mh(h, a_src, a_dst, graph, mask, hs_dtype):
 def _fwd_mh(h, a_src, a_dst, graph, mask, hs_dtype, plain=False):
     """h [N, H, D] -> (out [N, H, D], den [N, H], rows, gs, gd)."""
     n, heads, d = h.shape
-    if plain or h.device.type == "cpu":
+    if plain or h.is_cpu:
         rows, gs, gd = node_terms_mh_plain(h, a_src, a_dst, hs_dtype)
         parts = [_aggregate_plain(rows[:, k], gs[:, k], gd[:, k], graph,
                                   None if mask is None else mask[k]) for k in range(heads)]
@@ -450,12 +451,10 @@ def _fwd_mh(h, a_src, a_dst, graph, mask, hs_dtype, plain=False):
     gs = torch.empty((n, heads), dtype=torch.float32, device=dev)
     gd, den = torch.empty_like(gs), torch.empty_like(gs)
     out = torch.empty((n, heads, d), dtype=torch.float32, device=dev)
-    fn = cb.entry("gat_fwd_mh")
-    with torch.cuda.device(dev):
-        rc = fn(cb.ptr(h), cb.ptr(a_s), cb.ptr(a_d), cb.ptr(graph.row_ptr.contiguous()),
-                cb.ptr(graph.src.contiguous()), cb.ptr(m), cb.ptr(hs), cb.ptr(gs), cb.ptr(gd),
-                cb.ptr(out), cb.ptr(den), n, heads, d, graph.n_edges, cb.stream_of(h))
-    cb.check(rc, "gat_fwd_mh")
+    cb.launch("gat_fwd_mh", dev, cb.ptr(h), cb.ptr(a_s), cb.ptr(a_d),
+              cb.ptr(graph.row_ptr.contiguous()), cb.ptr(graph.src.contiguous()), cb.ptr(m),
+              cb.ptr(hs), cb.ptr(gs), cb.ptr(gd), cb.ptr(out), cb.ptr(den), n, heads, d,
+              graph.n_edges)
     MH_LAUNCHES.bump()
     return out, den, (h if hs is None else hs), gs, gd
 
@@ -508,7 +507,7 @@ def attention_bwd_dst_mh(rows, gs, gd, g, out, den, graph: Graph,
         _check_tensor(name, t, torch.float32, dev, (n, heads, d))
     if mask is not None:
         _check_tensor("mask", mask, torch.float32, dev, (heads, graph.n_edges))
-    if dev.type == "cpu":
+    if rows.is_cpu:
         return attention_bwd_dst_mh_plain(rows, gs, gd, g, out, den, graph, mask)
     n_blocks = max(1, min(B1_MAX_BLOCKS, -(-n // _WARPS_PER_BLOCK)))
     de_sum = torch.empty((n, heads), dtype=torch.float32, device=dev)
@@ -516,12 +515,9 @@ def attention_bwd_dst_mh(rows, gs, gd, g, out, den, graph: Graph,
     partial = torch.empty((n_blocks * _WARPS_PER_BLOCK, heads * d), dtype=torch.float32, device=dev)
     args = [t.contiguous() for t in (rows, gs, gd, g, out, den, graph.row_ptr, graph.src)]
     m = None if mask is None else mask.contiguous()
-    fn = cb.entry("gat_bwd_dst_mh")
-    with torch.cuda.device(dev):
-        rc = fn(cb.ptr(args[0]), int(rows.dtype == torch.bfloat16), *map(cb.ptr, args[1:]),
-                cb.ptr(m), cb.ptr(de_sum), cb.ptr(godot), cb.ptr(partial), n, heads, d,
-                graph.n_edges, n_blocks, cb.stream_of(rows))
-    cb.check(rc, "gat_bwd_dst_mh")
+    cb.launch("gat_bwd_dst_mh", dev, cb.ptr(args[0]), int(rows.dtype == torch.bfloat16),
+              *map(cb.ptr, args[1:]), cb.ptr(m), cb.ptr(de_sum), cb.ptr(godot), cb.ptr(partial),
+              n, heads, d, graph.n_edges, n_blocks)
     MH_BWD_DST_LAUNCHES.bump()
     return de_sum, godot, partial.sum(0).view(heads, d)
 
@@ -610,15 +606,12 @@ def gather_fence(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gather_fence takes a non-empty [M, D] tensor; got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gather_fence takes float32 or bfloat16; got {x.dtype}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return gather_fence_plain(x)
     x = x.contiguous()
     out = torch.empty((8, 128), dtype=torch.float32, device=x.device)
-    fn = cb.entry("gather_fence")
-    with torch.cuda.device(x.device):
-        rc = fn(cb.ptr(x), int(x.dtype == torch.bfloat16), x.shape[0], x.shape[1], cb.ptr(out),
-                cb.stream_of(x))
-    cb.check(rc, "gather_fence")
+    cb.launch("gather_fence", x.device, cb.ptr(x), int(x.dtype == torch.bfloat16), x.shape[0],
+              x.shape[1], cb.ptr(out))
     FENCE_LAUNCHES.bump()
     return out
 

@@ -11,7 +11,7 @@ and v1's unweighted reduce at heads > 1, `gat_fused.segment_sum_rows`
 A graph marked by `with_tiling()` takes the legacy contracts, as a JAX graph
 with chunk tiling and no aligned layout does:
   1 head, D % 128 == 0  v2: kernel 1's forward at bf16 rows with the mask as
-                        an explicit stream (D <= 512, kernel 1's limit);
+                        an explicit stream (column strips above 512);
   otherwise             v1: alpha in plain ops, source rows gathered in f32;
                         kernel 13 sums alpha * rows at 1 head; above, rows
                         are pre-scaled per head and kernel 15 sums them.
@@ -23,7 +23,8 @@ seeded by that head's seed, above 8 heads); forward and backward share it.
 
 Any other graph:
   heads == 1    the fused op `attention_v3` (kernel 1, B1, B2); D is
-                zero-padded to a multiple of 32;
+                zero-padded to a multiple of 32, and the kernels run rows
+                wider than 512 in column strips;
   2 to 8 heads  the head-packed op `attention_v3_mh` (kernels 8, 9 and B2
                 per head); D is zero-padded to a power of two >= 32; where
                 heads * that width exceeds what the packed kernels hold
@@ -169,12 +170,12 @@ def fused_layer(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel 14, `_fused_layer`'s function: gs from bf16 rows, gd from the
     f32 rows, den unmasked, out = sum mask * num * hs / (den + 1e-9). h
-    [N, 1, D] f32 (D a multiple of 32, <= 512), a_src/a_dst [1, D], mask [E]
+    [N, 1, D] f32 (D a multiple of 32), a_src/a_dst [1, D], mask [E]
     f32 or None -> out [N, 1, D] f32. Launches `csrc/gat_fwd.cu` for CUDA
     tensors, counted on `FUSED_LAYER_LAUNCHES`; runs the plain version for
     CPU tensors."""
     _check(h, a_src, a_dst, graph, mask, torch.bfloat16)
-    if h.device.type == "cpu":
+    if h.is_cpu:
         return fused_layer_plain(h, a_src, a_dst, graph, mask)
     n, _, d = h.shape
     out = _fwd(h.reshape(n, d), a_src, a_dst, graph, mask, torch.bfloat16,

@@ -115,17 +115,14 @@ def _launch(name: str, x: torch.Tensor, r: int) -> Tuple[torch.Tensor, torch.Ten
     cb.require_smem(name, r, "R")
     cand_i = torch.empty((n, r), dtype=torch.int32, device=x.device)
     cand_s = torch.empty((n, r), dtype=torch.float32, device=x.device)
-    fn = cb.entry(name)
-    with torch.cuda.device(x.device):
-        rc = fn(cb.ptr(x), cb.ptr(cand_i), cb.ptr(cand_s), n, d, r, cb.stream_of(x))
-    cb.check(rc, name)
+    cb.launch(name, x.device, cb.ptr(x), cb.ptr(cand_i), cb.ptr(cand_s), n, d, r)
     return cand_i, cand_s
 
 
 def knn_candidates(xn: torch.Tensor, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 10: xn [N, d] f32 -> (cand_idx [N, R] int32, cand_score [N, R] f32)."""
     _check(xn, r)
-    if xn.device.type == "cpu":
+    if xn.is_cpu:
         return knn_candidates_plain(xn, r)
     out = _launch("knn_topk", _padded(xn, 4), r)
     EXACT_LAUNCHES.bump()
@@ -135,7 +132,7 @@ def knn_candidates(xn: torch.Tensor, r: int) -> Tuple[torch.Tensor, torch.Tensor
 def knn_candidates_fast(xn: torch.Tensor, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 11: as `knn_candidates`, scored on bf16-rounded rows."""
     _check(xn, r)
-    if xn.device.type == "cpu":
+    if xn.is_cpu:
         return knn_candidates_fast_plain(xn, r)
     out = _launch("knn_topk_fast", _padded(xn.to(torch.bfloat16), 8), r)
     FAST_LAUNCHES.bump()

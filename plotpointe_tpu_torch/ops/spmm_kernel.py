@@ -22,8 +22,20 @@ package pads to 128 lanes; the port does not need to.
 (row e of x belongs to CSR entry e, so no index stream is read), with
 weights or unit weights, in column strips of <= 512: the legacy attention
 contracts' reduces (kernels 13 and 15) call it with counters of their own.
+
+The kernel walks a plan (`piece_plan`): each CSR row cut into pieces of at
+most CAP entries, and the pieces in order grouped into units of about UNIT
+entries, one lane group's walk each, so no lane group walks a hot row alone
+and the groups of a warp walk about as many entries each. The pieces of a
+split row are summed in f32 scratch rows, then combined in piece order. The
+plan depends on `ptr` alone and is built once per `ptr` tensor (a graph is
+fixed), on its device, and cached while that tensor lives.
 """
 from __future__ import annotations
+
+import threading
+import weakref
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +46,101 @@ from plotpointe_tpu_torch.graphs.csr import Graph
 from plotpointe_tpu_torch.ops import cuda_build as cb
 
 LAUNCHES = cb.COUNTERS["spmm_csr"]
+CAP = 64  # the most entries of one row a piece holds: longer rows are split
+UNIT = 64  # about the entries (each piece counted one more) one lane group walks
+
+
+class PiecePlan(NamedTuple):
+    """Pieces of at most `cap` consecutive entries of one CSR row, in entry
+    order, grouped into units. piece_ptr [P + 1] int32: piece p is entries
+    piece_ptr[p] .. piece_ptr[p + 1] - 1 (an empty row is one empty piece).
+    piece_out [P] int32: the y row o >= 0 a whole-row piece writes, or
+    -1 - slot for a piece of a split row. When every row is one piece, both
+    are None: the pieces are the rows of `ptr`. unit_ptr [U + 1] int32:
+    unit u is pieces unit_ptr[u] .. unit_ptr[u + 1] - 1, runs of about
+    `unit` entries (a piece counted as its entries plus one), none empty.
+    split_rows [S] int32 and split_ptr [S + 1] int32: y row split_rows[r]
+    is the sum of scratch slots split_ptr[r] .. split_ptr[r + 1] - 1, in
+    that order."""
+    piece_ptr: Optional[torch.Tensor]
+    piece_out: Optional[torch.Tensor]
+    unit_ptr: torch.Tensor
+    split_rows: torch.Tensor
+    split_ptr: torch.Tensor
+    n_pieces: int
+    n_units: int
+    n_slots: int
+
+    def launch_args(self, ptr: torch.Tensor) -> tuple:
+        """The C entry's plan arguments: piece_ptr (`ptr` itself when every
+        row is one piece), piece_out, unit_ptr, scratch rows, split_rows,
+        split_ptr, n_units, n_split, as ints (pointers by address)."""
+        return ((ptr if self.piece_ptr is None else self.piece_ptr).data_ptr(),
+                None if self.piece_out is None else self.piece_out.data_ptr(),
+                self.unit_ptr.data_ptr(), self.n_slots, self.split_rows.data_ptr(),
+                self.split_ptr.data_ptr(), self.n_units, self.split_rows.shape[0])
+
+
+def _units(piece_len: torch.Tensor, unit: int) -> torch.Tensor:
+    """unit_ptr over pieces of these lengths: a piece joins the unit its
+    start falls in, each piece counted as its entries plus one."""
+    cost = piece_len + 1
+    of = (torch.cumsum(cost, 0) - cost) // unit
+    starts = torch.nonzero(of[1:] != of[:-1]).flatten() + 1
+    zero = torch.zeros(1, dtype=torch.long, device=piece_len.device)
+    return torch.cat([zero, starts, zero + piece_len.shape[0]]).int()
+
+
+def piece_plan(ptr: torch.Tensor, cap: int = CAP, unit: int = UNIT) -> PiecePlan:
+    """The plan of the CSR row pointer `ptr` (int32, any device): rows of
+    more than `cap` entries cut into ceil(len / cap) pieces of `cap` entries
+    and a last one of the rest; the pieces grouped into units of about
+    `unit`."""
+    dev = ptr.device
+    lens = (ptr[1:] - ptr[:-1]).long()
+    n_rows = lens.shape[0]
+    n_per = torch.clamp((lens + cap - 1) // cap, min=1)
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    one_zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    if n_rows == 0:
+        return PiecePlan(None, None, one_zero, none, one_zero, 0, 0, 0)
+    if int(n_per.max()) == 1:
+        units = _units(lens, unit)
+        return PiecePlan(None, None, units, none, one_zero, n_rows, units.shape[0] - 1, 0)
+    n_pieces = int(n_per.sum())
+    row_of = torch.repeat_interleave(torch.arange(n_rows, device=dev), n_per, output_size=n_pieces)
+    first = torch.cumsum(n_per, 0) - n_per  # each row's first piece
+    k = torch.arange(n_pieces, device=dev) - first[row_of]  # the piece's place in its row
+    piece_ptr = torch.cat([ptr.long()[row_of] + k * cap, ptr[-1:].long()])
+    split = n_per > 1
+    split_rows = torch.nonzero(split).flatten()
+    split_ptr = torch.cat([torch.zeros(1, dtype=torch.long, device=dev), torch.cumsum(n_per[split_rows], 0)])
+    rank = torch.cumsum(split.long(), 0) - 1  # a split row's place among the split rows
+    slot = split_ptr[rank.clamp(min=0)[row_of]] + k
+    piece_out = torch.where(split[row_of], -1 - slot, row_of)
+    units = _units(piece_ptr[1:] - piece_ptr[:-1], unit)
+    return PiecePlan(piece_ptr.int(), piece_out.int(), units, split_rows.int(), split_ptr.int(),
+                     n_pieces, units.shape[0] - 1, int(split_ptr[-1]))
+
+
+_plans: Dict[int, Tuple[weakref.ref, int, int, PiecePlan, tuple]] = {}
+_plans_lock = threading.Lock()
+
+
+def _cached_plan(ptr: torch.Tensor) -> Tuple[PiecePlan, tuple]:
+    """(piece_plan(ptr), its launch arguments), built once per ptr tensor
+    (and again if it was written in place), dropped when the tensor is
+    freed."""
+    key = id(ptr)
+    hit = _plans.get(key)
+    if hit is not None and hit[0]() is ptr and hit[1] == ptr._version and hit[2] == ptr.data_ptr():
+        return hit[3], hit[4]
+    plan = piece_plan(ptr)
+    args = plan.launch_args(ptr)
+    with _plans_lock:
+        _plans[key] = (weakref.ref(ptr, lambda _, k=key: _plans.pop(k, None)), ptr._version,
+                       ptr.data_ptr(), plan, args)
+    return plan, args
 
 
 def spmm_csr_plain(x: torch.Tensor, values: torch.Tensor, ptr: torch.Tensor, idx: torch.Tensor,
@@ -72,23 +179,26 @@ def spmm_csr(x: torch.Tensor, values: torch.Tensor, ptr: torch.Tensor, idx: torc
     rows) -> y [R, D] f32. Launches `csrc/spmm_csr.cu` for CUDA tensors; runs
     `spmm_csr_plain` for CPU tensors."""
     _check(x, values, ptr, idx, rows_dtype)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return spmm_csr_plain(x, values, ptr, idx, rows_dtype)
     xs = cb.aligned(x.to(rows_dtype))  # the kernel reads rows in 16-byte loads
     return _launch(xs, values.contiguous(), ptr.contiguous(), idx.contiguous(), LAUNCHES)
 
 
 def _launch(xs, values, ptr, idx, counter):
-    """One launch of `csrc/spmm_csr.cu` over x rows `xs` (a contiguous
-    array, or a column strip of one: the row stride is passed); values or
-    idx may be None (unit weights; entry e reads row e)."""
+    """One call of `csrc/spmm_csr.cu` over x rows `xs` (a contiguous array,
+    or a column strip of one: the row stride is passed), walking the cached
+    piece plan of `ptr`; values or idx may be None (unit weights; entry e
+    reads row e). One count on `counter`."""
     n_rows, d = ptr.shape[0] - 1, xs.shape[1]
-    y = torch.empty((n_rows, d), dtype=torch.float32, device=xs.device)
-    fn = cb.entry("spmm_csr")
-    with torch.cuda.device(xs.device):
-        rc = fn(cb.ptr(xs), int(xs.dtype == torch.bfloat16), cb.ptr(values), cb.ptr(ptr),
-                cb.ptr(idx), cb.ptr(y), n_rows, d, xs.stride(0), cb.stream_of(xs))
-    cb.check(rc, "spmm_csr")
+    _, (piece_ptr, piece_out, unit_ptr, n_slots, split_rows, split_ptr, n_units, n_split) = \
+        _cached_plan(ptr)
+    dev = xs.device
+    y = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
+    scratch = torch.empty((n_slots, d), dtype=torch.float32, device=dev) if n_split else None
+    cb.launch("spmm_csr", dev, xs.data_ptr(), int(xs.dtype == torch.bfloat16), cb.ptr(values),
+              piece_ptr, cb.ptr(idx), piece_out, unit_ptr, y.data_ptr(), cb.ptr(scratch),
+              split_rows, split_ptr, n_units, n_split, d, xs.stride(0))
     counter.bump()
     return y
 
@@ -121,7 +231,7 @@ def spmm_gathered(rows: torch.Tensor, values, ptr: torch.Tensor, counter) -> tor
     if values is not None and (values.shape != (rows.shape[0],) or values.dtype != torch.float32
                                or values.device != rows.device):
         raise ValueError(f"values must be float32 [{rows.shape[0]}] on {rows.device}")
-    if rows.device.type == "cpu":
+    if rows.is_cpu:
         return spmm_gathered_plain(rows, values, ptr)
     w = rows.shape[1]
     xs = cb.aligned(_padded(rows))

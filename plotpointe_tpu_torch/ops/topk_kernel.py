@@ -80,17 +80,14 @@ def chunk_max(item_vecs: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     """Phase 1. item_vecs [N, D], queries [B, D], both float32 or both
     bfloat16 -> [B, ceil(N / 128)] f32 chunk maxima."""
     _check_table(item_vecs, queries)
-    if item_vecs.device.type == "cpu":
+    if item_vecs.is_cpu:
         return chunk_max_plain(item_vecs, queries)
     (n, d), b = item_vecs.shape, queries.shape[0]
     x, q = cb.aligned(item_vecs), queries.contiguous()
     cb.require_smem("topk_chunkmax", d)
     out = torch.empty((b, n_chunks_of(n)), dtype=torch.float32, device=x.device)
-    fn = cb.entry("topk_chunkmax")
-    with torch.cuda.device(x.device):
-        rc = fn(cb.ptr(x), cb.ptr(q), cb.ptr(out), n, b, d, int(x.dtype == torch.bfloat16),
-                cb.stream_of(x))
-    cb.check(rc, "topk_chunkmax")
+    cb.launch("topk_chunkmax", x.device, cb.ptr(x), cb.ptr(q), cb.ptr(out), n, b, d,
+              int(x.dtype == torch.bfloat16))
     CHUNKMAX_LAUNCHES.bump()
     return out
 
@@ -103,17 +100,14 @@ def rescore(item_vecs: torch.Tensor, queries: torch.Tensor, chunk_id: torch.Tens
     if chunk_id.dim() != 2 or chunk_id.shape[0] != b or chunk_id.dtype != torch.int32 \
             or chunk_id.device != item_vecs.device:
         raise ValueError(f"chunk_id must be int32 [{b}, R] on {item_vecs.device}")
-    if item_vecs.device.type == "cpu":
+    if item_vecs.is_cpu:
         return rescore_plain(item_vecs, queries, chunk_id)
     r = chunk_id.shape[1]
     x, q, cid = cb.aligned(item_vecs), queries.contiguous(), chunk_id.contiguous()
     cb.require_smem("topk_rescore", d)
     out = torch.empty((b, r, CHUNK), dtype=torch.float32, device=x.device)
-    fn = cb.entry("topk_rescore")
-    with torch.cuda.device(x.device):
-        rc = fn(cb.ptr(x), cb.ptr(q), cb.ptr(cid), cb.ptr(out), n, b, r, d,
-                int(x.dtype == torch.bfloat16), cb.stream_of(x))
-    cb.check(rc, "topk_rescore")
+    cb.launch("topk_rescore", x.device, cb.ptr(x), cb.ptr(q), cb.ptr(cid), cb.ptr(out), n, b, r, d,
+              int(x.dtype == torch.bfloat16))
     RESCORE_LAUNCHES.bump()
     return out
 

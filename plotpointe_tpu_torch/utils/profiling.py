@@ -104,14 +104,11 @@ def stream_probe(x: torch.Tensor, bm: int = 512, c: float = 0.0) -> torch.Tensor
     if d % 128 or bm <= 0 or bm % 8 or m % bm:
         raise ValueError(f"the probe takes D a multiple of 128 and bm a multiple of 8 dividing M; "
                          f"got M={m}, D={d}, bm={bm}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return stream_probe_plain(x, bm, c)
     xs = cb.aligned(x)
     out = torch.empty((m // bm * 8, 128), dtype=torch.float32, device=x.device)
-    fn = cb.entry("stream_probe")
-    with torch.cuda.device(x.device):
-        rc = fn(cb.ptr(xs), float(c), cb.ptr(out), m, d, bm, cb.stream_of(xs))
-    cb.check(rc, "stream_probe")
+    cb.launch("stream_probe", xs.device, cb.ptr(xs), float(c), cb.ptr(out), m, d, bm)
     PROBE_LAUNCHES.bump()
     return out
 
@@ -188,3 +185,4 @@ def timed_call(fn, *args, iters: int = 5, warmup: int = 1) -> float:
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     return (time.perf_counter() - t0) / iters
+

@@ -1,8 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-attention (kernels 1, 2, 3 and the head-packed 8, 9), the gather fence (16),
-top-K (4, 5), the CSR SpMM (7), the kNN candidates (10, 11), the read-stream
-probe (6), the smoke's affine pass (12), the legacy attention contracts
-(13, 14, 15), and same-seed trainer determinism.
+attention (kernels 1, 2, 3 and the head-packed 8, 9; rows wider than 512 in
+column strips), the gather fence (16), top-K (4, 5), the CSR SpMM (7) and
+its edge-balanced walk (rows above the piece cap, empty rows, both
+directions, the pre-gathered modes of kernels 13 and 15), the kNN
+candidates (10, 11), the read-stream probe (6), the smoke's affine pass
+(12) and the host time of a launch, the legacy attention contracts (13, 14,
+15), and same-seed trainer determinism.
 
 Every test here needs an NVIDIA GPU and skips without one. This file imports
 no JAX, so it also runs where JAX is absent:
@@ -54,7 +57,7 @@ def _graph(rng, n=300, e=3000):
     return build_graph(src, dst, n)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 512])
+@pytest.mark.parametrize("d", [32, 64, 128, 512, 544, 1024])
 @pytest.mark.parametrize("hs_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("masked", [False, True])
 def test_gat_fwd_kernel_matches_plain(cuda, d, hs_dtype, masked):
@@ -83,7 +86,7 @@ def _attn_inputs(rng, g, d, cuda):
     return t(g.n_nodes, 1, d), t(1, d, scale=0.2), t(1, d, scale=0.2), t(g.n_nodes, d)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 512])
+@pytest.mark.parametrize("d", [32, 64, 128, 512, 544, 1024])
 @pytest.mark.parametrize("hs_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("masked", [False, True])
 def test_gat_bwd_kernels_match_plain(cuda, d, hs_dtype, masked):
@@ -107,7 +110,7 @@ def test_gat_bwd_kernels_match_plain(cuda, d, hs_dtype, masked):
         {"gat_bwd_dst": 1, "gat_bwd_src": 1}
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 1024])
 def test_attention_v3_grads_match_golden_autograd(cuda, d):
     rng = np.random.default_rng(d)
     g = _graph(rng).to(cuda)
@@ -531,7 +534,7 @@ def test_legacy_reduces_match_plain(cuda, width):
     assert torch.all(got13[250:] == 0) and torch.all(got15[250:] == 0)
 
 
-@pytest.mark.parametrize("d", [128, 256, 512])
+@pytest.mark.parametrize("d", [128, 256, 512, 1024])
 @pytest.mark.parametrize("masked", [False, True])
 def test_fused_layer_kernel_matches_plain(cuda, d, masked):
     from plotpointe_tpu_torch.ops.gat_kernel import fused_layer, fused_layer_plain, legacy_mask
@@ -595,3 +598,92 @@ def test_wide_multihead_runs_one_pass_per_head_on_card(cuda):
     with reference_versions():
         want = segment_softmax_attention_kernel(h, a_s, a_d, g, dropout_rate=0.2, seed=5)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+# -- the edge-balanced row walk of csrc/spmm_csr.cu (kernels 7, 13, 15) --------
+
+
+def _skewed_graph(rng, n=3000):
+    """Node 0 takes 10,000 in-edges (above any piece cap) and node 9 sends
+    3,000 (a hot row of the transpose CSR); nodes 1..6 touch no edge (a run
+    of empty rows in both directions); node 8 has one in-edge; the rest
+    have lognormal in-degrees."""
+    deg = np.minimum(rng.lognormal(1.5, 1.3, n - 10).astype(int), 400)
+    dst = np.concatenate([np.zeros(10_000, int), rng.integers(10, n, 3000), [8],
+                          np.repeat(np.arange(10, n), deg)])
+    src = np.concatenate([rng.integers(10, n, 10_000), np.full(3000, 9), [10],
+                          rng.integers(10, n, deg.sum())])
+    return build_graph(src, dst, n)
+
+
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256, 512])
+@pytest.mark.parametrize("rows_dtype", [torch.float32, torch.bfloat16])
+def test_spmm_walk_on_rows_above_the_cap_matches_plain(cuda, d, rows_dtype):
+    """Kernel 7 in both directions over rows of 10,000 and 3,000 entries,
+    empty rows and a one-entry row: rtol 1e-4 / atol 1e-5 against the plain
+    reduce, one count per call, the same bits on a second call. Each
+    direction's values sum to 1 over each of its rows, so every row is a
+    weighted mean of N(0, 1) rows: with unnormalized values the 3,000-entry
+    row sums to ~10 with cancellation, where the plain version's own f32
+    error (its atomics) passes the band's atol."""
+    from plotpointe_tpu_torch.ops.spmm_kernel import spmm_csr, spmm_csr_plain
+
+    rng = np.random.default_rng(d)
+    g = _skewed_graph(rng).to(cuda)
+    x = torch.as_tensor(rng.normal(size=(g.n_nodes, d)).astype(np.float32), device=cuda)
+
+    def row_normalized(ptr):
+        lens = (ptr[1:] - ptr[:-1]).cpu().numpy()
+        u = rng.random(int(lens.sum()))
+        row = np.repeat(np.arange(len(lens)), lens)
+        return torch.as_tensor((u / np.bincount(row, u, len(lens))[row]).astype(np.float32), device=cuda)
+
+    for ptr, idx in ((g.row_ptr, g.src), (g.t_ptr, g.t_dst)):
+        vals = row_normalized(ptr)
+        before = cuda_build.COUNTERS["spmm_csr"].count
+        got = spmm_csr(x, vals, ptr, idx, rows_dtype)
+        again = spmm_csr(x, vals, ptr, idx, rows_dtype)
+        torch.cuda.synchronize()
+        assert cuda_build.COUNTERS["spmm_csr"].count == before + 2
+        torch.testing.assert_close(got, spmm_csr_plain(x, vals, ptr, idx, rows_dtype), rtol=1e-4, atol=1e-5)
+        assert torch.equal(got, again)
+        assert torch.all(got[1:7] == 0)
+
+
+@pytest.mark.parametrize("width", [64, 256, 1100])
+def test_spmm_pregathered_walk_on_rows_above_the_cap_matches_plain(cuda, width):
+    """Kernels 13 (weights) and 15 (unit weights) over pre-gathered rows of
+    the skewed graph: column strips of <= 512 read with the row stride of
+    the padded array (1,100 -> 1,120: three strips), null values in kernel
+    15; the same bits on a second call."""
+    from plotpointe_tpu_torch.ops.gat_fused import segment_sum_rows, segment_sum_rows_plain
+    from plotpointe_tpu_torch.ops.gat_kernel import fused_segment_reduce, fused_segment_reduce_plain
+
+    rng = np.random.default_rng(width)
+    g = _skewed_graph(rng).to(cuda)
+    u = rng.random(g.n_edges)
+    dst = g.dst.cpu().numpy()
+    w = torch.as_tensor((u / np.bincount(dst, u)[dst]).astype(np.float32), device=cuda)
+    hs = torch.as_tensor(rng.normal(size=(g.n_edges, width)).astype(np.float32), device=cuda)
+    scaled = hs * w[:, None]
+    got13, got15 = fused_segment_reduce(w, hs, g), segment_sum_rows(scaled, g)
+    torch.testing.assert_close(got13, fused_segment_reduce_plain(w, hs, g), rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got15, segment_sum_rows_plain(scaled, g), rtol=1e-4, atol=1e-5)
+    assert torch.equal(got13, fused_segment_reduce(w, hs, g))
+    assert torch.equal(got15, segment_sum_rows(scaled, g))
+    assert torch.all(got13[1:7] == 0) and torch.all(got15[1:7] == 0)
+
+
+def test_host_us_per_launch_is_finite(cuda):
+    """chip_smoke.py's `host_us_per_launch` line, on the kernel 12 wrapper."""
+    import importlib.util
+    from pathlib import Path
+
+    from plotpointe_tpu_torch.ops.elementwise import affine
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    x = torch.randn((256, 128), device=cuda)
+    us = chip_smoke.host_us_per_launch(lambda: affine(x), calls=50, warmup=5)
+    assert np.isfinite(us) and us > 0

@@ -292,3 +292,82 @@ def test_http_concurrent_microbatched(tmp_path):
         server.shutdown()
         server.server_close()
         server.state.close()
+
+
+@pytest.mark.parametrize("flag", [["--stdlib"], []])
+def test_cli_serve_reads_the_environment_like_jax(tmp_path, monkeypatch, flag):
+    """JAX's `_cmd_serve` (plotpointe_tpu/cli.py:218, :223) takes the stdlib
+    server when PLOTPOINTE_STDLIB_HTTP is set and loads ITEM_EMBEDDINGS_URI
+    when --item-embeddings is absent: the port answers /recommend with 200
+    on an environment-configured server, with --stdlib or without it."""
+    from plotpointe_tpu_torch.serving import httpd
+
+    path = tmp_path / "emb.npy"
+    np.save(path, np.random.default_rng(0).normal(size=(50, 8)).astype(np.float32))
+    monkeypatch.setenv("ITEM_EMBEDDINGS_URI", str(path))
+    if not flag:
+        monkeypatch.setenv("PLOTPOINTE_STDLIB_HTTP", "1")
+    started = []
+
+    def serve_in_background(*args, **kw):  # the command blocks; the test needs it back
+        started.append(serve(*args, **(kw | {"block": False}))[0])
+        return started[-1], None
+
+    monkeypatch.setattr(httpd, "serve", serve_in_background)
+    cli.main(["serve", *flag, "--host", "127.0.0.1", "--port", "0", "--device", "cpu", "--topk", "5"])
+    srv = started[0]
+    try:
+        code, body = _req(f"http://127.0.0.1:{srv.server_address[1]}/recommend", {"item_ids": [1, 2]})
+        assert code == 200 and len(body["indices"]) == 5
+        assert not {1, 2} & set(body["indices"])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.state.close()
+
+
+def test_cli_serve_without_stdlib_exits(monkeypatch):
+    monkeypatch.delenv("PLOTPOINTE_STDLIB_HTTP", raising=False)
+    with pytest.raises(SystemExit, match="stdlib"):
+        cli.main(["serve", "--port", "0"])
+
+
+def test_history_quirks_of_jax_pinned_to_the_numpy_answer(tmp_path):
+    """The JAX package's serving paths disagree on which history items they
+    drop, and the port keeps the answer of its numpy path, the one that
+    states the contract (history masked):
+    - quirk 1: the XLA per-request path `_topk_scores` pads the history with
+      item 0 and masks with `.at[history].set`, so the pad slots write item
+      0's score back and item 0 can return when it is in the history (its
+      answer depends on the scatter's order over duplicate indices, so it is
+      named here and not asserted);
+    - quirk 2: the Pallas per-request branch drops history with
+      `np.isin(idx, ids)`, without the `% n` of its batch path, so the item a
+      negative id wraps to comes back (asserted below).
+    Every port path answers history [0] and history [-1] as JAX's numpy
+    path does."""
+    n = 60
+    emb = np.random.default_rng(4).normal(size=(n, 8)).astype(np.float32)
+    path = str(tmp_path / "emb.npy")
+    np.save(path, emb)
+    jnp_rt = JaxRuntime(JaxConfig(item_embeddings_uri=path, use_device=False))
+    jnp_rt.startup()
+    jpl_rt = JaxRuntime(JaxConfig(item_embeddings_uri=path, use_pallas_topk=True))
+    jpl_rt.startup()
+    ports = [RecommenderRuntime(ServingConfig(item_embeddings_uri=path, use_device=False))]
+    ports += [RecommenderRuntime(ServingConfig(item_embeddings_uri=path, device="cpu",
+                                               use_kernel_topk=kernel)) for kernel in (True, False)]
+    for rt in ports:
+        rt.startup()
+    for hist, dropped in (([0], 0), ([-1], n - 1)):
+        want_i, want_s = jnp_rt.top_k_for_user_items(hist, k=6)
+        assert dropped not in want_i
+        for rt in ports:
+            got_i, got_s = rt.top_k_for_user_items(hist, k=6)
+            np.testing.assert_array_equal(got_i, want_i)
+            np.testing.assert_allclose(got_s, want_s, rtol=1e-5, atol=1e-6)
+            (bi, bs), = rt.top_k_for_batch([np.asarray(hist)], [6])
+            np.testing.assert_array_equal(bi, want_i)
+    # quirk 2: JAX's Pallas branch keeps the row that id -1 wraps to
+    pallas_i, _ = jpl_rt.top_k_for_user_items([-1], k=6)
+    assert n - 1 in pallas_i
