@@ -100,9 +100,12 @@ Nothing here imports JAX or the JAX package.
     python3 chip_smoke.py --compare-with DIR
 
 times only kernels 7, 12, 13 and 15 and `host_us_per_launch` (`time_rule2`),
-for the port in the checkout DIR (an earlier commit, say) and for this one,
-each tree in a process of its own that builds its own kernels, in turns
-(DIR, this, this, DIR) on one card; every line carries its "tree".
+and kernels 10 and 11 on the graph-build subsets at 63,001 x 128 and x 384
+with their ptxas report (`time_knn_trees`), for the port in the checkout DIR
+(an earlier commit, say) and for this one, each tree in a process of its
+own that builds its own kernels, in turns (DIR, this, this, DIR) on one
+card; both trees read the same graph and rows, saved once; every line
+carries its "tree".
 """
 from __future__ import annotations
 
@@ -201,9 +204,11 @@ def spec() -> dict:
 
 def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
     """Least time in ms for `nbytes` of memory traffic and `ops` operations
-    of `dtype` at the spec peaks (f32 off the tensor cores; bf16 on them)."""
+    of `dtype` at the spec peaks (f32 off the tensor cores; bf16 and TF32 on
+    them)."""
     s = spec()
-    peak = {"float32": s["f32_tflops"], "bfloat16": s["bf16_tflops"]}[dtype] * 1e12
+    peak = {"float32": s["f32_tflops"], "bfloat16": s["bf16_tflops"],
+            "tfloat32": s["tf32_tflops"]}[dtype] * 1e12
     t_bytes, t_ops = nbytes / (s["hbm_gbps"] * 1e9), ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -211,8 +216,8 @@ def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
 def sol_fraction_dev(row: dict, peaks: dict) -> float:
     """The row's bound at the measured peaks over its time: a bytes bound
     scales with the measured memory rate, a bf16 operations bound with the
-    measured matmul rate; an f32 operations bound keeps the spec rate (no
-    probe measures f32 off the tensor cores)."""
+    measured matmul rate; an f32 or a TF32 operations bound keeps the spec
+    rate (no probe measures f32 off the tensor cores, or TF32)."""
     s = spec()
     b = row["bound_ms"]
     if row["bound_by"] == "bytes":
@@ -341,10 +346,11 @@ def main() -> int:
     ap.add_argument("--epochs", type=int, default=3, help="optimizer steps of the train phase")
     ap.add_argument("--layers", type=int, default=2, help="GAT depth of the trained model")
     ap.add_argument("--compare-with", metavar="DIR", default=None,
-                    help="only time kernels 7, 12, 13, 15 and host_us_per_launch, for the port "
-                         "in DIR (another checkout) and this one, in turns on this card")
+                    help="only time kernels 7, 10, 11, 12, 13, 15 and host_us_per_launch, for "
+                         "the port in DIR (another checkout) and this one, in turns on this card")
     ap.add_argument("--rows-of", metavar="DIR", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--graph", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--knn-rows", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tree", default="change", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rows_of:  # time the package of that checkout, not this one
@@ -368,7 +374,8 @@ GRAPH_ARRAYS = ("row_ptr", "src", "t_ptr", "t_dst", "t_eid")
 
 def rows_of(args) -> int:
     """`time_rule2` with the package of the checkout `--rows-of` on the graph
-    saved at `--graph`; each line labelled `--tree`."""
+    saved at `--graph`, then `time_knn_trees` on the rows saved at
+    `--knn-rows`; each line labelled `--tree`."""
     from types import SimpleNamespace
 
     import torch
@@ -383,16 +390,25 @@ def rows_of(args) -> int:
     graph = SimpleNamespace(n_nodes=int(z["n_nodes"]), n_edges=int(z["n_edges"]),
                             **{k: z[k].to("cuda") for k in GRAPH_ARRAYS})
     time_rule2({}, graph, "cuda", tree=args.tree)
+    del graph, z
+    torch.cuda.empty_cache()
+    from plotpointe_tpu_torch.graphs.knn import l2_normalize
+
+    feats = {k: l2_normalize(v.to("cuda")) for k, v in torch.load(args.knn_rows).items()}
+    time_knn_trees(feats, args.tree)
     return 0
 
 
 def run_compare(args, work: Path) -> int:
-    """Kernels 7, 12, 13 and 15 and the launch path's host time, for the
+    """Kernels 7, 12, 13 and 15 and the launch path's host time on the main
+    graph of `run`, then kernels 10 and 11 on its graph-build subsets
+    (`build-subset` of the seeded catalog at 128 and 384 d), for the
     checkout `--compare-with` and this one, each in a process of its own
     that builds that checkout's kernels, in turns (the other, this, this,
-    the other) on the main graph of `run`."""
+    the other)."""
     import torch
 
+    from plotpointe_tpu_torch import cli
     from plotpointe_tpu_torch.data.splits import build_node_maps, build_splits
     from plotpointe_tpu_torch.graphs.csr import build_bipartite_graph
 
@@ -402,12 +418,20 @@ def run_compare(args, work: Path) -> int:
     graph = build_bipartite_graph(s.train_u, s.train_i, s.n_users, s.n_items, weight=s.train_w)
     torch.save({"n_nodes": graph.n_nodes, "n_edges": graph.n_edges,
                 **{k: getattr(graph, k) for k in GRAPH_ARRAYS}}, work / "graph.pt")
+    staging, emb = write_graph_inputs(work, inter, args.seed)
+    with contextlib.redirect_stdout(io.StringIO()):
+        for feat in ("fused", "txt"):
+            cli.main(["build-subset", "--staging-prefix", str(staging), "--features", str(emb / f"{feat}.npy"),
+                      "--output-prefix", str(emb), "--feature-name", feat])
+    torch.save({feat: torch.as_tensor(np.load(emb / f"{feat}_interacted.npy")) for feat in ("fused", "txt")},
+               work / "knn_rows.pt")
     here = Path(__file__).resolve().parent
     other = Path(args.compare_with).resolve()
     for tree, root in (("parent", other), ("change", here), ("change", here), ("parent", other)):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, str(here / "chip_smoke.py"), "--rows-of", str(root),
-                               "--tree", tree, "--graph", str(work / "graph.pt")],
+                               "--tree", tree, "--graph", str(work / "graph.pt"),
+                               "--knn-rows", str(work / "knn_rows.pt")],
                               capture_output=True, text=True, timeout=900)
         sys.stdout.write(proc.stdout)
         emit({"phase": "compare", "tree": tree, "root": str(root), "rc": proc.returncode,
@@ -438,7 +462,8 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     took = cuda_build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source_s": took})
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source_s": took,
+          "ptxas": ptxas_report(("knn_topk", "knn_topk_fast"))})
 
 
 def phase_data(args, rng, dev):
@@ -1251,50 +1276,98 @@ def blocked_mm(x, rows: int = 1024, ld_mult: int = 8):
     return run
 
 
+def knn_bound(kname: str, n: int, d: int, r: int) -> dict:
+    """The bound of kernel 10 or 11 at [n, d] with R = r. It counts each
+    unordered pair's dot product once, N (N - 1) d operations (the scores are
+    symmetric), against the bytes of x once plus the candidate lists. Kernel
+    11: the bf16 tensor-core peak. Kernel 10 (f32-faithful): the lower of
+    three TF32 passes, 3 N (N - 1) d at the TF32 peak, and one f32 pass on
+    the f32 pipe (printed beside it as `bound_f32_pipe_ms`, the bound of the
+    earlier design on the CUDA cores); `ops_dtype` names which.
+    `design_bound_ms` is the full matrix (2 N^2 d a pass) that the row-owned
+    kernels compute."""
+    isz = 4 if kname == "knn_topk" else 2
+    nbytes = {"x": n * d * isz, "cand_idx": n * r * 4, "cand_score": n * r * 4}
+    total, pairs = sum(nbytes.values()), n * (n - 1) * d
+    if kname == "knn_topk":
+        f32 = bound(total, pairs, "float32")
+        tf32 = bound(total, 3 * pairs, "tfloat32")
+        passes, dname = (3, "tfloat32") if tf32[0] <= f32[0] else (1, "float32")
+        extra = {"bound_f32_pipe_ms": f32[0], "bound_tf32_ms": tf32[0]}
+    else:
+        passes, dname, extra = 1, "bfloat16", {}
+    b_ms, b_by = bound(total, passes * pairs, dname)
+    return {"bound_ms": b_ms, "bound_by": b_by, "ops_dtype": dname, **extra,
+            "design_bound_ms": bound(total, passes * 2 * n * n * d, dname)[0],
+            "bound_bytes": nbytes, "bound_ops": passes * pairs}
+
+
+def knn_kernels():
+    from plotpointe_tpu_torch.ops.knn_kernel import (
+        knn_candidates, knn_candidates_fast, knn_candidates_fast_plain, knn_candidates_plain)
+
+    return (("knn_topk", "exact", knn_candidates, knn_candidates_plain),
+            ("knn_topk_fast", "fast", knn_candidates_fast, knn_candidates_fast_plain))
+
+
 def time_knn(rows_out, feats, build_knn_s: float) -> None:
     """Kernels 10 and 11 at both shapes: 1 warm-up and 3 timed calls
-    (the plain versions 1 and 1). The bound counts each unordered pair's dot
-    product once, N (N - 1) d operations (the scores are symmetric), at the
-    f32 (kernel 10) or bf16 tensor-core (kernel 11) peak, against the bytes
-    of x once plus the candidate lists; `design_bound_ms` is the full
-    matrix's 2 N^2 d, which the row-owned kernels compute. Beside them a
-    blocked torch.mm of the same full product, with its output's row stride
-    aligned and at N's own."""
+    (the plain versions 1 and 1), each with its bound (`knn_bound`). Beside
+    them a blocked torch.mm of the same full product, with its output's row
+    stride aligned and at N's own."""
     import torch
 
-    from plotpointe_tpu_torch.ops.knn_kernel import (
-        knn_candidates, knn_candidates_fast, knn_candidates_fast_plain, knn_candidates_plain,
-        n_candidates)
+    from plotpointe_tpu_torch.ops.knn_kernel import n_candidates
 
     for name, x in feats.items():
         n, d = x.shape
-        for kname, mode, fn, plain, dt in (
-                ("knn_topk", "exact", knn_candidates, knn_candidates_plain, torch.float32),
-                ("knn_topk_fast", "fast", knn_candidates_fast, knn_candidates_fast_plain, torch.bfloat16)):
+        for kname, mode, fn, plain in knn_kernels():
             r = n_candidates(KNN["k"], mode)
+            dt = torch.float32 if mode == "exact" else torch.bfloat16
             dname = str(dt)[6:]
-            isz = 4 if dt == torch.float32 else 2
-            nbytes = {"x": n * d * isz, "cand_idx": n * r * 4, "cand_score": n * r * 4}
-            ops = n * (n - 1) * d
-            b_ms, b_by = bound(sum(nbytes.values()), ops, dname)
             xd = x.to(dt)
             line = {"phase": "timing", "kernel": kname, "shape": f"N={n} d={d} R={r} {name}",
                     "ms": time_ms(lambda: fn(x, r), 3, 1),
-                    "plain_ms": time_ms(lambda: plain(x, r), 1, 1),
-                    "bound_ms": b_ms, "bound_by": b_by, "ops_dtype": dname, "library_ms": None,
-                    "design_bound_ms": bound(sum(nbytes.values()), 2 * n * n * d, dname)[0],
+                    "plain_ms": time_ms(lambda: plain(x, r), 1, 1), "library_ms": None,
+                    **knn_bound(kname, n, d, r),
                     "gemm_ms": time_ms(blocked_mm(xd), 3, 1),
                     "gemm_ld_unaligned_ms": time_ms(blocked_mm(xd, ld_mult=1), 3, 1),
                     "gemm_what": f"context only: blocked {dname} torch.mm of the full product "
                                  "(1,024-row strips, output row stride padded to a multiple of 8; "
-                                 "and at N's own stride), no selection",
-                    "bound_bytes": nbytes, "bound_ops": ops}
+                                 "and at N's own stride), no selection"}
             if kname == "knn_topk" and name == "fused":
                 line["build_knn_wall_s"] = build_knn_s
             emit(line)
             if d == 384:
                 rows_out[kname] = line
             torch.cuda.empty_cache()
+
+
+def time_knn_trees(feats, tree: str) -> None:
+    """`--compare-with`'s kNN rows: kernels 10 and 11 alone at both
+    graph-build shapes (1 warm-up, 3 timed calls) with their bounds, then
+    the ptxas report of both libraries of this tree."""
+    from plotpointe_tpu_torch.ops.knn_kernel import n_candidates
+
+    for name, x in feats.items():
+        n, d = x.shape
+        for kname, mode, fn, _ in knn_kernels():
+            r = n_candidates(KNN["k"], mode)
+            emit({"phase": "timing", "kernel": kname, "shape": f"N={n} d={d} R={r} {name}", "tree": tree,
+                  "ms": time_ms(lambda: fn(x, r), 3, 1), **knn_bound(kname, n, d, r)})
+    emit({"phase": "build", "tree": tree, "ptxas": ptxas_report(("knn_topk", "knn_topk_fast"))})
+
+
+def ptxas_report(names) -> dict:
+    """Each library's `nvcc -Xptxas -v` lines (registers, spills, entry
+    functions) from the `<lib>.log` its build wrote."""
+    from plotpointe_tpu_torch.ops import cuda_build
+
+    out = {}
+    for name in names:
+        lines = cuda_build.lib_path(name).with_suffix(".log").read_text().splitlines()
+        out[name] = [ln.strip() for ln in lines if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
+    return out
 
 
 def time_backward(rows_out, graph, h0, a_s, a_d, dev, rng):

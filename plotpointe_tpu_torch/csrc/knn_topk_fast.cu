@@ -15,126 +15,62 @@
 // scores, 2 n^2 d for the full matrix this row-owned design computes. The
 // bytes (xb read once) are negligible.
 //
-// Design: the block and selection of knn_topk.cu (128 rows a block, 128-wide
-// column tiles swept in the block, knn.cuh's sorted lists), with the tile's
-// product on the tensor cores through warp-level WMMA bf16 fragments (16 x 16
-// x 16, f32 accumulators): 8 warps, each a 32 x 64 piece of the tile as 2 x 4
-// fragments. Chunks of 32 features are staged in shared memory row-major and
-// the next chunk is loaded into registers while this one is multiplied. The
-// TPU kernel's slot pre-reduction (an economy of its vector unit) is not
-// copied: the selection is the exact top-R of these scores, as in exact mode.
-#include <mma.h>
-
+// Design: knn.cuh's sweep (128 rows a block, 128-wide column tiles, a
+// 2-stage cp.async ring, wgmma from shared memory, the selection filtered in
+// registers). A stage holds 64 features of the block's rows and of the
+// tile's columns: two [128][64] bf16 panels of 128-byte rows, 32 KB, each
+// row's eight 16-byte pieces permuted by bits 0-2 of the row (wgmma's
+// 128-byte swizzle). Each warpgroup issues four wgmma m64n128k16 a chunk.
+// Shared memory at R = 29: the ring 64 KB (+1 KB to align it), survivors
+// 16.5 KB, lists 29 KB: 110.5 KB, two blocks an SM. The TPU kernel's slot
+// pre-reduction (an economy of its vector unit) is not copied: the
+// selection is the exact top-R of these scores, as in exact mode.
 #include "knn.cuh"
 
 namespace {
 
-using nvcuda::wmma::accumulator;
-using nvcuda::wmma::col_major;
-using nvcuda::wmma::fragment;
-using nvcuda::wmma::matrix_a;
-using nvcuda::wmma::matrix_b;
-using nvcuda::wmma::mem_row_major;
-using nvcuda::wmma::row_major;
 using bf16 = __nv_bfloat16;
 
-constexpr int DK = 32;        // features per staged chunk
-constexpr int BLD = DK + 8;   // row stride of a staged chunk (bf16; 80 bytes)
-static_assert(KNN_BR == KNN_BC, "one loader serves both operands");
+struct Bf16 {
+  static constexpr int DK = 64;  // features a chunk: 128-byte rows
+  const bf16* x;
 
-// Thread tid loads 16-byte pieces tid and tid + 256 of a [128 rows][32
-// features] chunk: row = v / 4, features 8 * (v % 4) .. + 8. d is a multiple
-// of 8, so a piece is all in range or all out (then zero).
-__device__ __forceinline__ void load_chunk(const bf16* __restrict__ x, int n, int d, int row0,
-                                           int k0, uint4 (&v)[2]) {
+  // Panel 0 the block's rows, panel 1 the tile's columns (16 KB each): row
+  // rr's 16-byte eighth c (features 8c..8c+7) goes to byte op*16384 +
+  // rr*128 + 16 (c ^ bits 0-2 of rr) (wgmma's 128-byte swizzle). Thread t
+  // copies eighth t % 8 of rows t / 8 + 32 i of each panel. d is a multiple
+  // of 8, so an eighth is all in range or all out.
+  __device__ __forceinline__ void load(unsigned char* stage, int row0, int col0, int k0, int n,
+                                       int d) const {
+    const int c = threadIdx.x & 7, k = k0 + 8 * c;
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int idx = threadIdx.x + q * KNN_THREADS;
-    const int row = row0 + idx / 4, k = k0 + 8 * (idx % 4);
-    v[q] = (row < n && k < d)
-               ? __ldg(reinterpret_cast<const uint4*>(x + static_cast<long long>(row) * d + k))
-               : make_uint4(0u, 0u, 0u, 0u);
+    for (int i = 0; i < 8; ++i) {
+      const int op = i >> 2, rr = (threadIdx.x >> 3) + 32 * (i & 3);
+      const int grow = (op ? col0 : row0) + rr;
+      const bool ok = grow < n && k < d;
+      cp_async16(stage + op * 16384 + rr * 128 + 16 * (c ^ (rr & 7)),
+                 ok ? x + static_cast<long long>(grow) * d + k : x, ok);
+    }
   }
-}
 
-__device__ __forceinline__ void store_chunk(bf16* dst, const uint4 (&v)[2]) {
+  // Warpgroup w multiplies its 64 rows (panel 0, rows 64w..) by the tile's
+  // 128 columns (panel 1): four k16 steps, each 32 bytes further along the
+  // 128-byte swizzled rows.
+  __device__ __forceinline__ void mma(const unsigned char* stage, float (&acc)[16][4]) const {
+    const unsigned long long da =
+        wgmma_desc(stage + (threadIdx.x >> 7) * 64 * 128, 128, SWIZZLE_128B);
+    const unsigned long long db = wgmma_desc(stage + 16384, 128, SWIZZLE_128B);
+    wgmma_fence();
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int idx = threadIdx.x + q * KNN_THREADS;
-    *reinterpret_cast<uint4*>(dst + (idx / 4) * BLD + 8 * (idx % 4)) = v[q];
+    for (int kk = 0; kk < 8; kk += 2) wgmma_bf16(acc, da + kk, db + kk);
+    wgmma_commit();
   }
-}
+};
 
-__global__ void __launch_bounds__(KNN_THREADS, 1)
+__global__ void __launch_bounds__(KNN_THREADS, 2)
     knn_fast(const bf16* __restrict__ x, int* __restrict__ out_idx, float* __restrict__ out_score,
              int n, int d, int r) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);          // [KNN_BR][BLD]: this block's rows
-  bf16* Bs = As + KNN_BR * BLD;                      // [KNN_BC][BLD]: the tile's columns
-  float* S = reinterpret_cast<float*>(Bs + KNN_BC * BLD);  // [KNN_BR][KNN_SLD]
-  float* ls = S + KNN_BR * KNN_SLD;                  // [KNN_BR][r]
-  int* li = reinterpret_cast<int*>(ls + KNN_BR * r);
-
-  const int row0 = blockIdx.x * KNN_BR;
-  const int warp = threadIdx.x / 32;
-  const int wy = warp / 2, wx = warp % 2;  // rows wy*32 .. +32, columns wx*64 .. +64
-  knn_list_init(ls, li, r);
-
-  for (int col0 = 0; col0 < n; col0 += KNN_BC) {
-    fragment<accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.f);
-    uint4 va[2], vb[2];
-    load_chunk(x, n, d, row0, 0, va);
-    load_chunk(x, n, d, col0, 0, vb);
-    store_chunk(As, va);
-    store_chunk(Bs, vb);
-    __syncthreads();
-    for (int k0 = 0; k0 < d; k0 += DK) {
-      const bool more = k0 + DK < d;
-      if (more) {
-        load_chunk(x, n, d, row0, k0 + DK, va);
-        load_chunk(x, n, d, col0, k0 + DK, vb);
-      }
-#pragma unroll
-      for (int kk = 0; kk < DK; kk += 16) {
-        fragment<matrix_a, 16, 16, 16, bf16, row_major> fa[2];
-        fragment<matrix_b, 16, 16, 16, bf16, col_major> fb[4];  // B = columns^T
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          nvcuda::wmma::load_matrix_sync(fa[i], As + (wy * 32 + i * 16) * BLD + kk, BLD);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          nvcuda::wmma::load_matrix_sync(fb[j], Bs + (wx * 64 + j * 16) * BLD + kk, BLD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) nvcuda::wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
-      if (more) {
-        store_chunk(As, va);
-        store_chunk(Bs, vb);
-        __syncthreads();
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        nvcuda::wmma::store_matrix_sync(S + (wy * 32 + i * 16) * KNN_SLD + wx * 64 + j * 16,
-                                        acc[i][j], KNN_SLD, mem_row_major);
-    __syncthreads();
-    knn_fold_tile(S, ls, li, r, row0, col0, n);
-    __syncthreads();
-  }
-  knn_write(ls, li, r, row0, n, out_idx, out_score);
-}
-
-size_t smem_bytes(int r) {
-  return sizeof(bf16) * 2 * KNN_BR * BLD + sizeof(float) * KNN_BR * KNN_SLD + knn_list_bytes(r);
+  knn_sweep(Bf16{x}, out_idx, out_score, n, d, r);
 }
 
 }  // namespace
@@ -144,15 +80,9 @@ size_t smem_bytes(int r) {
 PPT_EXPORT int ppt_knn_topk_fast(const void* xb, int* out_idx, float* out_score, int n, int d,
                                  int r, void* stream) {
   if (n <= 0 || d <= 0 || d % 8 != 0 || r < 1 || r > KNN_MAX_R) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(r);
-  cudaError_t err = cudaFuncSetAttribute(knn_fast, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int blocks = (n + KNN_BR - 1) / KNN_BR;
-  knn_fast<<<blocks, KNN_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(xb), out_idx, out_score, n, d, r);
-  return cudaGetLastError();
+  return knn_launch(knn_fast, n, r, stream, static_cast<const bf16*>(xb), out_idx, out_score, n, d,
+                    r);
 }
 
 // Dynamic shared memory for r candidates a row, for the wrapper's check.
-PPT_EXPORT size_t ppt_knn_topk_fast_smem(int r) { return smem_bytes(r); }
+PPT_EXPORT size_t ppt_knn_topk_fast_smem(int r) { return knn_smem_bytes(r); }

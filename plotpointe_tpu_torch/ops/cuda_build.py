@@ -58,7 +58,7 @@ SIGNATURES = {
     "spmm_csr": ("ppt_spmm_csr", [P, I] + [P] * 9 + [I, I, I, I, P]),
     "gat_fwd_mh": ("ppt_gat_fwd_mh", [P] * 11 + [I, I, I, I, P]),
     "gat_bwd_dst_mh": ("ppt_gat_bwd_dst_mh", [P, I] + [P] * 11 + [I, I, I, I, I, P]),
-    "knn_topk": ("ppt_knn_topk", [P, P, P, I, I, I, P]),
+    "knn_topk": ("ppt_knn_topk", [P, P, P, P, I, I, I, P]),
     "knn_topk_fast": ("ppt_knn_topk_fast", [P, P, P, I, I, I, P]),
     "stream_probe": ("ppt_stream_probe", [P, ctypes.c_float, P, I, I, I, P]),
     "smoke_affine": ("ppt_smoke_affine", [P, P, ctypes.c_longlong, P]),

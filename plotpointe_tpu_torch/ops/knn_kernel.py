@@ -11,7 +11,9 @@ A candidate kernel takes xn [N, d] f32 and R = min(k + SEL_MARGIN, K_PAD)
 columns by score, self and padding excluded, as (cand_idx [N, R] int32,
 cand_score [N, R] f32) in descending order; equal scores order the smaller
 column first, and slots no column reached hold -1 / -1e30. The exact kernel
-scores in f32, the fast one multiplies bf16-rounded rows and sums in f32.
+scores f32-faithfully in three TF32 tensor-core passes over the split
+`split_tf32` makes (as the TPU kernel's Precision.HIGHEST takes several bf16
+passes), the fast one multiplies bf16-rounded rows and sums in f32.
 `rescore_topk` then re-scores every candidate exactly in f32 (an elementwise
 product summed over d, so no TF32 setting reaches it) and keeps the top k
 with the same tie rule.
@@ -95,6 +97,16 @@ def knn_candidates_fast_plain(xn: torch.Tensor, r: int,
     return _candidates_plain(xn.to(torch.bfloat16).float(), r, block_rows)
 
 
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of f32 x: hi is x rounded to the nearest TF32 value (ties
+    away from zero, as `cvt.rna.tf32.f32`; its 13 low mantissa bits zero) and
+    lo = x - hi, exact in f32 with |lo| <= 2**-11 |x|. Kernel 10 sums
+    lo.hi^T + hi.lo^T + hi.hi^T from them."""
+    bits = x.float().contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return hi, x - hi
+
+
 def _check(xn: torch.Tensor, r: int) -> None:
     if xn.dim() != 2 or xn.shape[0] == 0 or xn.shape[1] == 0 or xn.dtype != torch.float32:
         raise ValueError(f"need xn [N, d] float32 with N, d > 0; got {tuple(xn.shape)} {xn.dtype}")
@@ -110,21 +122,23 @@ def _padded(x: torch.Tensor, mult: int) -> torch.Tensor:
     return cb.aligned(x)
 
 
-def _launch(name: str, x: torch.Tensor, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    n, d = x.shape
+def _launch(name: str, r: int, *xs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    n, d = xs[0].shape
     cb.require_smem(name, r, "R")
-    cand_i = torch.empty((n, r), dtype=torch.int32, device=x.device)
-    cand_s = torch.empty((n, r), dtype=torch.float32, device=x.device)
-    cb.launch(name, x.device, cb.ptr(x), cb.ptr(cand_i), cb.ptr(cand_s), n, d, r)
+    cand_i = torch.empty((n, r), dtype=torch.int32, device=xs[0].device)
+    cand_s = torch.empty((n, r), dtype=torch.float32, device=xs[0].device)
+    cb.launch(name, xs[0].device, *map(cb.ptr, xs), cb.ptr(cand_i), cb.ptr(cand_s), n, d, r)
     return cand_i, cand_s
 
 
 def knn_candidates(xn: torch.Tensor, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 10: xn [N, d] f32 -> (cand_idx [N, R] int32, cand_score [N, R] f32)."""
+    """Kernel 10: xn [N, d] f32 -> (cand_idx [N, R] int32, cand_score [N, R] f32),
+    scored in 3xTF32 on the card (`split_tf32`)."""
     _check(xn, r)
     if xn.is_cpu:
         return knn_candidates_plain(xn, r)
-    out = _launch("knn_topk", _padded(xn, 4), r)
+    hi, lo = split_tf32(_padded(xn, 4))
+    out = _launch("knn_topk", r, hi, lo)
     EXACT_LAUNCHES.bump()
     return out
 
@@ -134,7 +148,7 @@ def knn_candidates_fast(xn: torch.Tensor, r: int) -> Tuple[torch.Tensor, torch.T
     _check(xn, r)
     if xn.is_cpu:
         return knn_candidates_fast_plain(xn, r)
-    out = _launch("knn_topk_fast", _padded(xn.to(torch.bfloat16), 8), r)
+    out = _launch("knn_topk_fast", r, _padded(xn.to(torch.bfloat16), 8))
     FAST_LAUNCHES.bump()
     return out
 

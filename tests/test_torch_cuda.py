@@ -20,7 +20,9 @@ same rounded rows, f32 sums, another order); scores rtol 1e-5 / atol 1e-4 (f32
 dot products of width <= 256, summed in another order); kNN candidate
 scores rtol 1e-5 / atol 1e-5 (f32 dot products of unit rows, another order),
 their columns equal wherever no tie within 1e-5 straddles a place (kernel 11:
-recall >= 0.999 against its plain version).
+recall >= 0.999 against its plain version; on rows along an arc, where the
+survivor buffers overflow on every tile, its untied columns too); two
+launches of a kNN kernel give the same bits.
 """
 import contextlib
 
@@ -429,6 +431,49 @@ def test_knn_fast_kernel_matches_plain(cuda, n, d):
     assert hits / want_i.numel() >= 0.999
     assert not (got_i == torch.arange(n, device=cuda)[:, None]).any()
     assert (got_s.diff(dim=1) <= 0).all()
+
+
+def _arc_rows(cuda, n, d, seed):
+    """Unit rows on half a great circle in the order of their angle (a random
+    plane of R^d): for the last rows every column tile ranks above their
+    whole list so far, so their survivor buffers overflow on every tile."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(d, 2)))
+    theta = np.linspace(0.0, np.pi, n, endpoint=False)
+    x = (np.stack([np.cos(theta), np.sin(theta)], 1) @ q.T).astype(np.float32)
+    return torch.as_tensor(x, device=cuda)
+
+
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+@pytest.mark.parametrize("r", [28, 128])
+def test_knn_kernels_match_plain_when_every_tile_overflows(cuda, mode, r):
+    from plotpointe_tpu_torch.ops.knn_kernel import (
+        knn_candidates, knn_candidates_fast, knn_candidates_fast_plain, knn_candidates_plain)
+
+    kernel, plain = ((knn_candidates, knn_candidates_plain) if mode == "exact"
+                     else (knn_candidates_fast, knn_candidates_fast_plain))
+    n = 1037
+    xn = _arc_rows(cuda, n, 64, 3)
+    got_i, got_s = kernel(xn, r)
+    want_i, want_s = plain(xn, r + 1)
+    torch.testing.assert_close(got_s, want_s[:, :r], rtol=1e-5, atol=1e-5)
+    assert _untied_mismatches(got_i, want_i, want_s, r) == 0
+    if mode == "exact":  # the last row's list: its r nearest predecessors
+        assert set(got_i[-1].tolist()) == set(range(n - 1 - r, n - 1))
+
+
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+@pytest.mark.parametrize("rows", ["clusters", "arc"])
+def test_knn_kernels_give_the_same_bits_twice(cuda, mode, rows):
+    from plotpointe_tpu_torch.ops.knn_kernel import knn_candidates, knn_candidates_fast
+
+    kernel = knn_candidates if mode == "exact" else knn_candidates_fast
+    xn = _knn_rows(cuda, 1037, 128, 9) if rows == "clusters" else _arc_rows(cuda, 1037, 128, 9)
+    for r in (29, 128):
+        a_i, a_s = kernel(xn, r)
+        b_i, b_s = kernel(xn, r)
+        assert torch.equal(a_i, b_i)
+        assert torch.equal(a_s.view(torch.int32), b_s.view(torch.int32))
 
 
 def test_knn_fast_recall_against_exact(cuda):
