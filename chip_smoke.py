@@ -100,8 +100,10 @@ Nothing here imports JAX or the JAX package.
     python3 chip_smoke.py --compare-with DIR
 
 times only kernels 7, 12, 13 and 15 and `host_us_per_launch` (`time_rule2`),
-and kernels 10 and 11 on the graph-build subsets at 63,001 x 128 and x 384
-with their ptxas report (`time_knn_trees`), for the port in the checkout DIR
+kernels 8 and 3 at the 2-head and GAT training shapes and kernel 8 at the
+export's (`time_gather_trees`), and kernels 10 and 11 on the graph-build
+subsets at 63,001 x 128 and x 384 with the ptxas report of kernels 3, 8,
+10 and 11 (`time_knn_trees`), for the port in the checkout DIR
 (an earlier commit, say) and for this one, each tree in a process of its
 own that builds its own kernels, in turns (DIR, this, this, DIR) on one
 card; both trees read the same graph and rows, saved once; every line
@@ -178,6 +180,8 @@ PATH_KERNELS = {"train": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src"),
 LEGACY = (("legacy_v2", 128, 1), ("legacy_v1", 64, 1), ("legacy_v1_mh", 128, 2))
 LIGHTGCN = dict(embed_dim=64, n_prop_layers=3, batch_size=8192, neg_per_pos=5)
 MH_HEADS = 2
+# the libraries whose ptxas lines (registers, spills, shared memory) the build line carries
+PTXAS_REPORTED = ("knn_topk", "knn_topk_fast", "gat_fwd_mh", "gat_bwd_src")
 KNN = dict(k=20, min_similarity=0.3)  # the pipeline's build-knn defaults
 KNN_TOL = dict(rtol=1e-5, atol=1e-5)  # f32 scores of the same rows, summed in another order
 TIE_TOL = 1e-5  # candidates whose scores lie this close may swap places
@@ -225,6 +229,28 @@ def sol_fraction_dev(row: dict, peaks: dict) -> float:
     elif row.get("ops_dtype") == "bfloat16":
         b *= s["bf16_tflops"] / peaks["tflops"]
     return b / row["ms"]
+
+
+def gather_ms(nbytes: dict, n_gathers: int, row_bytes: int) -> float:
+    """The gather ceiling in ms: the compulsory bytes plus one gathered row
+    per entry, all from device memory at the spec rate, as if no gathered
+    row hit in the L2 (a kernel whose rows do hit can land below it)."""
+    return (sum(nbytes.values()) + n_gathers * row_bytes) / (spec()["hbm_gbps"] * 1e9) * 1e3
+
+
+def fwd_mh_bytes(n: int, e: int, hh: int, d: int, masked: bool) -> dict:
+    """Kernel 8's compulsory bytes: each input read once, each output
+    written once (the rounded rows and the per-edge row gathers are not)."""
+    return {"h": n * hh * d * 4, "a": 2 * hh * d * 4, "row_ptr": (n + 1) * 4, "src": e * 4,
+            "mask": hh * e * 4 if masked else 0, "out": n * hh * d * 4, "den": n * hh * 4}
+
+
+def bwd_src_bytes(n: int, e: int, d: int, isz: int) -> dict:
+    """B2's compulsory bytes with the mask: each input read once, dh
+    written once (the per-edge cotangent gathers are not)."""
+    return {"rows": n * d * isz, "g_rounded": n * d * isz, "a_src": d * 4,
+            "gs_gd_den_godot": 4 * n * 4, "t_ptr": (n + 1) * 4, "t_dst": e * 4,
+            "t_eid": e * 4, "mask": e * 4, "dh": n * d * 4}
 
 
 def amazon_shaped_interactions(seed: int, n_users=192_403, n_items=63_001, n=1_689_116):
@@ -346,7 +372,7 @@ def main() -> int:
     ap.add_argument("--epochs", type=int, default=3, help="optimizer steps of the train phase")
     ap.add_argument("--layers", type=int, default=2, help="GAT depth of the trained model")
     ap.add_argument("--compare-with", metavar="DIR", default=None,
-                    help="only time kernels 7, 10, 11, 12, 13, 15 and host_us_per_launch, for "
+                    help="only time kernels 3, 7, 8, 10, 11, 12, 13, 15 and host_us_per_launch, for "
                          "the port in DIR (another checkout) and this one, in turns on this card")
     ap.add_argument("--rows-of", metavar="DIR", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--graph", default=None, help=argparse.SUPPRESS)
@@ -373,8 +399,8 @@ GRAPH_ARRAYS = ("row_ptr", "src", "t_ptr", "t_dst", "t_eid")
 
 
 def rows_of(args) -> int:
-    """`time_rule2` with the package of the checkout `--rows-of` on the graph
-    saved at `--graph`, then `time_knn_trees` on the rows saved at
+    """`time_rule2` and `time_gather_trees` with the package of the checkout
+    `--rows-of` on the graph saved at `--graph`, then `time_knn_trees` on the rows saved at
     `--knn-rows`; each line labelled `--tree`."""
     from types import SimpleNamespace
 
@@ -390,6 +416,7 @@ def rows_of(args) -> int:
     graph = SimpleNamespace(n_nodes=int(z["n_nodes"]), n_edges=int(z["n_edges"]),
                             **{k: z[k].to("cuda") for k in GRAPH_ARRAYS})
     time_rule2({}, graph, "cuda", tree=args.tree)
+    time_gather_trees(graph, "cuda", args.tree)
     del graph, z
     torch.cuda.empty_cache()
     from plotpointe_tpu_torch.graphs.knn import l2_normalize
@@ -400,8 +427,8 @@ def rows_of(args) -> int:
 
 
 def run_compare(args, work: Path) -> int:
-    """Kernels 7, 12, 13 and 15 and the launch path's host time on the main
-    graph of `run`, then kernels 10 and 11 on its graph-build subsets
+    """Kernels 7, 12, 13 and 15, the launch path's host time and kernels 8
+    and 3 on the main graph of `run`, then kernels 10 and 11 on its graph-build subsets
     (`build-subset` of the seeded catalog at 128 and 384 d), for the
     checkout `--compare-with` and this one, each in a process of its own
     that builds that checkout's kernels, in turns (the other, this, this,
@@ -463,7 +490,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     took = cuda_build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source_s": took,
-          "ptxas": ptxas_report(("knn_topk", "knn_topk_fast"))})
+          "ptxas": ptxas_report(PTXAS_REPORTED)})
 
 
 def phase_data(args, rng, dev):
@@ -1355,7 +1382,7 @@ def time_knn_trees(feats, tree: str) -> None:
             r = n_candidates(KNN["k"], mode)
             emit({"phase": "timing", "kernel": kname, "shape": f"N={n} d={d} R={r} {name}", "tree": tree,
                   "ms": time_ms(lambda: fn(x, r), 3, 1), **knn_bound(kname, n, d, r)})
-    emit({"phase": "build", "tree": tree, "ptxas": ptxas_report(("knn_topk", "knn_topk_fast"))})
+    emit({"phase": "build", "tree": tree, "ptxas": ptxas_report(PTXAS_REPORTED)})
 
 
 def ptxas_report(names) -> dict:
@@ -1397,9 +1424,7 @@ def time_backward(rows_out, graph, h0, a_s, a_d, dev, rng):
             b1_bytes = {"rows": n * d * isz, "g": n * d * 4, "out": n * d * 4, "src": e * 4,
                         "mask": e * 4, "row_ptr": (n + 1) * 4, "gs_gd_den": 3 * n * 4,
                         "de_sum_godot": 2 * n * 4, "da_src": d * 4}
-            b2_bytes = {"rows": n * d * isz, "g_rounded": n * d * isz, "a_src": d * 4,
-                        "gs_gd_den_godot": 4 * n * 4, "t_ptr": (n + 1) * 4, "t_dst": e * 4,
-                        "t_eid": e * 4, "mask": e * 4, "dh": n * d * 4}
+            b2_bytes = bwd_src_bytes(n, e, d, isz)
             ops = 4 * e * d  # per edge: one row dot product and one row axpy
             for kname, fn, plain, nbytes in (
                     ("gat_bwd_dst", lambda: attention_bwd_dst(*a1), lambda: attention_bwd_dst_plain(*a1), b1_bytes),
@@ -1407,7 +1432,8 @@ def time_backward(rows_out, graph, h0, a_s, a_d, dev, rng):
                 b_ms, b_by = bound(sum(nbytes.values()), ops, "float32")
                 line = {"phase": "timing", "kernel": kname, "shape": shape, "ms": time_ms(fn),
                         "plain_ms": time_ms(plain, 5), "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None, "bound_bytes": nbytes, "bound_ops": ops}
+                        "library_ms": None, "bound_bytes": nbytes, "bound_ops": ops,
+                        "gather_ms": gather_ms(nbytes, e, d * isz)}
                 emit(line)
                 if rows_dt == torch.bfloat16:
                     rows_out[kname] = line  # the training path's row type
@@ -1487,8 +1513,9 @@ def profile_train_step(label: str, tr, step_s: float) -> None:
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15])
     ours = {k: sum(v for n, v in by_kernel.items() if any(p in n for p in pats))
             for k, pats in (("gat_fwd", ("aggregate<",)), ("gat_fwd node_terms", ("node_terms<",)),
-                            ("gat_bwd_dst", ("bwd_dst<",)), ("gat_bwd_src", ("bwd_src<",)),
-                            ("gat_fwd_mh", ("aggregate_mh<",)),
+                            ("gat_bwd_dst", ("bwd_dst<",)),
+                            ("gat_bwd_src", ("bwd_src_units<", "bwd_src_combine(")),
+                            ("gat_fwd_mh", ("aggregate_mh_units<", "aggregate_mh_combine(")),
                             ("gat_fwd_mh node_terms", ("node_terms_mh<",)),
                             ("gat_bwd_dst_mh", ("bwd_dst_mh<",)),
                             ("spmm_csr", ("spmm_units<", "spmm_combine(")))}
@@ -1635,8 +1662,7 @@ def time_multihead(rows_out, graph, dev, rng) -> None:
             isz, dname = (4 if rows_dt == torch.float32 else 2), str(rows_dt)[6:]
             m_bytes = 0 if mk is None else hh * e * 4
             shape = f"N={n} E={e} H={hh} D={d} rows={dname} mask={0.1 if mk is not None else 0}"
-            fwd_bytes = {"h": n * hh * d * 4, "a": 2 * hh * d * 4, "row_ptr": (n + 1) * 4,
-                         "src": e * 4, "mask": m_bytes, "out": n * hh * d * 4, "den": n * hh * 4}
+            fwd_bytes = fwd_mh_bytes(n, e, hh, d, mk is not None)
             fwd_ops = 2 * e * hh * d + 4 * n * hh * d
             rows, gs, gd = node_terms_mh_plain(h, a_s, a_d, rows_dt)
             out, den = attention_fwd_mh(h, a_s, a_d, graph, mask=mk, hs_dtype=rows_dt)
@@ -1655,11 +1681,57 @@ def time_multihead(rows_out, graph, dev, rng) -> None:
                 b_ms, b_by = bound(sum(nbytes.values()), ops, "float32")
                 line = {"phase": "timing", "kernel": kname, "shape": shape, "ms": time_ms(fn),
                         "plain_ms": time_ms(plain, 5), "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None, "bound_bytes": nbytes, "bound_ops": ops}
+                        "library_ms": None, "bound_bytes": nbytes, "bound_ops": ops,
+                        "gather_ms": gather_ms(nbytes, e, hh * d * isz)}
                 emit(line)
                 if rows_dt == torch.bfloat16:
                     rows_out[kname] = line  # the training path's rows and mask
             del rows, out, den, a1
+
+
+def time_gather_trees(graph, dev, tree: str) -> None:
+    """`--compare-with`'s attention rows, kernels alone, on inputs seeded on
+    the card (so each tree gets the same): kernel 8 at heads 2, D 128 with
+    bf16 rows and the 0.1 mask (the 2-head training step) and with f32 rows
+    and no mask (the export), as `time_multihead` times it; B2 at D 128 with
+    bf16 rows and the mask, on contiguous rows (the GAT step, as
+    `time_backward` times it) and on the last head's row-strided rows of
+    [N, 2, 128] tensors (the 2-head step). Each line carries its bound, its
+    gather ceiling and `tree`."""
+    import torch
+
+    from plotpointe_tpu_torch.ops.gat_fused import (
+        attention_bwd_src, attention_fwd_mh, dropout_mask_mh, hash_mask)
+
+    n, e, hh, d = graph.n_nodes, graph.n_edges, MH_HEADS, 128
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def t(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    h, a_s, a_d, ct = t(n, hh, d), t(hh, d, scale=0.1), t(hh, d, scale=0.1), t(n, hh, d)
+    mask = dropout_mask_mh(graph, 0.1, 7, hh, dev)
+    with torch.no_grad():
+        for rows_dt, mk in ((torch.bfloat16, mask), (torch.float32, None)):
+            isz, dname = (4 if rows_dt == torch.float32 else 2), str(rows_dt)[6:]
+            nbytes = fwd_mh_bytes(n, e, hh, d, mk is not None)
+            b_ms, b_by = bound(sum(nbytes.values()), 2 * e * hh * d + 4 * n * hh * d, "float32")
+            emit({"phase": "timing", "kernel": "gat_fwd_mh", "tree": tree,
+                  "shape": f"N={n} E={e} H={hh} D={d} rows={dname} mask={0.1 if mk is not None else 0}",
+                  "ms": time_ms(lambda: attention_fwd_mh(h, a_s, a_d, graph, mask=mk, hs_dtype=rows_dt)),
+                  "bound_ms": b_ms, "bound_by": b_by, "gather_ms": gather_ms(nbytes, e, hh * d * isz)})
+        m1 = hash_mask(7, torch.arange(e, device=dev), 0.1)
+        gs, gd, godot = t(n), t(n), t(n, scale=0.1)
+        den = torch.rand(n, generator=gen, device=dev) * 4 + 1
+        hb, cb16 = h.to(torch.bfloat16), ct.to(torch.bfloat16)
+        nbytes = bwd_src_bytes(n, e, d, 2)
+        b_ms, b_by = bound(sum(nbytes.values()), 4 * e * d, "float32")
+        for label, rows, gh in (("contiguous", hb[:, 0].contiguous(), cb16[:, 0].contiguous()),
+                                ("head 1 of [N, 2, D], strided", hb[:, 1], cb16[:, 1])):
+            emit({"phase": "timing", "kernel": "gat_bwd_src", "tree": tree,
+                  "shape": f"N={n} E={e} D={d} rows=bfloat16 mask=0.1 {label}",
+                  "ms": time_ms(lambda: attention_bwd_src(rows, gh, a_s[1:], gs, gd, den, godot, graph, m1)),
+                  "bound_ms": b_ms, "bound_by": b_by, "gather_ms": gather_ms(nbytes, e, d * 2)})
 
 
 def phase_tooling(errs, dev):
@@ -1829,11 +1901,12 @@ def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev):
         for rows_dt in (torch.float32, torch.bfloat16):
             k_ms = time_ms(lambda: attention_fwd(h0, a_s, a_d, graph, hs_dtype=rows_dt))
             p_ms = time_ms(lambda: attention_fwd_plain(h0, a_s, a_d, graph, hs_dtype=rows_dt), 5)
-            b_ms, b_by = bound(4 * (2 * n * d + 2 * d + (n + 1) + e + n), 2 * e * d + 4 * n * d,
-                               "float32")
+            f1_bytes = 4 * (2 * n * d + 2 * d + (n + 1) + e + n)
+            b_ms, b_by = bound(f1_bytes, 2 * e * d + 4 * n * d, "float32")
             line = {"phase": "timing", "kernel": "gat_fwd", "shape": f"N={n} E={e} D={d}",
                     "rows": str(rows_dt)[6:], "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": None}
+                    "bound_by": b_by, "library_ms": None,
+                    "gather_ms": gather_ms({"all": f1_bytes}, e, d * (4 if rows_dt == torch.float32 else 2))}
             emit(line)
             rows.setdefault("gat_fwd", line)  # f32 rows: the export's mode
         # where kernel 1's time goes: its two CUDA kernels, and the same N and

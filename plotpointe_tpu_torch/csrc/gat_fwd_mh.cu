@@ -10,22 +10,31 @@
 // the f32 rows. All sums are f32. Each head is kernel 1's function.
 //
 // What bounds it: bytes. Each edge reads one source row of H * D values
-// chosen by the graph; the arithmetic is 2 FLOP per gathered element.
+// chosen by the graph; the arithmetic is 2 FLOP per gathered element. At
+// the training shape the rounded-row table (255,404 x 256 bf16, 131 MB) is
+// larger than the 50 MB L2, so most gathered rows come from device memory.
 //
 // Design: the TPU kernel's point is that one stream of gathered rows serves
-// every head; here one warp per destination reads each in-edge's whole
-// [H * D] source row once, for all heads.
+// every head; here one lane group reads each in-edge's whole [H * D] source
+// row once, for all heads, in 16-byte chunks (8 bf16 or 4 f32 values a
+// lane a chunk; a group is as wide as a row's chunks, up to a warp).
 //   node_terms_mh: one warp per node writes the rounded rows (bf16 mode) and
 //     the per-head logit terms gs[n, H] and gd[n, H].
-//   aggregate_mh: one warp per destination. The 32 lanes take 32 edges at a
-//     time for the scalar part (src index, H logits, H exps, H mask values);
-//     then the warp walks those edges, each lane holding H * D / 32 values of
-//     the running sums in registers (value v of a lane belongs to head
-//     v / (D / 32), known at compile time), several rows in flight. Per-head
-//     numerators, denominators and masks; no atomics, a fixed order.
-// H and D / 32 are template parameters (2 <= H <= 8, D in {32, ..., 512} a
-// power of two, H * D <= 1024), so the head of every register is static.
+//   aggregate_mh_units: the edge-balanced walk of walk.cuh over the plan of
+//     row_ptr. A block takes WALK_UNITS units: it stages its entries' src
+//     and destination rows with cp.async, then computes each entry's H
+//     numerators (and masked weights) once, block-wide, into shared memory.
+//     Each lane group then walks its unit's entries as one flat run, several
+//     rows in flight; a lane's chunk lies in one head, whose weight it reads
+//     from shared memory. At each piece's end the group writes the piece's
+//     sums: out = acc / (den + 1e-9) and den for a whole row, else (acc, den)
+//     to a scratch slot. Softmax needs no running maximum here (logits are
+//     clamped to +-10), so a split row's sums are plain partial sums.
+//   aggregate_mh_combine: each split row's slots summed in piece order, then
+//     the same epilogue.
+// 2 <= H <= 8, D in {32, ..., 512} a power of two, H * D <= 1024.
 #include "attention.cuh"
+#include "walk.cuh"
 
 namespace {
 
@@ -57,162 +66,256 @@ __global__ void node_terms_mh(const float* __restrict__ h, const float* __restri
 }
 
 template <typename T>
-struct FwdArgs {
-  const T* hs;         // [n, H * D] rows at the row type
-  const float* gs;     // [n, H]
-  const float* gd;     // [n, H]
-  const int* row_ptr;  // [n + 1]
+struct WalkArgs {
+  const T* hs;           // [n, H * D] rows at the row type, 16-byte aligned
+  const float* gs;       // [n, H]
+  const float* gd;       // [n, H]
+  const int* piece_ptr;  // the plan of row_ptr
+  const int* piece_out;
+  const int* unit_ptr;
   const int* src;      // [E]
+  const int* erow;     // [E] each entry's row (its destination)
   const float* mask;   // [H, E] or null
   float* out;          // [n, H * D]
   float* den;          // [n, H]
-  int n;
-  int n_edges;
+  float* scratch;      // [slots, H * D]
+  float* scratch_den;  // [slots, H]
+  int n_units, n_edges, heads, d;
+  int nc;      // 16-byte chunks of a row
+  int groups;  // lane groups a warp
+  int stride;  // entries between the shared arrays (odd)
 };
 
-template <typename T, int H, int VPH>
-__global__ void aggregate_mh(FwdArgs<T> a) {
-  constexpr int VPL = H * VPH;  // values of one row a lane holds
-  constexpr int HD = VPL * 32;
-  // source rows in flight per warp: 64 registers of row values
-  constexpr int EDGE_ILP = VPL <= 4 ? 16 : (VPL <= 8 ? 8 : (VPL <= 16 ? 4 : 2));
-  const int row = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= a.n) return;
-  const int beg = a.row_ptr[row];
-  const int end = a.row_ptr[row + 1];
-  float g_d[H], den[H];
-#pragma unroll
-  for (int k = 0; k < H; ++k) {
-    g_d[k] = a.gd[static_cast<long long>(row) * H + k];
-    den[k] = 0.f;
-  }
-  float acc[VPL];
-#pragma unroll
-  for (int v = 0; v < VPL; ++v) acc[v] = 0.f;
+// C: 16-byte chunks a lane holds of one row (ceil(nc / 32))
+template <typename T, int C>
+__global__ void __launch_bounds__(32 * WALK_UNITS, WALK_MIN_BLOCKS) aggregate_mh_units(WalkArgs<T> a) {
+  constexpr int VEC = RowVec<T>::kElems;
+  // rows in flight per lane: 32 row values in registers at most
+  constexpr int FIT = 32 / (C * VEC);
+  constexpr int EDGE_ILP = FIT > 8 ? 8 : (FIT < 1 ? 1 : FIT);
+  extern __shared__ int smem[];
+  const int H = a.heads, st = a.stride;
+  int* s_src = smem;
+  float* s_num = reinterpret_cast<float*>(smem + st);  // [H][st]
+  float* s_w = a.mask != nullptr ? s_num + H * st : s_num;  // [H][st] masked weights
+  int* s_row = smem + st;  // staged rows, each overwritten by head 0's numerator
 
-  for (int base = beg; base < end; base += 32) {
-    const int e = base + lane;
-    int s = 0;
-    float w[H];
+  const BlockUnits b = block_units(a.piece_ptr, a.unit_ptr, a.n_units);
+  stage_ints(s_src, a.src + b.e0, b.cnt);
+  stage_ints(s_row, a.erow + b.e0, b.cnt);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int i = threadIdx.x; i < b.cnt; i += blockDim.x) {
+    const long long s = s_src[i], r = s_row[i];
+    for (int k = 0; k < H; ++k) {
+      float x = a.gs[s * H + k] + a.gd[r * H + k];
+      x = x > 0.f ? x : LEAKY_SLOPE * x;
+      const float num = expf(fminf(fmaxf(x, -LOGIT_CLAMP), LOGIT_CLAMP));
+      s_num[k * st + i] = num;
+      if (a.mask != nullptr)
+        s_w[k * st + i] = num * a.mask[static_cast<long long>(k) * a.n_edges + b.e0 + i];
+    }
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int span = a.nc < 32 ? a.nc : 32;  // lanes one row spans
+  const int grp = lane / span;
+  const int c0 = lane - grp * span;
+  const int u = b.u0 + (threadIdx.x >> 5) * a.groups + grp;
+  if (grp >= a.groups || u >= b.u1) return;
+  const long long hd = static_cast<long long>(H) * a.d;
+  int head[C];      // the head of each of this lane's chunks
+  bool first[C];    // the chunk starts its head: it writes den
 #pragma unroll
-    for (int k = 0; k < H; ++k) w[k] = 0.f;
-    if (e < end) {
-      s = a.src[e];
+  for (int c = 0; c < C; ++c) {
+    const int col = (c0 + 32 * c) * VEC;
+    const bool valid = c0 + 32 * c < a.nc;
+    head[c] = valid ? col / a.d : 0;  // a chunk past the row: zeros, weighted by head 0
+    first[c] = valid && col % a.d == 0;
+  }
+  int p = a.unit_ptr[u];
+  const int p_end = a.unit_ptr[u + 1];
+  int pe = a.piece_ptr[p + 1];
+  const int e_end = a.piece_ptr[p_end];
+
+  float acc[C][VEC], dacc[C];
 #pragma unroll
-      for (int k = 0; k < H; ++k) {
-        float x = a.gs[static_cast<long long>(s) * H + k] + g_d[k];
-        x = x > 0.f ? x : LEAKY_SLOPE * x;
-        x = fminf(fmaxf(x, -LOGIT_CLAMP), LOGIT_CLAMP);
-        const float num = expf(x);
-        den[k] += num;
-        w[k] = a.mask != nullptr ? num * a.mask[static_cast<long long>(k) * a.n_edges + e] : num;
+  for (int c = 0; c < C; ++c) {
+    dacc[c] = 0.f;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[c][k] = 0.f;
+  }
+
+  // write piece p's sums and start the next piece
+  auto flush = [&]() {
+    const int o = piece_dest(a.piece_out, p);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int ch = c0 + 32 * c;
+      if (ch < a.nc) {
+        if (o >= 0) {
+          float v[VEC];
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) v[k] = acc[c][k] / (dacc[c] + EPS);
+          store_f32(a.out + o * hd + ch * VEC, v);
+          if (first[c]) a.den[static_cast<long long>(o) * H + head[c]] = dacc[c];
+        } else {
+          const long long slot = -1LL - o;
+          store_f32(a.scratch + slot * hd + ch * VEC, acc[c]);
+          if (first[c]) a.scratch_den[slot * H + head[c]] = dacc[c];
+        }
+      }
+      dacc[c] = 0.f;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[c][k] = 0.f;
+    }
+    ++p;
+  };
+
+  for (int e = a.piece_ptr[p]; e < e_end; e += EDGE_ILP) {
+    float xv[EDGE_ILP][C][VEC];
+#pragma unroll
+    for (int q = 0; q < EDGE_ILP; ++q) {
+      const T* r = a.hs + (e + q < e_end ? s_src[e + q - b.e0] : 0) * hd;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int ch = c0 + 32 * c;
+        if (e + q < e_end && ch < a.nc) {
+          RowVec<T>::load(r + ch * VEC, xv[q][c]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) xv[q][c][k] = 0.f;
+        }
       }
     }
-    const int cnt = min(32, end - base);
-    for (int j = 0; j < cnt; j += EDGE_ILP) {
-      int sj[EDGE_ILP];
-      float wj[EDGE_ILP][H];
 #pragma unroll
-      for (int q = 0; q < EDGE_ILP; ++q) {
-        sj[q] = __shfl_sync(FULL_MASK, s, j + q);
+    for (int q = 0; q < EDGE_ILP; ++q) {
+      if (e + q < e_end) {
+        while (e + q == pe) {  // the piece (and any empty ones after it) ended
+          flush();
+          pe = a.piece_ptr[p + 1];
+        }
+        const int i = e + q - b.e0;
 #pragma unroll
-        for (int k = 0; k < H; ++k) wj[q][k] = __shfl_sync(FULL_MASK, w[k], j + q);
-      }
-      float x[EDGE_ILP][VPL];
+        for (int c = 0; c < C; ++c) {
+          const float w = s_w[head[c] * st + i];
+          dacc[c] += s_num[head[c] * st + i];
 #pragma unroll
-      for (int q = 0; q < EDGE_ILP; ++q) {
-        const T* r = a.hs + static_cast<long long>(sj[q]) * HD + lane;
-#pragma unroll
-        for (int v = 0; v < VPL; ++v) x[q][v] = (j + q < cnt) ? to_f32(r[v * 32]) : 0.f;
-      }
-#pragma unroll
-      for (int q = 0; q < EDGE_ILP; ++q) {
-        if (j + q < cnt) {
-#pragma unroll
-          for (int v = 0; v < VPL; ++v) acc[v] += wj[q][v / VPH] * x[q][v];
+          for (int k = 0; k < VEC; ++k) acc[c][k] += w * xv[q][c][k];
         }
       }
     }
   }
-#pragma unroll
-  for (int k = 0; k < H; ++k) den[k] = warp_sum(den[k]);
-  float* o = a.out + static_cast<long long>(row) * HD + lane;
-#pragma unroll
-  for (int v = 0; v < VPL; ++v) o[v * 32] = acc[v] / (den[v / VPH] + EPS);
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < H; ++k) a.den[static_cast<long long>(row) * H + k] = den[k];
-  }
+  while (p < p_end) flush();  // the last piece, then trailing empty ones
 }
 
-template <typename T, int H, int VPH>
-cudaError_t launch_hv(dim3 grid, dim3 block, cudaStream_t st, const FwdArgs<T>& a) {
-  if constexpr (H * VPH <= 32) {
-    aggregate_mh<T, H, VPH><<<grid, block, 0, st>>>(a);
-    return cudaGetLastError();
-  } else {
-    return cudaErrorInvalidValue;
+// out/den of each split row from its scratch slots, summed in piece order;
+// one thread per (split row, 4 columns)
+__global__ void aggregate_mh_combine(const float4* __restrict__ scratch,
+                                     const float* __restrict__ scratch_den,
+                                     const int* __restrict__ split_rows,
+                                     const int* __restrict__ split_ptr, float4* __restrict__ out,
+                                     float* __restrict__ den, int n_split, int heads, int d) {
+  const int hd4 = heads * d / 4;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(n_split) * hd4) return;
+  const int r = static_cast<int>(i / hd4);
+  const int c = static_cast<int>(i - static_cast<long long>(r) * hd4);
+  const int k = c * 4 / d;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float dn = 0.f;
+  for (int s = split_ptr[r]; s < split_ptr[r + 1]; ++s) {
+    const float4 v = scratch[static_cast<long long>(s) * hd4 + c];
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+    dn += scratch_den[static_cast<long long>(s) * heads + k];
   }
-}
-
-template <typename T, int H>
-cudaError_t launch_h(int vph, dim3 grid, dim3 block, cudaStream_t st, const FwdArgs<T>& a) {
-  switch (vph) {
-    case 1: return launch_hv<T, H, 1>(grid, block, st, a);
-    case 2: return launch_hv<T, H, 2>(grid, block, st, a);
-    case 4: return launch_hv<T, H, 4>(grid, block, st, a);
-    case 8: return launch_hv<T, H, 8>(grid, block, st, a);
-    case 16: return launch_hv<T, H, 16>(grid, block, st, a);
-    default: return cudaErrorInvalidValue;
-  }
+  const long long row = split_rows[r];
+  const float q = dn + EPS;
+  out[row * hd4 + c] = make_float4(acc.x / q, acc.y / q, acc.z / q, acc.w / q);
+  if (c * 4 % d == 0) den[row * heads + k] = dn;
 }
 
 template <typename T>
-cudaError_t launch(int heads, int vph, dim3 grid, dim3 block, cudaStream_t st,
-                   const FwdArgs<T>& a) {
-  switch (heads) {
-    case 2: return launch_h<T, 2>(vph, grid, block, st, a);
-    case 3: return launch_h<T, 3>(vph, grid, block, st, a);
-    case 4: return launch_h<T, 4>(vph, grid, block, st, a);
-    case 5: return launch_h<T, 5>(vph, grid, block, st, a);
-    case 6: return launch_h<T, 6>(vph, grid, block, st, a);
-    case 7: return launch_h<T, 7>(vph, grid, block, st, a);
-    case 8: return launch_h<T, 8>(vph, grid, block, st, a);
-    default: return cudaErrorInvalidValue;
+cudaError_t launch_walk(const WalkArgs<T>& a, size_t smem, cudaStream_t st) {
+  const dim3 block(32 * WALK_UNITS / a.groups);
+  const dim3 grid((a.n_units + WALK_UNITS - 1) / WALK_UNITS);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch ((a.nc + 31) / 32) {
+#define PPT_CASE(C)                                              \
+  case C:                                                        \
+    if constexpr (C * RowVec<T>::kElems <= 32) {                 \
+      err = allow_smem(aggregate_mh_units<T, C>, smem);          \
+      if (err != cudaSuccess) return err;                        \
+      aggregate_mh_units<T, C><<<grid, block, smem, st>>>(a);    \
+      err = cudaGetLastError();                                  \
+    }                                                            \
+    break;
+    PPT_CASE(1) PPT_CASE(2) PPT_CASE(3) PPT_CASE(4) PPT_CASE(5) PPT_CASE(6) PPT_CASE(7)
+    PPT_CASE(8)
+#undef PPT_CASE
+    default:
+      break;
   }
+  return err;
 }
 
 }  // namespace
 
-// h [n, heads, d] f32; a_src/a_dst [heads, d] f32; row_ptr [n + 1], src [E]
-// int32 (CSR by destination); mask [heads, E] f32 over canonical edge ids or
-// null; hs_bf16 [n, heads, d] bf16 scratch (bf16 rows) or null (f32 rows: h
-// itself is read); gs/gd [n, heads] f32 scratch; out [n, heads, d] f32; den
-// [n, heads] f32. 2 <= heads <= 8; d a power of two in [32, 512];
+// h [n, heads, d] f32 (16-byte aligned); a_src/a_dst [heads, d] f32; the
+// plan of row_ptr (piece_ptr, piece_out, unit_ptr, as spmm_csr.cu takes
+// it); src [E] and erow [E] int32 (each entry's source and destination);
+// mask [heads, E] f32 over canonical edge ids or null; hs_bf16 [n, heads, d]
+// bf16 scratch (bf16 rows) or null (f32 rows: h itself is read); gs/gd
+// [n, heads] f32 scratch; out [n, heads, d] f32; den [n, heads] f32;
+// scratch [slots, heads * d] and scratch_den [slots, heads] f32; split_rows
+// [n_split], split_ptr [n_split + 1] int32. stride: an odd number of
+// entries >= the most entries a block's WALK_UNITS units hold. 2 <= heads <= 8; d a power of two in [32, 512];
 // heads * d <= 1024.
 PPT_EXPORT int ppt_gat_fwd_mh(const float* h, const float* a_src, const float* a_dst,
-                              const int* row_ptr, const int* src, const float* mask,
-                              void* hs_bf16, float* gs, float* gd, float* out, float* den, int n,
-                              int heads, int d, int n_edges, void* stream) {
+                              const int* piece_ptr, const int* piece_out, const int* unit_ptr,
+                              const int* src, const int* erow, const float* mask, void* hs_bf16,
+                              float* gs, float* gd, float* out, float* den, float* scratch,
+                              float* scratch_den, const int* split_rows, const int* split_ptr,
+                              int n, int heads, int d, int n_edges, int n_units, int n_split,
+                              int stride, void* stream) {
   if (heads < 2 || heads > 8 || d < 32 || d > 512 || (d & (d - 1)) != 0 || heads * d > 1024)
+    return cudaErrorInvalidValue;
+  const int nc = heads * d / (hs_bf16 != nullptr ? 8 : 4);  // >= 8: 1, 2 or 4 groups a warp
+  const int groups = nc < 32 ? 32 / nc : 1;
+  if (stride % 2 == 0 ||
+      (n_split > 0 && (piece_out == nullptr || scratch == nullptr || scratch_den == nullptr)))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 block(32 * WARPS_PER_BLOCK);
   const dim3 grid((n + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK);
-  const int vph = d / 32;
+  const size_t smem = static_cast<size_t>(stride) * 4 * (1 + heads * (mask != nullptr ? 2 : 1));
+  cudaError_t err;
   if (hs_bf16 != nullptr) {
     auto* hs = static_cast<__nv_bfloat16*>(hs_bf16);
     node_terms_mh<__nv_bfloat16><<<grid, block, 0, st>>>(h, a_src, a_dst, hs, gs, gd, n, heads, d);
-    const cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    const FwdArgs<__nv_bfloat16> a{hs, gs, gd, row_ptr, src, mask, out, den, n, n_edges};
-    return launch<__nv_bfloat16>(heads, vph, grid, block, st, a);
+    const WalkArgs<__nv_bfloat16> a{hs, gs, gd, piece_ptr, piece_out, unit_ptr, src, erow, mask,
+                                    out, den, scratch, scratch_den, n_units, n_edges, heads, d,
+                                    nc, groups, stride};
+    err = launch_walk(a, smem, st);
+  } else {
+    node_terms_mh<float><<<grid, block, 0, st>>>(h, a_src, a_dst, nullptr, gs, gd, n, heads, d);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const WalkArgs<float> a{h, gs, gd, piece_ptr, piece_out, unit_ptr, src, erow, mask, out, den,
+                            scratch, scratch_den, n_units, n_edges, heads, d, nc, groups, stride};
+    err = launch_walk(a, smem, st);
   }
-  node_terms_mh<float><<<grid, block, 0, st>>>(h, a_src, a_dst, nullptr, gs, gd, n, heads, d);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const FwdArgs<float> a{h, gs, gd, row_ptr, src, mask, out, den, n, n_edges};
-  return launch<float>(heads, vph, grid, block, st, a);
+  if (err != cudaSuccess || n_split == 0) return err;
+  const long long threads = static_cast<long long>(n_split) * heads * d / 4;
+  aggregate_mh_combine<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, st>>>(
+      reinterpret_cast<const float4*>(scratch), scratch_den, split_rows, split_ptr,
+      reinterpret_cast<float4*>(out), den, n_split, heads, d);
+  return cudaGetLastError();
 }

@@ -47,22 +47,15 @@
 //   STAGE of its idx and values into shared memory with cp.async, which
 //   takes the idx load out of every entry's chain of dependent loads.
 // spmm_combine: each split row's scratch rows summed in piece order into y.
-// No atomics, a fixed order: the same bits on every run.
-#include "common.cuh"
+// No atomics, a fixed order: the same bits on every run. The cp.async
+// helpers live in walk.cuh, which the attention walks (kernels 8 and 3)
+// share.
+#include "walk.cuh"
 
 namespace {
 
 constexpr int WARPS_PER_BLOCK = 8;
 constexpr int STAGE = 2048;  // entries of idx and values a block stages (16 KB)
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
 
 // The output row of piece p: y row p without a piece map, else y row o for
 // o >= 0 or scratch row -1 - o.

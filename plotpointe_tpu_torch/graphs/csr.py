@@ -6,8 +6,9 @@ edge's id is its position in that order (the canonical id the hash dropout
 mask keys on) and each destination's in-edges are one contiguous CSR row.
 
 The TPU layout pieces are not carried over: no sentinel padding edges, no
-chunk arrays. The attention kernels walk plain CSR rows, one warp per row,
-so they need neither. The backward's source-order pass walks a transpose
+chunk arrays. The attention kernels walk plain CSR rows (one warp a row,
+or, in kernels 8 and B2, the piece plan of `ops/spmm_kernel.py` over the
+CSR's entries), so they need neither. The backward's source-order pass walks a transpose
 CSR (`t_ptr`, `t_dst`, `t_eid`): the same edges grouped by source, each
 carrying its destination and its canonical id.
 

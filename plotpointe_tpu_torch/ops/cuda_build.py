@@ -51,12 +51,12 @@ I = ctypes.c_int
 SIGNATURES = {
     "gat_fwd": ("ppt_gat_fwd", [P] * 11 + [I, I, P]),
     "gat_bwd_dst": ("ppt_gat_bwd_dst", [P, I] + [P] * 11 + [I, I, I, P, P]),
-    "gat_bwd_src": ("ppt_gat_bwd_src", [P, P, I] + [P] * 10 + [I, I, I, P, P]),
+    "gat_bwd_src": ("ppt_gat_bwd_src", [P, P, I] + [P] * 18 + [I] * 6 + [P, P]),
     "gather_fence": ("ppt_gather_fence", [P, I, I, I, P, P]),
     "topk_chunkmax": ("ppt_topk_chunkmax", [P, P, P, I, I, I, I, P]),
     "topk_rescore": ("ppt_topk_rescore", [P, P, P, P, I, I, I, I, I, P]),
     "spmm_csr": ("ppt_spmm_csr", [P, I] + [P] * 9 + [I, I, I, I, P]),
-    "gat_fwd_mh": ("ppt_gat_fwd_mh", [P] * 11 + [I, I, I, I, P]),
+    "gat_fwd_mh": ("ppt_gat_fwd_mh", [P] * 18 + [I] * 7 + [P]),
     "gat_bwd_dst_mh": ("ppt_gat_bwd_dst_mh", [P, I] + [P] * 11 + [I, I, I, I, I, P]),
     "knn_topk": ("ppt_knn_topk", [P, P, P, P, I, I, I, P]),
     "knn_topk_fast": ("ppt_knn_topk_fast", [P, P, P, I, I, I, P]),

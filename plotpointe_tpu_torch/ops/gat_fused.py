@@ -17,6 +17,13 @@ Each `*_plain` function is the same function in plain PyTorch, used for CPU
 tensors and as the reference its kernel is held to on the card. A wrapper
 launches its kernel for CUDA tensors (or raises) and counts the launch.
 
+Kernels 8 and B2 walk the cached piece plan of `row_ptr` and of `t_ptr`
+(`spmm_kernel.cached_walk`) and read rows in 16-byte loads: their wrappers
+raise where a row view they would pass does not start 16-byte aligned, or
+its rows are not a multiple of 16 bytes apart. `attention_fwd_mh_pieces`
+and `attention_bwd_src_pieces` are the two functions in the walks' order of
+sums, for the tests.
+
 Rounding matches the TPU kernels: source rows are rounded to `hs_dtype`
 (for the source logit term gs = round(h) . a_src, the aggregation and the
 backward's row products), the destination term gd = h . a_dst uses the f32
@@ -48,7 +55,8 @@ from plotpointe_tpu_torch import reference_active, reference_versions  # noqa: F
 from plotpointe_tpu_torch.graphs.csr import Graph
 from plotpointe_tpu_torch.ops import cuda_build as cb
 from plotpointe_tpu_torch.ops.segment import EPS, LEAKY_SLOPE, LOGIT_CLAMP, edge_numerators
-from plotpointe_tpu_torch.ops.spmm_kernel import spmm_gathered, spmm_gathered_plain
+from plotpointe_tpu_torch.ops.spmm_kernel import (
+    CAP, cached_walk, piece_order_sum, spmm_gathered, spmm_gathered_plain)
 
 LAUNCHES = cb.COUNTERS["gat_fwd"]
 BWD_DST_LAUNCHES = cb.COUNTERS["gat_bwd_dst"]
@@ -141,6 +149,15 @@ def _check_mask(mask, graph, device):
     if mask is not None and (mask.shape != (graph.n_edges,) or mask.dtype != torch.float32
                              or mask.device != device):
         raise ValueError(f"mask must be float32 [{graph.n_edges}] on {device}")
+
+
+def _check_rows_aligned(name, t):
+    """The walk kernels (8 and B2) read rows in 16-byte loads: the first
+    row and the row stride of `t` must be 16-byte aligned."""
+    if t.data_ptr() % 16 or t.stride(0) * t.element_size() % 16:
+        raise ValueError(f"{name} rows must start 16-byte aligned, 16 bytes apart or a multiple of "
+                         f"that: the kernel reads them in 16-byte loads (address % 16 = "
+                         f"{t.data_ptr() % 16}, row stride {t.stride(0)} elements)")
 
 
 def _check(h, a_src, a_dst, graph, mask, hs_dtype):
@@ -304,17 +321,44 @@ def attention_bwd_src(rows, gh, a_src, gs, gd, den, godot, graph: Graph,
     if rows.is_cpu:
         return attention_bwd_src_plain(rows, gh, a_src, gs, gd, den, godot, graph, mask)
     dev = rows.device
-    dh = torch.empty((n, d), dtype=torch.float32, device=dev)
     if rows.stride(1) != 1 or gh.stride() != rows.stride():
         rows, gh = rows.contiguous(), gh.contiguous()
-    tables = [t.contiguous() for t in (a_src.reshape(d), gs, gd, den, godot, graph.t_ptr,
-                                       graph.t_dst, graph.t_eid)]
+    _check_rows_aligned("rows", rows)
+    _check_rows_aligned("gh", gh)
+    (piece_ptr, piece_out, unit_ptr, n_slots, split_rows, split_ptr, n_units, n_split), erow, most = \
+        cached_walk(graph.t_ptr)
+    dh = torch.empty((n, d), dtype=torch.float32, device=dev)
+    w = min(d, STRIP)
+    scratch = torch.empty((n_slots, w), dtype=torch.float32, device=dev) if n_split else None
+    scratch_de = torch.empty(n_slots, dtype=torch.float32, device=dev) if n_split else None
+    tables = [t.contiguous() for t in (gs, gd, den, godot)]
+    a_s = cb.aligned(a_src.reshape(d))  # read in 16-byte loads
     m = None if mask is None else mask.contiguous()
     ghs = _edge_scratch(graph, d, dev)  # held until the launch is queued
     cb.launch("gat_bwd_src", dev, cb.ptr(rows), cb.ptr(gh), int(rows.dtype == torch.bfloat16),
-              *map(cb.ptr, tables), cb.ptr(m), cb.ptr(dh), n, d, rows.stride(0), cb.ptr(ghs))
+              cb.ptr(a_s), *map(cb.ptr, tables), piece_ptr, piece_out, unit_ptr,
+              *map(cb.ptr, (graph.t_ptr, graph.t_dst, graph.t_eid, erow, m, dh, scratch, scratch_de)),
+              split_rows, split_ptr, n, d, rows.stride(0), n_units, n_split, most | 1, cb.ptr(ghs))
     BWD_SRC_LAUNCHES.bump()
     return dh
+
+
+def attention_bwd_src_pieces(rows, gh, a_src, gs, gd, den, godot, graph: Graph,
+                             mask: Optional[torch.Tensor] = None, cap: int = CAP):
+    """B2's function in the kernel's order of sums: each piece of the
+    transpose CSR's `piece_plan(t_ptr, cap)` sums (alpha_e * gh_d, de_e) in
+    entry order, a split row's pieces are added in piece order, then
+    dh = sum + (sum de) * a_src. For the tests of that order."""
+    eid, dst = graph.t_eid.long(), graph.t_dst.long()
+    src = graph.src.long()[eid]
+    num, deriv = _edge_terms(gs, gd, src, dst)
+    ghd = gh.float()[dst]
+    ghs = (ghd * rows.float()[src]).sum(1)
+    den_e = den[dst] + EPS
+    m = 1.0 if mask is None else mask[eid]
+    de = ((m * ghs - godot[dst]) / den_e) * deriv
+    sums = piece_order_sum(torch.cat([(m * num / den_e)[:, None] * ghd, de[:, None]], 1), graph.t_ptr, cap)
+    return sums[:, :-1] + sums[:, -1:] * a_src.reshape(1, -1)
 
 
 def _backward(h2, a_src, a_dst, graph, g2, out2, den, rows, gs, gd, mask, plain):
@@ -444,17 +488,22 @@ def _fwd_mh(h, a_src, a_dst, graph, mask, hs_dtype, plain=False):
                 rows, gs, gd)
     dev = h.device
     h = h.contiguous()
+    bf16 = hs_dtype == torch.bfloat16
+    if not bf16:
+        _check_rows_aligned("h", h.view(n, heads * d))  # the f32 rows are h itself
     a_s, a_d = a_src.contiguous(), a_dst.contiguous()
     m = None if mask is None else mask.contiguous()
-    hs = torch.empty((n, heads, d), dtype=torch.bfloat16, device=dev) \
-        if hs_dtype == torch.bfloat16 else None
+    (piece_ptr, piece_out, unit_ptr, n_slots, split_rows, split_ptr, n_units, n_split), erow, most = \
+        cached_walk(graph.row_ptr)
+    hs = torch.empty((n, heads, d), dtype=torch.bfloat16, device=dev) if bf16 else None
     gs = torch.empty((n, heads), dtype=torch.float32, device=dev)
     gd, den = torch.empty_like(gs), torch.empty_like(gs)
     out = torch.empty((n, heads, d), dtype=torch.float32, device=dev)
-    cb.launch("gat_fwd_mh", dev, cb.ptr(h), cb.ptr(a_s), cb.ptr(a_d),
-              cb.ptr(graph.row_ptr.contiguous()), cb.ptr(graph.src.contiguous()), cb.ptr(m),
-              cb.ptr(hs), cb.ptr(gs), cb.ptr(gd), cb.ptr(out), cb.ptr(den), n, heads, d,
-              graph.n_edges)
+    scratch = torch.empty((n_slots, heads * d), dtype=torch.float32, device=dev) if n_split else None
+    scratch_den = torch.empty((n_slots, heads), dtype=torch.float32, device=dev) if n_split else None
+    cb.launch("gat_fwd_mh", dev, *map(cb.ptr, (h, a_s, a_d)), piece_ptr, piece_out, unit_ptr,
+              *map(cb.ptr, (graph.src, erow, m, hs, gs, gd, out, den, scratch, scratch_den)),
+              split_rows, split_ptr, n, heads, d, graph.n_edges, n_units, n_split, most | 1)
     MH_LAUNCHES.bump()
     return out, den, (h if hs is None else hs), gs, gd
 
@@ -465,6 +514,23 @@ def attention_fwd_mh_plain(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Te
     """h [N, H, D] f32, a_src/a_dst [H, D], mask [H, E] or None -> (out
     [N, H, D], den [N, H]): kernel 1's function for each head."""
     return _fwd_mh(h, a_src, a_dst, graph, mask, hs_dtype, plain=True)[:2]
+
+
+def attention_fwd_mh_pieces(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
+                            graph: Graph, mask: Optional[torch.Tensor] = None,
+                            hs_dtype: torch.dtype = torch.bfloat16, cap: int = CAP):
+    """Kernel 8's function in its order of sums: each piece of
+    `piece_plan(row_ptr, cap)` sums (w_e * hs_src [H, D], num_e [H]) in entry
+    order, a split row's pieces are added in piece order, then out = sum /
+    (den + 1e-9). For the tests of that order."""
+    n, heads, d = h.shape
+    rows, gs, gd = node_terms_mh_plain(h, a_src, a_dst, hs_dtype)
+    num = torch.stack([edge_numerators(gs[:, k], gd[:, k], graph) for k in range(heads)], 1)
+    w = num if mask is None else num * mask.T
+    msg = torch.cat([(w[:, :, None] * rows.float()[graph.src.long()]).reshape(-1, heads * d), num], 1)
+    sums = piece_order_sum(msg, graph.row_ptr, cap)
+    den = sums[:, heads * d:]
+    return sums[:, :heads * d].view(n, heads, d) / (den[:, :, None] + EPS), den
 
 
 def attention_fwd_mh(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,

@@ -30,6 +30,12 @@ and the groups of a warp walk about as many entries each. The pieces of a
 split row are summed in f32 scratch rows, then combined in piece order. The
 plan depends on `ptr` alone and is built once per `ptr` tensor (a graph is
 fixed), on its device, and cached while that tensor lives.
+
+The gathering attention kernels 8 and 3 (B2) walk the same plans: of
+`row_ptr` and of `t_ptr`. `cached_walk` keeps, beside the plan of a `ptr`
+tensor, each entry's row and the most entries a block of their walk
+(WALK_UNITS units) holds, which sizes its shared memory. `piece_order_sum`
+is the walks' order of sums in plain PyTorch, for the tests.
 """
 from __future__ import annotations
 
@@ -123,24 +129,89 @@ def piece_plan(ptr: torch.Tensor, cap: int = CAP, unit: int = UNIT) -> PiecePlan
                      n_pieces, units.shape[0] - 1, int(split_ptr[-1]))
 
 
-_plans: Dict[int, Tuple[weakref.ref, int, int, PiecePlan, tuple]] = {}
+def piece_order_sum(msg: torch.Tensor, ptr: torch.Tensor, cap: int = CAP) -> torch.Tensor:
+    """[nnz, W] f32 per-entry rows -> [R, W] row sums in the order of the
+    walk kernels: each piece of `piece_plan(ptr, cap)` summed alone in entry
+    order, then each split row's pieces added in piece order. A plain
+    function for the tests of that order; no wrapper calls it."""
+    plan = piece_plan(ptr, cap)
+    piece_ptr = ptr if plan.piece_ptr is None else plan.piece_ptr
+    piece = torch.repeat_interleave(torch.arange(plan.n_pieces, device=msg.device),
+                                    (piece_ptr[1:] - piece_ptr[:-1]).long(), output_size=msg.shape[0])
+    sums = torch.zeros((plan.n_pieces, msg.shape[1]), dtype=msg.dtype, device=msg.device)
+    sums.index_add_(0, piece, msg)
+    if plan.piece_out is None:
+        return sums
+    y = torch.zeros((ptr.shape[0] - 1, msg.shape[1]), dtype=msg.dtype, device=msg.device)
+    whole = plan.piece_out >= 0
+    y[plan.piece_out[whole].long()] = sums[whole]
+    slots = torch.empty((plan.n_slots, msg.shape[1]), dtype=msg.dtype, device=msg.device)
+    slots[(-1 - plan.piece_out[~whole]).long()] = sums[~whole]
+    for r, s0, s1 in zip(plan.split_rows.tolist(), plan.split_ptr[:-1].tolist(), plan.split_ptr[1:].tolist()):
+        acc = torch.zeros_like(slots[s0])
+        for s in range(s0, s1):
+            acc = acc + slots[s]
+        y[r] = acc
+    return y
+
+
+_plans: Dict[int, Tuple[weakref.ref, int, int, dict]] = {}
 _plans_lock = threading.Lock()
 
 
-def _cached_plan(ptr: torch.Tensor) -> Tuple[PiecePlan, tuple]:
-    """(piece_plan(ptr), its launch arguments), built once per ptr tensor
-    (and again if it was written in place), dropped when the tensor is
-    freed."""
+def _memo(ptr: torch.Tensor, name: str, build):
+    """`build()`, computed once per ptr tensor (and again if it was written
+    in place) and kept under `name` until the tensor is freed."""
     key = id(ptr)
     hit = _plans.get(key)
-    if hit is not None and hit[0]() is ptr and hit[1] == ptr._version and hit[2] == ptr.data_ptr():
-        return hit[3], hit[4]
-    plan = piece_plan(ptr)
-    args = plan.launch_args(ptr)
-    with _plans_lock:
-        _plans[key] = (weakref.ref(ptr, lambda _, k=key: _plans.pop(k, None)), ptr._version,
-                       ptr.data_ptr(), plan, args)
-    return plan, args
+    if hit is None or hit[0]() is not ptr or hit[1] != ptr._version or hit[2] != ptr.data_ptr():
+        with _plans_lock:
+            hit = (weakref.ref(ptr, lambda _, k=key: _plans.pop(k, None)), ptr._version,
+                   ptr.data_ptr(), {})
+            _plans[key] = hit
+    if name not in hit[3]:
+        hit[3][name] = build()
+    return hit[3][name]
+
+
+def _cached_plan(ptr: torch.Tensor) -> Tuple[PiecePlan, tuple]:
+    """(piece_plan(ptr), its launch arguments), built once per ptr tensor."""
+    def build():
+        plan = piece_plan(ptr)
+        return plan, plan.launch_args(ptr)
+    return _memo(ptr, "plan", build)
+
+
+WALK_UNITS = 8  # units one block of the attention walks takes (csrc/walk.cuh)
+
+
+def entry_rows(ptr: torch.Tensor) -> torch.Tensor:
+    """[nnz] int32: the row of each CSR entry (for the destination CSR, each
+    edge's dst; for the transpose CSR, each entry's source)."""
+    lens = (ptr[1:] - ptr[:-1]).long()
+    return torch.repeat_interleave(torch.arange(lens.shape[0], device=ptr.device, dtype=torch.int32),
+                                   lens, output_size=int(ptr[-1]))
+
+
+def block_entries(plan: PiecePlan, ptr: torch.Tensor) -> int:
+    """The most entries that WALK_UNITS consecutive units of the plan hold:
+    a block's share of the attention walk, which it stages in shared
+    memory."""
+    if plan.n_units == 0:
+        return 0
+    piece_ptr = ptr if plan.piece_ptr is None else plan.piece_ptr
+    starts = piece_ptr[plan.unit_ptr[::WALK_UNITS].long()].long()
+    ends = torch.cat([starts[1:], piece_ptr[-1:].long()])
+    return int((ends - starts).max())
+
+
+def cached_walk(ptr: torch.Tensor) -> Tuple[tuple, torch.Tensor, int]:
+    """The attention walk's inputs for `ptr`, built once per ptr tensor: the
+    plan's launch arguments, each entry's row (`entry_rows`) and the most
+    entries a block holds (`block_entries`)."""
+    plan, args = _cached_plan(ptr)
+    return args, _memo(ptr, "rows", lambda: entry_rows(ptr)), \
+        _memo(ptr, "block_entries", lambda: block_entries(plan, ptr))
 
 
 def spmm_csr_plain(x: torch.Tensor, values: torch.Tensor, ptr: torch.Tensor, idx: torch.Tensor,

@@ -5,7 +5,10 @@ its edge-balanced walk (rows above the piece cap, empty rows, both
 directions, the pre-gathered modes of kernels 13 and 15), the kNN
 candidates (10, 11), the read-stream probe (6), the smoke's affine pass
 (12) and the host time of a launch, the legacy attention contracts (13, 14,
-15), and same-seed trainer determinism.
+15), same-seed trainer determinism, and the edge-balanced walk of kernels 8
+and 3 (rows of 10,000 and 3,000 entries and a star's, 2 to 8 heads, strided
+head rows and column strips in B2, equal bits on a second call, misaligned
+rows raising).
 
 Every test here needs an NVIDIA GPU and skips without one. This file imports
 no JAX, so it also runs where JAX is absent:
@@ -732,3 +735,114 @@ def test_host_us_per_launch_is_finite(cuda):
     x = torch.randn((256, 128), device=cuda)
     us = chip_smoke.host_us_per_launch(lambda: affine(x), calls=50, warmup=5)
     assert np.isfinite(us) and us > 0
+
+
+# -- the edge-balanced walk of kernels 8 (csrc/gat_fwd_mh.cu) and 3 (B2) -------
+
+
+def _star_graph(n=4000):
+    """Node 0 takes an in-edge from and sends an out-edge to every other
+    node: one row of n - 1 entries in each CSR, every other row one entry."""
+    leaves = np.arange(1, n)
+    return build_graph(np.concatenate([leaves, np.zeros(n - 1, int)]),
+                       np.concatenate([np.zeros(n - 1, int), leaves]), n)
+
+
+def _walk_graph(kind, rng):
+    return (_skewed_graph(rng) if kind == "skewed" else _star_graph()).to("cuda")
+
+
+@pytest.mark.parametrize("kind", ["skewed", "star"])
+@pytest.mark.parametrize("heads,d", [(2, 128), (4, 128), (8, 128), (2, 32), (3, 64)])
+@pytest.mark.parametrize("hs_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fwd_mh_walk_on_rows_above_the_cap_matches_plain(cuda, kind, heads, d, hs_dtype, masked):
+    """Kernel 8 over rows of 10,000 and 3,000 entries (skewed) or 3,999
+    (star), empty rows and one-entry rows, at 2 to 8 heads (lane groups of
+    8 to 32 lanes, 1 to 8 chunks a lane): out and den within rtol 1e-4 /
+    atol 1e-5 of the plain version, one count per call, the same bits on a
+    second call."""
+    from plotpointe_tpu_torch.ops.gat_fused import attention_fwd_mh, attention_fwd_mh_plain, dropout_mask_mh
+
+    rng = np.random.default_rng(heads * d)
+    g = _walk_graph(kind, rng)
+    h = torch.as_tensor(rng.normal(size=(g.n_nodes, heads, d)).astype(np.float32), device=cuda)
+    a_s, a_d = (torch.as_tensor((rng.normal(size=(heads, d)) * 0.1).astype(np.float32), device=cuda)
+                for _ in range(2))
+    mask = dropout_mask_mh(g, 0.3, 77, heads, cuda) if masked else None
+    before = cuda_build.COUNTERS["gat_fwd_mh"].count
+    out, den = attention_fwd_mh(h, a_s, a_d, g, mask=mask, hs_dtype=hs_dtype)
+    again = attention_fwd_mh(h, a_s, a_d, g, mask=mask, hs_dtype=hs_dtype)
+    torch.cuda.synchronize()
+    assert cuda_build.COUNTERS["gat_fwd_mh"].count == before + 2
+    want_out, want_den = attention_fwd_mh_plain(h, a_s, a_d, g, mask=mask, hs_dtype=hs_dtype)
+    torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(den, want_den, rtol=1e-4, atol=1e-5)
+    assert torch.equal(out, again[0]) and torch.equal(den, again[1])
+    if kind == "skewed":
+        assert torch.all(out[1:7] == 0) and torch.all(den[1:7] == 0)
+
+
+@pytest.mark.parametrize("kind", ["skewed", "star"])
+@pytest.mark.parametrize("d", [32, 128, 544, 1024])
+@pytest.mark.parametrize("hs_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strided", [False, True])
+def test_bwd_src_walk_on_rows_above_the_cap_matches_plain(cuda, kind, d, hs_dtype, strided):
+    """B2 over the transpose CSR's hot rows (3,000 out-edges of node 9, or
+    the star's 3,999), with the 0.3 mask, on contiguous rows or on the last
+    head's rows of [N, 2, D] tensors read with a row stride; D 544 and
+    1,024 run in column strips. The cotangent is scaled by 0.02 so that a
+    row of thousands of entries sums to O(1), where the plain version's own
+    f32 error stays inside rtol 5e-4 / atol 1e-4. One count per call, the
+    same bits on a second call."""
+    rng = np.random.default_rng(d + 3)
+    g = _walk_graph(kind, rng)
+    heads = 2 if strided else 1
+    n = g.n_nodes
+
+    def t(*shape, scale=1.0):
+        return torch.as_tensor((rng.normal(size=shape) * scale).astype(np.float32), device=cuda)
+
+    h, ct = t(n, heads, d), t(n, heads, d, scale=0.02)
+    a_s, a_d = t(1, d, scale=0.1), t(1, d, scale=0.1)
+    mask = hash_mask(99, torch.arange(g.n_edges, device=cuda), 0.3)
+    k = heads - 1
+    rows, gs, gd = node_terms_plain(h[:, k], a_s, a_d, hs_dtype)
+    if strided:
+        rows = h.to(hs_dtype)[:, k]
+        assert rows.stride(0) == 2 * d
+    out, den = attention_fwd_plain(h[:, k:k + 1], a_s, a_d, g, mask=mask, hs_dtype=hs_dtype)
+    godot = (ct[:, k] * out[:, 0]).sum(1)
+    gh = ct.to(hs_dtype)[:, k] if strided else ct[:, k].to(hs_dtype)
+    args = (rows, gh, a_s, gs, gd, den, godot, g, mask)
+    before = cuda_build.COUNTERS["gat_bwd_src"].count
+    dh, again = attention_bwd_src(*args), attention_bwd_src(*args)
+    torch.cuda.synchronize()
+    assert cuda_build.COUNTERS["gat_bwd_src"].count == before + 2
+    torch.testing.assert_close(dh, attention_bwd_src_plain(*args), **GRAD_TOL)
+    assert torch.equal(dh, again)
+    if kind == "skewed":
+        assert torch.all(dh[1:7] == 0)
+
+
+def test_walk_kernels_raise_on_misaligned_rows(cuda):
+    """Rows that do not start on a 16-byte boundary raise before any launch
+    (no plain version runs on the card): kernel 8's f32 rows (h itself) and
+    B2's bf16 row view."""
+    from plotpointe_tpu_torch.ops.gat_fused import attention_fwd_mh
+
+    rng = np.random.default_rng(0)
+    g = _graph(rng).to(cuda)
+    n, heads, d = g.n_nodes, 2, 64
+    flat = torch.randn(n * heads * d + 1, device=cuda)
+    h = flat[1:].view(n, heads, d)
+    a = torch.randn((heads, d), device=cuda) * 0.1
+    before = {k: cuda_build.COUNTERS[k].count for k in ("gat_fwd_mh", "gat_bwd_src")}
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_fwd_mh(h, a, a, g, hs_dtype=torch.float32)
+    wide = torch.randn((n, d + 8), device=cuda).to(torch.bfloat16)
+    rows = wide[:, 1:d + 1]
+    vec = torch.rand(n, device=cuda) + 1.0
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_bwd_src(rows, rows, a[:1], vec, vec, vec, vec, g)
+    assert {k: cuda_build.COUNTERS[k].count for k in before} == before

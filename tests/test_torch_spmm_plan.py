@@ -13,35 +13,18 @@ import torch
 
 from plotpointe_tpu_torch.ops import spmm_kernel
 from plotpointe_tpu_torch.ops.spmm_kernel import (
-    CAP, UNIT, piece_plan, spmm_csr_plain, spmm_gathered_plain)
+    CAP, UNIT, piece_order_sum, piece_plan, spmm_csr_plain, spmm_gathered_plain)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
 
 def _pieces_in_order(x, values, ptr, idx, rows_dtype, cap):
-    """csrc/spmm_csr.cu's function in its order of sums: each piece of
-    `piece_plan(ptr, cap)` summed alone, then each split row's pieces added
-    in piece order. values None: unit weights; idx None: entry e reads x
-    row e."""
-    plan = piece_plan(ptr, cap)
-    piece_ptr = ptr if plan.piece_ptr is None else plan.piece_ptr
-    n_rows, e = ptr.shape[0] - 1, int(ptr[-1])
-    rows = x.to(rows_dtype).float()[idx.long() if idx is not None else slice(0, e)]
-    msg = rows if values is None else values[:, None] * rows
-    piece = torch.repeat_interleave(torch.arange(plan.n_pieces), (piece_ptr[1:] - piece_ptr[:-1]).long())
-    sums = torch.zeros((plan.n_pieces, x.shape[1])).index_add_(0, piece, msg)
-    if plan.piece_out is None:
-        return sums
-    y = torch.zeros((n_rows, x.shape[1]))
-    whole = plan.piece_out >= 0
-    y[plan.piece_out[whole].long()] = sums[whole]
-    slots = sums[~whole][torch.argsort(-1 - plan.piece_out[~whole])]
-    for r, s0, s1 in zip(plan.split_rows.tolist(), plan.split_ptr[:-1].tolist(), plan.split_ptr[1:].tolist()):
-        acc = slots[s0]
-        for s in range(s0 + 1, s1):
-            acc = acc + slots[s]
-        y[r] = acc
-    return y
+    """csrc/spmm_csr.cu's function in its order of sums (`piece_order_sum`:
+    each piece of `piece_plan(ptr, cap)` summed alone, then each split row's
+    pieces added in piece order). values None: unit weights; idx None:
+    entry e reads x row e."""
+    rows = x.to(rows_dtype).float()[idx.long() if idx is not None else slice(0, int(ptr[-1]))]
+    return piece_order_sum(rows if values is None else values[:, None] * rows, ptr, cap)
 
 
 def _ptr(lens):
@@ -139,3 +122,26 @@ def test_plan_cache_is_per_ptr_tensor():
     del ptr, first, again
     gc.collect()
     assert key not in spmm_kernel._plans
+
+
+def test_walk_inputs_are_cached_beside_the_plan():
+    """`cached_walk` (kernels 8 and 3): the plan's launch arguments, each
+    entry's row and the most entries WALK_UNITS consecutive units hold, kept
+    under the same ptr tensor as kernel 7's plan and rebuilt with it; other
+    ptr tensors keep their own."""
+    lens = _lens(np.random.default_rng(2))
+    ptr = _ptr(lens)
+    args, rows, most = spmm_kernel.cached_walk(ptr)
+    plan = spmm_kernel._cached_plan(ptr)[0]
+    assert args == plan.launch_args(ptr)
+    assert np.array_equal(rows.numpy(), np.repeat(np.arange(len(lens)), lens))
+    pp, up = plan.piece_ptr.numpy(), plan.unit_ptr.numpy()
+    starts = pp[up[::spmm_kernel.WALK_UNITS]]
+    assert most == np.diff(np.append(starts, pp[-1])).max() <= spmm_kernel.WALK_UNITS * (UNIT + CAP)
+    again = spmm_kernel.cached_walk(ptr)
+    assert again[1] is rows and again[2] == most
+    other = _ptr(lens[::-1].copy())
+    assert not torch.equal(spmm_kernel.cached_walk(other)[1], rows)
+    assert spmm_kernel.cached_walk(ptr)[1] is rows
+    ptr[1:] += 1  # written in place: everything is built again
+    assert spmm_kernel.cached_walk(ptr)[1] is not rows
