@@ -17,8 +17,10 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
   check    each kernel vs its plain version on the card, at a small shape and
            at the main paths' shapes (tolerances below); kernels 1, 2, 3 and
            14 at widths above one column strip (D 1,024 on 40 nodes, D 544
-           on the main graph); the attention ops' and the SpMM operator's
-           gradients vs autograd of the plain goldens
+           on the main graph); top-K's kernels 4 and 5 on the 498,196-row
+           catalog at B 1, 8 and 64, and `topk_mips`'s indices against
+           `topk_mips_ref`'s wherever untied; the attention ops' and the SpMM
+           operator's gradients vs autograd of the plain goldens
   train    path 1, every launch counter set to 0 first: `train_from_artifacts`
            (interactions.npz + features npy -> `--epochs` optimizer steps of
            200,000 BPR triples with dropout 0.1 and bf16 rows, a 1,000-negative
@@ -80,9 +82,13 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
   timing   CUDA-event times of each kernel, its plain version and, where one
            PyTorch call computes the same function, that call; the bound with
            its reckoning; `host_us_per_launch`, the host's time to issue one
-           call of the kernel 12 and kernel 7 wrappers beside
-           `torch.addcmul`; kernel 1 split into its two CUDA kernels and timed on
-           a graph of the same size without degree skew; the training step
+           call of the kernel 12, 4 and 7 wrappers beside
+           `torch.addcmul`; kernel 1 with the export's f32 rows and the
+           training step's bf16 rows and mask, split into its CUDA kernels and
+           timed on a graph of the same size without degree skew; kernel 4 at
+           B 1, 8 and 64 in f32 and bf16, and one `topk_mips` call split by
+           CUDA events into chunk-max, the first `torch.topk`, rescore and
+           the final selection; the training step
            split into sampling, forward, backward and optimizer, and its
            device time by kernel with the idle share (torch.profiler); one
            eval pass; kernel 7 in both directions with `torch.sparse.mm` as
@@ -101,9 +107,11 @@ Nothing here imports JAX or the JAX package.
 
 times only kernels 7, 12, 13 and 15 and `host_us_per_launch` (`time_rule2`),
 kernels 8 and 3 at the 2-head and GAT training shapes and kernel 8 at the
-export's (`time_gather_trees`), and kernels 10 and 11 on the graph-build
-subsets at 63,001 x 128 and x 384 with the ptxas report of kernels 3, 8,
-10 and 11 (`time_knn_trees`), for the port in the checkout DIR
+export's (`time_gather_trees`), kernel 4 at B 1, 8 and 64 in f32 and bf16
+and kernels 1 and 14 at the training and export shapes
+(`time_topk_and_fwd_trees`), and kernels 10 and 11 on the graph-build
+subsets at 63,001 x 128 and x 384 with the ptxas report of kernels 1, 3,
+4, 8, 10 and 11 (`time_knn_trees`), for the port in the checkout DIR
 (an earlier commit, say) and for this one, each tree in a process of its
 own that builds its own kernels, in turns (DIR, this, this, DIR) on one
 card; both trees read the same graph and rows, saved once; every line
@@ -181,7 +189,7 @@ LEGACY = (("legacy_v2", 128, 1), ("legacy_v1", 64, 1), ("legacy_v1_mh", 128, 2))
 LIGHTGCN = dict(embed_dim=64, n_prop_layers=3, batch_size=8192, neg_per_pos=5)
 MH_HEADS = 2
 # the libraries whose ptxas lines (registers, spills, shared memory) the build line carries
-PTXAS_REPORTED = ("knn_topk", "knn_topk_fast", "gat_fwd_mh", "gat_bwd_src")
+PTXAS_REPORTED = ("knn_topk", "knn_topk_fast", "gat_fwd_mh", "gat_bwd_src", "topk_chunkmax", "gat_fwd")
 KNN = dict(k=20, min_similarity=0.3)  # the pipeline's build-knn defaults
 KNN_TOL = dict(rtol=1e-5, atol=1e-5)  # f32 scores of the same rows, summed in another order
 TIE_TOL = 1e-5  # candidates whose scores lie this close may swap places
@@ -238,9 +246,74 @@ def gather_ms(nbytes: dict, n_gathers: int, row_bytes: int) -> float:
     return (sum(nbytes.values()) + n_gathers * row_bytes) / (spec()["hbm_gbps"] * 1e9) * 1e3
 
 
+def topk_bound(b: int, n: int, d: int, dname: str) -> dict:
+    """Kernel 4's bound for b queries over n x d rows of `dname`: the catalog
+    and the queries read once, the [b, ceil(n / 128)] maxima written; the
+    2 b n d operations in the route the kernel takes (three TF32 passes for
+    f32 tables, one bf16 pass). `bound_cuda_cores_ms` is the same work on
+    the f32 CUDA cores, the yardstick of the kernel's earlier CUDA-core
+    design."""
+    sz = 4 if dname == "float32" else 2
+    nbytes = {"x": n * d * sz, "q": b * d * sz, "out": b * (-(-n // 128)) * 4}
+    ops = 2 * b * n * d
+    route, passes, odt = ("3xTF32", 3, "tfloat32") if sz == 4 else ("bf16", 1, "bfloat16")
+    b_ms, b_by = bound(sum(nbytes.values()), passes * ops, odt)
+    return {"bound_ms": b_ms, "bound_by": b_by, "ops_dtype": odt, "ops_route": route,
+            "bound_bytes": nbytes, "bound_ops": passes * ops,
+            "bound_cuda_cores_ms": bound(sum(nbytes.values()), ops, "float32")[0]}
+
+
+def topk_phase_split(x, q, k: int, iters: int = 20, warmup: int = 3) -> dict:
+    """One exact-mode `topk_mips(x, q, k)` split by CUDA events into four
+    stretches of device time: chunk-max, the first `torch.topk` (with the
+    chunk ids' clamp and cast), rescore, and the final selection (`torch.topk`,
+    the gather of item ids, the -1 fill). The steps repeat
+    ops/topk_kernel.topk_mips's. Each stretch runs from one event to the
+    next on the stream, so it holds the idle time the host leaves between
+    launches; each call starts after a synchronise, as a served batch does.
+    `host_ms` is the host clock per synchronised call."""
+    import torch
+
+    from plotpointe_tpu_torch.ops import topk_kernel as tk
+
+    n = x.shape[0]
+    names = ("chunk_max", "first_topk", "rescore", "final_select")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+
+    def once():
+        ev[0].record()
+        cm = tk.chunk_max(x, q)
+        ev[1].record()
+        _, sel = torch.topk(cm, min(k + tk.CHUNK_MARGIN, cm.shape[1]), dim=1)
+        chunk_id = torch.clamp(sel, max=(n - 1) // tk.CHUNK).to(torch.int32)
+        ev[2].record()
+        scores = tk.rescore(x, q, chunk_id).flatten(1)
+        ev[3].record()
+        v, pos = torch.topk(scores, k, dim=1)
+        item = chunk_id.long()[:, :, None] * tk.CHUNK + torch.arange(tk.CHUNK, device=x.device)
+        i = torch.gather(item.flatten(1), 1, pos)
+        torch.where(v > tk.NEG_INF / 2, i, torch.full_like(i, -1)).to(torch.int32)
+        ev[4].record()
+
+    for _ in range(warmup):
+        once()
+    torch.cuda.synchronize()
+    sums = dict.fromkeys(names, 0.0)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        once()
+        torch.cuda.synchronize()
+        for j, name in enumerate(names):
+            sums[name] += ev[j].elapsed_time(ev[j + 1])
+    host = (time.perf_counter() - t0) / iters * 1e3
+    split = {name: v / iters for name, v in sums.items()}
+    return {"split_ms": split, "device_ms": sum(split.values()), "host_ms": host, "iters": iters}
+
+
 def fwd_mh_bytes(n: int, e: int, hh: int, d: int, masked: bool) -> dict:
-    """Kernel 8's compulsory bytes: each input read once, each output
-    written once (the rounded rows and the per-edge row gathers are not)."""
+    """The attention forward's compulsory bytes at hh heads (kernels 1 and
+    14 at one, 8 at more): each input read once, each output written once
+    (the rounded rows and the per-edge row gathers are not)."""
     return {"h": n * hh * d * 4, "a": 2 * hh * d * 4, "row_ptr": (n + 1) * 4, "src": e * 4,
             "mask": hh * e * 4 if masked else 0, "out": n * hh * d * 4, "den": n * hh * 4}
 
@@ -372,7 +445,7 @@ def main() -> int:
     ap.add_argument("--epochs", type=int, default=3, help="optimizer steps of the train phase")
     ap.add_argument("--layers", type=int, default=2, help="GAT depth of the trained model")
     ap.add_argument("--compare-with", metavar="DIR", default=None,
-                    help="only time kernels 3, 7, 8, 10, 11, 12, 13, 15 and host_us_per_launch, for "
+                    help="only time kernels 1, 3, 4, 7, 8, 10-15 and host_us_per_launch, for "
                          "the port in DIR (another checkout) and this one, in turns on this card")
     ap.add_argument("--rows-of", metavar="DIR", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--graph", default=None, help=argparse.SUPPRESS)
@@ -399,9 +472,10 @@ GRAPH_ARRAYS = ("row_ptr", "src", "t_ptr", "t_dst", "t_eid")
 
 
 def rows_of(args) -> int:
-    """`time_rule2` and `time_gather_trees` with the package of the checkout
-    `--rows-of` on the graph saved at `--graph`, then `time_knn_trees` on the rows saved at
-    `--knn-rows`; each line labelled `--tree`."""
+    """`time_rule2`, `time_gather_trees` and `time_topk_and_fwd_trees` with
+    the package of the checkout `--rows-of` on the graph saved at `--graph`,
+    then `time_knn_trees` on the rows saved at `--knn-rows`; each line
+    labelled `--tree`."""
     from types import SimpleNamespace
 
     import torch
@@ -417,6 +491,7 @@ def rows_of(args) -> int:
                             **{k: z[k].to("cuda") for k in GRAPH_ARRAYS})
     time_rule2({}, graph, "cuda", tree=args.tree)
     time_gather_trees(graph, "cuda", args.tree)
+    time_topk_and_fwd_trees(graph, "cuda", args.tree)
     del graph, z
     torch.cuda.empty_cache()
     from plotpointe_tpu_torch.graphs.knn import l2_normalize
@@ -427,8 +502,9 @@ def rows_of(args) -> int:
 
 
 def run_compare(args, work: Path) -> int:
-    """Kernels 7, 12, 13 and 15, the launch path's host time and kernels 8
-    and 3 on the main graph of `run`, then kernels 10 and 11 on its graph-build subsets
+    """Kernels 7, 12, 13 and 15, the launch path's host time, kernels 8, 3,
+    4, 1 and 14 on the main graph and catalog of `run`, then kernels 10 and
+    11 on its graph-build subsets
     (`build-subset` of the seeded catalog at 128 and 384 d), for the
     checkout `--compare-with` and this one, each in a process of its own
     that builds that checkout's kernels, in turns (the other, this, this,
@@ -779,10 +855,17 @@ def phase_check(errs, rng, graph, h0, a_s, a_d, catalog, dev) -> None:
                 xt = x.to(dt)
                 errs.check("gather_fence", f"{label} {list(xt.shape)} {str(dt)[6:]}", gather_fence(xt),
                            gather_fence_plain(xt), FENCE_TOL)
-        for label, n, b in (("small", 5000, 8), ("main", CATALOG, 64)):
+        # B 1: a single request; 8 and 64: the batcher's batches. The main B 1
+        # and B 8 queries come from a generator of their own (`own`), so the
+        # numpy stream the later phases draw their data from is unchanged.
+        for label, n, b, own in (("small", 5000, 8, None), ("main", CATALOG, 1, 101),
+                                 ("main", CATALOG, 8, 108), ("main", CATALOG, 64, None)):
             for dt in (torch.float32, torch.bfloat16):
                 x = catalog[:n].to(dt)
-                q = torch.as_tensor(rng.normal(size=(b, 128)).astype(np.float32), device=dev).to(dt)
+                q = (torch.as_tensor(rng.normal(size=(b, 128)).astype(np.float32), device=dev)
+                     if own is None else
+                     torch.randn((b, 128), generator=torch.Generator(device=dev).manual_seed(own),
+                                 device=dev)).to(dt)
                 what = f"{label} N={n} B={b} {str(dt)[6:]}"
                 cm = chunk_max(x, q)
                 errs.check("topk_chunkmax", what, cm, chunk_max_plain(x, q), SCORE_TOL)
@@ -790,8 +873,42 @@ def phase_check(errs, rng, graph, h0, a_s, a_d, catalog, dev) -> None:
                 cid[:, -1] = n_chunks_of(n) - 1  # the tail chunk, partly past N
                 errs.check("topk_rescore", what + f" R={cid.shape[1]}", rescore(x, q, cid),
                            rescore_plain(x, q, cid), SCORE_TOL)
+                check_topk_indices(what, x, q, 32)
     sync()
     check_knn(errs, "small", small_knn_rows(rng, dev))
+
+
+def untied(v, tol=SCORE_TOL):
+    """[B, k] mask of the places of descending scores v [B, k + 1] that no
+    tie within twice the score band straddles."""
+    import torch
+
+    gap = (v[:, :-1] - v[:, 1:]).abs() <= 2 * (tol["atol"] + tol["rtol"] * v[:, :-1].abs())
+    tied = torch.zeros_like(v, dtype=torch.bool)
+    tied[:, :-1] |= gap
+    tied[:, 1:] |= gap
+    return ~tied[:, :-1]
+
+
+def check_topk_indices(what: str, x, q, k: int) -> None:
+    """`topk_mips` against `topk_mips_ref` (the full f32 score matrix and
+    one `torch.topk`): scores within SCORE_TOL, indices equal wherever no
+    tie within twice that band straddles a place (the (k + 1)-th reference
+    score shows a tie at the last place)."""
+    import torch
+
+    from plotpointe_tpu_torch.ops.topk_kernel import topk_mips, topk_mips_ref
+
+    gi, gv = topk_mips(x, q, k)
+    wi, wv = topk_mips_ref(x, q, k + 1)
+    keep = untied(wv)
+    off = int((gi[keep] != wi[:, :k][keep]).sum())
+    ok = off == 0 and bool(torch.allclose(gv, wv[:, :k], **SCORE_TOL))
+    emit({"phase": "check", "kernel": "topk_mips", "case": what + f" k={k} indices where untied",
+          "untied": int(keep.sum()), "of": keep.numel(), "differ": off,
+          "max_abs_err": float((gv - wv[:, :k]).abs().max()), "ok": ok})
+    if not ok:
+        raise AssertionError(f"topk_mips ({what}): {off} untied indices differ from topk_mips_ref")
 
 
 def write_artifacts(work: Path, inter, feats):
@@ -1512,11 +1629,11 @@ def profile_train_step(label: str, tr, step_s: float) -> None:
     busy = sum(by_kernel.values())
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15])
     ours = {k: sum(v for n, v in by_kernel.items() if any(p in n for p in pats))
-            for k, pats in (("gat_fwd", ("aggregate<",)), ("gat_fwd node_terms", ("node_terms<",)),
+            # kernels 1 and 8 share one walk: its row is whichever the step ran
+            for k, pats in (("gat_fwd or gat_fwd_mh walk", ("attention_walk<", "attention_walk_combine(")),
+                            ("gat_fwd or gat_fwd_mh node_terms", ("node_terms<",)),
                             ("gat_bwd_dst", ("bwd_dst<",)),
                             ("gat_bwd_src", ("bwd_src_units<", "bwd_src_combine(")),
-                            ("gat_fwd_mh", ("aggregate_mh_units<", "aggregate_mh_combine(")),
-                            ("gat_fwd_mh node_terms", ("node_terms_mh<",)),
                             ("gat_bwd_dst_mh", ("bwd_dst_mh<",)),
                             ("spmm_csr", ("spmm_units<", "spmm_combine(")))}
     emit({"phase": "timing", "what": f"{label} training step profile", "device_busy_ms": busy,
@@ -1547,7 +1664,7 @@ def time_rule2(rows_out, graph, dev, tree: str = "change") -> None:
     `torch.sparse.mm` of the [N, E] CSR of its weights; kernel 15 (W 256, the
     2-head rows) against `torch.segment_reduce`; kernel 12 at the smoke's
     [256, 128] and at 256 MB against `torch.addcmul`. Then `host_us_per_launch`:
-    the host's microseconds per call of the kernel 12 and kernel 7 wrappers
+    the host's microseconds per call of the kernel 12, 4 and 7 wrappers
     and of `torch.addcmul`, over 200 calls with no synchronise in the loop,
     and of the kernel 12 wrapper's parts (its output's allocation, the C
     entry through ctypes without a launch and with one).
@@ -1561,6 +1678,7 @@ def time_rule2(rows_out, graph, dev, tree: str = "change") -> None:
     from plotpointe_tpu_torch.ops.gat_fused import segment_sum_rows, segment_sum_rows_plain
     from plotpointe_tpu_torch.ops.gat_kernel import fused_segment_reduce, fused_segment_reduce_plain
     from plotpointe_tpu_torch.ops.spmm_kernel import spmm_csr, spmm_csr_plain
+    from plotpointe_tpu_torch.ops.topk_kernel import chunk_max
 
     n, e, d = graph.n_nodes, graph.n_edges, LIGHTGCN["embed_dim"]
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -1633,8 +1751,11 @@ def time_rule2(rows_out, graph, dev, tree: str = "change") -> None:
                  "C entry, n = 0": host_us_per_launch(lambda: fn(0, 0, 0, st)),
                  "C entry, launching": host_us_per_launch(
                      lambda: fn(small.data_ptr(), out.data_ptr(), small.numel(), st))}
+        xt = torch.randn((4096, 128), generator=gen, device=dev)
+        qt = torch.randn((8, 128), generator=gen, device=dev)
         emit({"phase": "timing", "what": "host_us_per_launch", "tree": tree, "calls": 200,
               "smoke_affine [256, 128] f32": host_us_per_launch(lambda: affine(small)),
+              "topk_chunkmax N=4096 D=128 B=8 f32": host_us_per_launch(lambda: chunk_max(xt, qt)),
               f"spmm_csr N={n} E={e} D={d} rows=bfloat16 dst": host_us_per_launch(
                   lambda: spmm_csr(xb, v, graph.row_ptr, graph.src, torch.bfloat16)),
               "torch.addcmul [256, 128] f32": host_us_per_launch(lambda: torch.addcmul(one, small, two)),
@@ -1732,6 +1853,55 @@ def time_gather_trees(graph, dev, tree: str) -> None:
                   "shape": f"N={n} E={e} D={d} rows=bfloat16 mask=0.1 {label}",
                   "ms": time_ms(lambda: attention_bwd_src(rows, gh, a_s[1:], gs, gd, den, godot, graph, m1)),
                   "bound_ms": b_ms, "bound_by": b_by, "gather_ms": gather_ms(nbytes, e, d * 2)})
+
+
+def time_topk_and_fwd_trees(graph, dev, tree: str) -> None:
+    """`--compare-with`'s rows of kernels 4, 1 and 14, on inputs seeded on
+    the card (so each tree gets the same): kernel 4 (chunk-max)
+    over a 498,196 x 128 catalog at B 1, 8 and 64 in f32 and bf16, with its
+    bound, and the whole `topk_mips` (k 32) beside it with its split; kernel 1 on the main graph at D 128 with bf16 rows
+    and the 0.1 mask (the GAT step) and with f32 rows and no mask (the
+    export); kernel 14 (`fused_layer`, bf16 rows, the Bernoulli mask of the
+    v2 contract). Each line carries `tree`."""
+    import torch
+
+    from plotpointe_tpu_torch.ops.gat_fused import attention_fwd, hash_mask
+    from plotpointe_tpu_torch.ops.gat_kernel import fused_layer, legacy_mask
+    from plotpointe_tpu_torch.ops.topk_kernel import chunk_max, topk_mips
+
+    n, e, d = graph.n_nodes, graph.n_edges, 128
+    gen = torch.Generator(device=dev).manual_seed(17)
+    with torch.no_grad():
+        catalog = torch.randn((CATALOG, d), generator=gen, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            x, dname = catalog.to(dt), str(dt)[6:]
+            for b in (1, 8, 64):
+                q = torch.randn((b, d), generator=gen, device=dev).to(dt)
+                shape = f"N={CATALOG} D={d} B={b} {dname}"
+                emit({"phase": "timing", "kernel": "topk_chunkmax", "tree": tree, "shape": shape,
+                      "ms": time_ms(lambda: chunk_max(x, q)), **topk_bound(b, CATALOG, d, dname)})
+                emit({"phase": "timing", "kernel": "topk_mips", "tree": tree, "shape": shape, "k": 32,
+                      "ms": time_ms(lambda: topk_mips(x, q, 32)), **topk_phase_split(x, q, 32)})
+            del x
+        del catalog
+        h = torch.randn((n, 1, d), generator=gen, device=dev)
+        a_s, a_d = (torch.randn((1, d), generator=gen, device=dev) * 0.1 for _ in range(2))
+        mask = hash_mask(7, torch.arange(e, device=dev), 0.1)
+        for rows_dt, mk in ((torch.bfloat16, mask), (torch.float32, None)):
+            nbytes = fwd_mh_bytes(n, e, 1, d, mk is not None)
+            b_ms, b_by = bound(sum(nbytes.values()), 2 * e * d + 4 * n * d, "float32")
+            emit({"phase": "timing", "kernel": "gat_fwd", "tree": tree,
+                  "shape": f"N={n} E={e} D={d} rows={str(rows_dt)[6:]} mask={0.1 if mk is not None else 0}",
+                  "ms": time_ms(lambda: attention_fwd(h, a_s, a_d, graph, mask=mk, hs_dtype=rows_dt)),
+                  "bound_ms": b_ms, "bound_by": b_by,
+                  "gather_ms": gather_ms(nbytes, e, d * (4 if rows_dt == torch.float32 else 2))})
+        m1 = legacy_mask(graph, 1, 0.1, 7, dev)[:, 0].contiguous()
+        nbytes = fwd_mh_bytes(n, e, 1, d, True)
+        b_ms, b_by = bound(sum(nbytes.values()), 2 * e * d + 4 * n * d, "float32")
+        emit({"phase": "timing", "kernel": "fused_layer", "tree": tree,
+              "shape": f"N={n} E={e} D={d} rows=bfloat16 mask=0.1",
+              "ms": time_ms(lambda: fused_layer(h, a_s, a_d, graph, m1)), "bound_ms": b_ms,
+              "bound_by": b_by, "gather_ms": gather_ms(nbytes, e, d * 2)})
 
 
 def phase_tooling(errs, dev):
@@ -1869,11 +2039,11 @@ def time_tooling_and_legacy(rows_out, graph, h0, a_s, a_d, dev) -> None:
         mask = legacy_mask(graph, 1, 0.1, 7, dev)
         m1 = mask[:, 0].contiguous()
         d = h0.shape[-1]
+        nbytes = fwd_mh_bytes(n, e, 1, d, True)
         rows_out["fused_layer"] = timing_row(
             "fused_layer", f"N={n} E={e} D={d} rows=bfloat16 mask=0.1",
             lambda: fused_layer(h0, a_s, a_d, graph, m1), lambda: fused_layer_plain(h0, a_s, a_d, graph, m1),
-            {"h": n * d * 4, "a": 2 * d * 4, "row_ptr": (n + 1) * 4, "src": e * 4, "mask": e * 4,
-             "out": n * d * 4, "den": n * 4}, 2 * e * d + 4 * n * d, "float32")
+            nbytes, 2 * e * d + 4 * n * d, "float32", gather_ms=gather_ms(nbytes, e, d * 2))
         m, d, bm = 32768, 4096, 512
         xp = torch.randn((m, d), device=dev).to(torch.bfloat16)
         view = xp.view(m // bm * 8, bm // 8, d // 128, 128)
@@ -1889,28 +2059,28 @@ def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev):
     import torch
 
     from plotpointe_tpu_torch.graphs.csr import build_graph
-    from plotpointe_tpu_torch.ops.gat_fused import attention_fwd, attention_fwd_plain
+    from plotpointe_tpu_torch.ops.gat_fused import attention_fwd, attention_fwd_plain, hash_mask
     from plotpointe_tpu_torch.ops.gat_fused import gather_fence, gather_fence_plain
     from plotpointe_tpu_torch.ops.topk_kernel import (
-        CHUNK, CHUNK_MARGIN, chunk_max, chunk_max_plain, n_chunks_of, rescore, rescore_plain,
-        topk_mips, topk_mips_ref)
+        CHUNK, CHUNK_MARGIN, chunk_max, chunk_max_plain, rescore, rescore_plain, topk_mips,
+        topk_mips_ref)
 
     n, e, d = graph.n_nodes, graph.n_edges, 128
     rows = {}
     with torch.no_grad():
-        for rows_dt in (torch.float32, torch.bfloat16):
-            k_ms = time_ms(lambda: attention_fwd(h0, a_s, a_d, graph, hs_dtype=rows_dt))
-            p_ms = time_ms(lambda: attention_fwd_plain(h0, a_s, a_d, graph, hs_dtype=rows_dt), 5)
-            f1_bytes = 4 * (2 * n * d + 2 * d + (n + 1) + e + n)
-            b_ms, b_by = bound(f1_bytes, 2 * e * d + 4 * n * d, "float32")
-            line = {"phase": "timing", "kernel": "gat_fwd", "shape": f"N={n} E={e} D={d}",
-                    "rows": str(rows_dt)[6:], "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": None,
-                    "gather_ms": gather_ms({"all": f1_bytes}, e, d * (4 if rows_dt == torch.float32 else 2))}
-            emit(line)
-            rows.setdefault("gat_fwd", line)  # f32 rows: the export's mode
-        # where kernel 1's time goes: its two CUDA kernels, and the same N and
-        # E with uniform in-degrees (no hot rows)
+        mask = hash_mask(7, torch.arange(e, device=dev), 0.1)
+        # the export's f32 rows, then the training step's bf16 rows and 0.1 mask
+        for rows_dt, mk in ((torch.float32, None), (torch.bfloat16, mask)):
+            nbytes = fwd_mh_bytes(n, e, 1, d, mk is not None)
+            line = timing_row(
+                "gat_fwd", f"N={n} E={e} D={d} rows={str(rows_dt)[6:]} mask={0.1 if mk is not None else 0}",
+                lambda: attention_fwd(h0, a_s, a_d, graph, mask=mk, hs_dtype=rows_dt),
+                lambda: attention_fwd_plain(h0, a_s, a_d, graph, mask=mk, hs_dtype=rows_dt),
+                nbytes, 2 * e * d + 4 * n * d, "float32",
+                gather_ms=gather_ms(nbytes, e, d * (4 if rows_dt == torch.float32 else 2)))
+            rows["gat_fwd"] = line  # the training step's mode: 14 of the paths' 16 launches
+        # where kernel 1's time goes: its CUDA kernels, and the same N and E
+        # with uniform in-degrees (no hot rows)
         uni = build_graph(rng.integers(0, n, e), rng.integers(0, n, e), n).to(dev)
         split = {}
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1919,12 +2089,15 @@ def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev):
                     attention_fwd(h0, a_s, a_d, graph, hs_dtype=rows_dt)
             torch.cuda.synchronize()
         for ev in prof.key_averages():
-            if "node_terms" in ev.key or "aggregate" in ev.key:
-                split[ev.key.split("::")[-1].split("(")[0]] = ev.device_time_total / ev.count / 1e3
+            for name in ("attention_walk_combine", "attention_walk", "node_terms"):
+                if name + "<" in ev.key or name + "(" in ev.key:
+                    row = "<bfloat16>" if "bfloat16" in ev.key else ("<float>" if "<float" in ev.key else "")
+                    split[name + row] = ev.device_time_total / ev.count / 1e3
+                    break
         emit({"phase": "timing", "kernel": "gat_fwd", "profile_ms_per_call": split,
               "uniform_graph_ms": {str(r)[6:]: time_ms(lambda: attention_fwd(h0, a_s, a_d, uni, hs_dtype=r))
                                    for r in (torch.float32, torch.bfloat16)}})
-        del uni
+        del uni, mask
     time_backward(rows, graph, h0, a_s, a_d, dev, rng)
     with torch.no_grad():
         # JAX fences its gathered bf16 cotangent stream; the port has none, so
@@ -1940,25 +2113,29 @@ def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev):
         for dt in (torch.float32, torch.bfloat16):
             sz, dname = (4 if dt == torch.float32 else 2), str(dt)[6:]
             x = catalog.to(dt)
-            for b in (8, 64):
+            for b in (1, 8, 64):
                 q = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32), device=dev).to(dt)
                 k = 32  # the served kk: k=20 plus history, rounded up to 32
-                nc = n_chunks_of(CATALOG)
                 r = k + CHUNK_MARGIN
                 cid = torch.topk(chunk_max(x, q), r, dim=1)[1].to(torch.int32)
                 uniq = int(torch.unique(cid).numel())
                 shape = f"N={CATALOG} D={d} B={b} {dname}"
-                cm_b = bound(CATALOG * d * sz + b * d * sz + b * nc * 4, 2 * b * CATALOG * d, dname)
+                cm_b = topk_bound(b, CATALOG, d, dname)
                 rs_b = bound(uniq * CHUNK * d * sz + b * d * sz + b * r * 4 + b * r * CHUNK * 4,
                              2 * b * r * CHUNK * d, dname)
+                line = {"phase": "timing", "kernel": "topk_chunkmax", "shape": shape,
+                        "ms": time_ms(lambda: chunk_max(x, q)),
+                        "plain_ms": time_ms(lambda: chunk_max_plain(x, q), 5), **cm_b,
+                        "library_ms": None}
+                emit(line)
+                if dt == torch.float32 and b == 64:
+                    rows["topk_chunkmax"] = line  # the served dtype at the batcher's cap
                 lines = {
-                    "topk_chunkmax": (time_ms(lambda: chunk_max(x, q)),
-                                      time_ms(lambda: chunk_max_plain(x, q), 5), cm_b, None),
                     "topk_rescore": (time_ms(lambda: rescore(x, q, cid)),
                                      time_ms(lambda: rescore_plain(x, q, cid), 5), rs_b, None),
                     "topk_mips": (time_ms(lambda: topk_mips(x, q, k)),
                                   time_ms(lambda: topk_mips_ref(x, q, k), 5),
-                                  (cm_b[0] + rs_b[0], cm_b[1]),
+                                  (cm_b["bound_ms"] + rs_b[0], cm_b["bound_by"]),
                                   time_ms(lambda: torch.topk(q @ x.T, k, dim=1))),
                 }
                 for kname, (k_ms, p_ms, (b_ms, b_by), lib) in lines.items():
@@ -1967,7 +2144,9 @@ def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev):
                             "library_ms": lib}
                     emit(line)
                     if dt == torch.float32 and b == 64:
-                        rows[kname] = line  # the served dtype at the batcher's cap
+                        rows[kname] = line
+                emit({"phase": "timing", "what": "topk_mips split", "shape": shape, "k": k,
+                      **topk_phase_split(x, q, k)})
     time_rule2(rows, graph, dev)
     time_multihead(rows, graph, dev, rng)
     return rows
@@ -2046,7 +2225,9 @@ def run(args, work: Path, dev="cuda") -> int:
                         "max_abs_err": errs.max[kname], "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"], "sol_fraction": t["bound_ms"] / t["ms"],
-                        "sol_fraction_dev": sol_fraction_dev(t, peaks), "shape": t["shape"]})
+                        "sol_fraction_dev": sol_fraction_dev(t, peaks), "shape": t["shape"],
+                        **{key: t[key] for key in ("ops_route", "bound_cuda_cores_ms", "gather_ms")
+                           if key in t}})
     if "jax" in sys.modules or any(m.startswith("plotpointe_tpu.") or m == "plotpointe_tpu"
                                    for m in sys.modules):
         raise AssertionError("the port pulled in JAX or the JAX package")

@@ -58,7 +58,7 @@
 // by cp.async from one producer warp could not issue the copies fast enough.
 #pragma once
 
-#include "common.cuh"
+#include "tensor_core.cuh"
 
 constexpr int KNN_BR = 128;  // rows a block owns
 constexpr int KNN_BC = 128;  // columns per tile
@@ -89,52 +89,7 @@ __host__ __device__ constexpr size_t knn_smem_bytes(int r) {
          KNN_BR * sizeof(int) + knn_list_bytes(r);
 }
 
-// -- cp.async ------------------------------------------------------------------
-
-// 16 bytes from src to shared dst, or 16 zero bytes where !valid (src is then
-// not read, but must be a mapped address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until this thread's cp.async copies have landed.
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// -- wgmma ---------------------------------------------------------------------
-
-constexpr int SWIZZLE_128B = 1, SWIZZLE_64B = 2;  // wgmma descriptor layout types
-
-// Shared-memory descriptor of a K-major operand whose rows are `row_bytes`
-// long (128: SWIZZLE_128B; 64: SWIZZLE_64B), 8-row groups 8 * row_bytes apart;
-// p must lie at a multiple of 8 rows from a 1,024-byte aligned panel start.
-__device__ __forceinline__ unsigned long long wgmma_desc(const void* p, int row_bytes, int layout) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  return static_cast<unsigned long long>((a >> 4) & 0x3FFF) | (1ull << 16) |
-         (static_cast<unsigned long long>((8 * row_bytes) >> 4) << 32) |
-         (static_cast<unsigned long long>(layout) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Wait until this warpgroup's committed wgmma groups are done.
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
+// -- wgmma products ------------------------------------------------------------
 
 // d += A B^T, wgmma m64n128k16: bf16 A [64][16] and B [128][16], K-major in
 // shared memory (descriptors da, db); f32 accumulators in the layout above.

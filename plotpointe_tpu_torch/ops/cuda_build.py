@@ -49,7 +49,7 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 # C entry point and argument types of each library
 SIGNATURES = {
-    "gat_fwd": ("ppt_gat_fwd", [P] * 11 + [I, I, P]),
+    "gat_fwd": ("ppt_gat_fwd", [P] * 18 + [I] * 6 + [P]),
     "gat_bwd_dst": ("ppt_gat_bwd_dst", [P, I] + [P] * 11 + [I, I, I, P, P]),
     "gat_bwd_src": ("ppt_gat_bwd_src", [P, P, I] + [P] * 18 + [I] * 6 + [P, P]),
     "gather_fence": ("ppt_gather_fence", [P, I, I, I, P, P]),

@@ -17,12 +17,13 @@ Each `*_plain` function is the same function in plain PyTorch, used for CPU
 tensors and as the reference its kernel is held to on the card. A wrapper
 launches its kernel for CUDA tensors (or raises) and counts the launch.
 
-Kernels 8 and B2 walk the cached piece plan of `row_ptr` and of `t_ptr`
-(`spmm_kernel.cached_walk`) and read rows in 16-byte loads: their wrappers
+Kernels 1 and 8 walk the cached piece plan of `row_ptr`, and B2 that of
+`t_ptr` (`spmm_kernel.cached_walk`); kernels 1 and 8 share one walk
+(`csrc/gat_fwd_walk.cuh`). They read rows in 16-byte loads: their wrappers
 raise where a row view they would pass does not start 16-byte aligned, or
 its rows are not a multiple of 16 bytes apart. `attention_fwd_mh_pieces`
-and `attention_bwd_src_pieces` are the two functions in the walks' order of
-sums, for the tests.
+(kernel 1 at one head, kernel 8 at more) and `attention_bwd_src_pieces` are
+the functions in the walks' order of sums, for the tests.
 
 Rounding matches the TPU kernels: source rows are rounded to `hs_dtype`
 (for the source logit term gs = round(h) . a_src, the aggregation and the
@@ -152,7 +153,7 @@ def _check_mask(mask, graph, device):
 
 
 def _check_rows_aligned(name, t):
-    """The walk kernels (8 and B2) read rows in 16-byte loads: the first
+    """The walk kernels (1, 8 and B2) read rows in 16-byte loads: the first
     row and the row stride of `t` must be 16-byte aligned."""
     if t.data_ptr() % 16 or t.stride(0) * t.element_size() % 16:
         raise ValueError(f"{name} rows must start 16-byte aligned, 16 bytes apart or a multiple of "
@@ -185,18 +186,25 @@ def _fwd(h2, a_src, a_dst, graph, mask, hs_dtype, plain=False, counter=LAUNCHES)
         rows, gs, gd = node_terms_plain(h2, a_src, a_dst, hs_dtype)
         return (*_aggregate_plain(rows, gs, gd, graph, mask), rows, gs, gd)
     n, d = h2.shape
+    dev = h2.device
     h2 = h2.contiguous()
+    bf16 = hs_dtype == torch.bfloat16
+    if not bf16:
+        _check_rows_aligned("h", h2)  # the f32 rows are h itself
     a_s, a_d = a_src.reshape(d).contiguous(), a_dst.reshape(d).contiguous()
-    src, row_ptr = graph.src.contiguous(), graph.row_ptr.contiguous()
     m = None if mask is None else mask.contiguous()
-    hs = torch.empty((n, d), dtype=torch.bfloat16, device=h2.device) if hs_dtype == torch.bfloat16 else None
-    gs = torch.empty(n, dtype=torch.float32, device=h2.device)
-    gd = torch.empty_like(gs)
-    out = torch.empty((n, d), dtype=torch.float32, device=h2.device)
-    den = torch.empty_like(gs)
-    cb.launch("gat_fwd", h2.device, cb.ptr(h2), cb.ptr(a_s), cb.ptr(a_d), cb.ptr(row_ptr),
-              cb.ptr(src), cb.ptr(m), cb.ptr(hs), cb.ptr(gs), cb.ptr(gd), cb.ptr(out), cb.ptr(den),
-              n, d)
+    (piece_ptr, piece_out, unit_ptr, n_slots, split_rows, split_ptr, n_units, n_split), erow, most = \
+        cached_walk(graph.row_ptr)
+    hs = torch.empty((n, d), dtype=torch.bfloat16, device=dev) if bf16 else None
+    gs = torch.empty(n, dtype=torch.float32, device=dev)
+    gd, den = torch.empty_like(gs), torch.empty_like(gs)
+    out = torch.empty((n, d), dtype=torch.float32, device=dev)
+    # split rows' partial sums, one column strip (<= 512) at a time
+    scratch = torch.empty((n_slots, min(d, STRIP)), dtype=torch.float32, device=dev) if n_split else None
+    scratch_den = torch.empty(n_slots, dtype=torch.float32, device=dev) if n_split else None
+    cb.launch("gat_fwd", dev, *map(cb.ptr, (h2, a_s, a_d)), piece_ptr, piece_out, unit_ptr,
+              *map(cb.ptr, (graph.src, erow, m, hs, gs, gd, out, den, scratch, scratch_den)),
+              split_rows, split_ptr, n, d, graph.n_edges, n_units, n_split, most | 1)
     counter.bump()
     return out, den, (h2 if hs is None else hs), gs, gd
 
@@ -519,10 +527,12 @@ def attention_fwd_mh_plain(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Te
 def attention_fwd_mh_pieces(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
                             graph: Graph, mask: Optional[torch.Tensor] = None,
                             hs_dtype: torch.dtype = torch.bfloat16, cap: int = CAP):
-    """Kernel 8's function in its order of sums: each piece of
+    """The forward walk's function in its order of sums (kernel 1 at one
+    head, h [N, 1, D] and mask [1, E]; kernel 8 at more): each piece of
     `piece_plan(row_ptr, cap)` sums (w_e * hs_src [H, D], num_e [H]) in entry
     order, a split row's pieces are added in piece order, then out = sum /
-    (den + 1e-9). For the tests of that order."""
+    (den + 1e-9). Column strips do not change it: each column's sum is the
+    same. For the tests of that order."""
     n, heads, d = h.shape
     rows, gs, gd = node_terms_mh_plain(h, a_src, a_dst, hs_dtype)
     num = torch.stack([edge_numerators(gs[:, k], gd[:, k], graph) for k in range(heads)], 1)

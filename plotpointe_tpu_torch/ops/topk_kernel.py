@@ -2,8 +2,9 @@
 
 Counterpart of `plotpointe_tpu/ops/topk_kernel.py::topk_mips_pallas`:
 
-  phase 1 (`chunk_max`, kernel `csrc/topk_chunkmax.cu`): stream the catalog
-      once and keep only the max score of each 128-item chunk per query;
+  phase 1 (`chunk_max`, kernel `csrc/topk_chunkmax.cu`, on `wgmma`): stream
+      the catalog once and keep only the max score of each 128-item chunk
+      per query;
   selection: exact `torch.topk` over the chunk maxima, r = min(k + 8,
       n_chunks) chunks ("exact") or k + 2 ("fast");
   phase 2 (`rescore`, kernel `csrc/topk_rescore.cu`): exact f32 scores of
@@ -13,10 +14,14 @@ Counterpart of `plotpointe_tpu/ops/topk_kernel.py::topk_mips_pallas`:
 
 Exactness: every chunk holding a true top-k item has a max >= the k-th
 score, and at most k chunks can rank above it, so the top-(k + margin)
-chunks contain the true top-k. Both kernels sum each dot product in the same
-order, so a chunk's max is exactly the score its item gets in phase 2. The
-selection uses exact f32 maxima (the JAX package's truncated packed keys are
-a TPU device); ties at the k-th score may resolve to either index.
+chunks contain the true top-k. Phase 1 scores on the tensor cores (bf16
+tables in one pass, f32 tables in three TF32 passes over the hi/lo split of
+`knn_kernel.split_tf32`, f32-faithful), phase 2 with f32 FMAs, so a chunk's
+max may differ from the phase-2 score of its item by f32 rounding, as the
+JAX kernel's MXU phase 1 differs from its phase 2: the margins (8 exact, 2
+fast) absorb such ~1-ulp differences, as CHUNK_MARGIN does in JAX. The
+selection uses f32 maxima (the JAX package's truncated packed keys are a
+TPU device); ties at the k-th score may resolve to either index.
 
 Each kernel wrapper runs its plain version for CPU tensors.
 """

@@ -1,7 +1,8 @@
-"""Kernels 8 (head-packed forward) and 3 (B2) in the order of sums of their
-edge-balanced walk, on the CPU: `attention_fwd_mh_pieces` and
+"""Kernels 1 (single-head forward), 8 (head-packed forward) and 3 (B2) in
+the order of sums of their edge-balanced walk, on the CPU:
+`attention_fwd_mh_pieces` (kernel 1 at one head, kernel 8 at more) and
 `attention_bwd_src_pieces` sum each piece of `piece_plan` alone and a split
-row's pieces in piece order, as `csrc/gat_fwd_mh.cu` and
+row's pieces in piece order, as `csrc/gat_fwd_walk.cuh` and
 `csrc/gat_bwd_src.cu` do. A small cap (4, 8) on rows of 0 to 300 entries
 splits many rows. Each order is held against the JAX package (Pallas in
 interpret mode, as tests/test_torch_multihead.py and
@@ -24,7 +25,8 @@ from plotpointe_tpu.ops.gat_fused import attention_v3_mh as jax_attention_v3_mh
 from plotpointe_tpu_torch.graphs.csr import build_graph
 from plotpointe_tpu_torch.ops.gat_fused import (
     attention_bwd_dst_plain, attention_bwd_src_pieces, attention_bwd_src_plain,
-    attention_fwd_mh_pieces, attention_fwd_mh_plain, dropout_mask_mh, node_terms_mh_plain)
+    attention_fwd_mh_pieces, attention_fwd_mh_plain, attention_fwd_plain, dropout_mask,
+    dropout_mask_mh, node_terms_mh_plain)
 from plotpointe_tpu_torch.ops.spmm_kernel import piece_plan
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -54,12 +56,12 @@ def test_the_graph_splits_rows_in_both_directions(graphs):
         assert piece_plan(ptr, 4).split_rows.numel() > 100
 
 
-def _inputs(heads, seed=1):
+def _inputs(heads, seed=1, d=D):
     rng = np.random.default_rng(seed)
-    h = rng.normal(size=(N, heads, D)).astype(np.float32)
-    a_s = (rng.normal(size=(heads, D)) * 0.1).astype(np.float32)
-    a_d = (rng.normal(size=(heads, D)) * 0.1).astype(np.float32)
-    ct = rng.normal(size=(N, heads, D)).astype(np.float32)
+    h = rng.normal(size=(N, heads, d)).astype(np.float32)
+    a_s = (rng.normal(size=(heads, d)) * 0.1).astype(np.float32)
+    a_d = (rng.normal(size=(heads, d)) * 0.1).astype(np.float32)
+    ct = rng.normal(size=(N, heads, d)).astype(np.float32)
     return h, a_s, a_d, ct
 
 
@@ -95,6 +97,42 @@ def test_fwd_mh_piece_order_matches_jax_and_plain(graphs, cap, heads, hs_dtype, 
     torch.testing.assert_close(out, want_out, **TOL)
     torch.testing.assert_close(den, want_den, **TOL)
     np.testing.assert_allclose(out.numpy(), _jax_forward(jg, heads, hs_dtype, masked), **TOL)
+    assert torch.all(out[350:] == 0) and torch.all(den[2:4] == 0)
+
+
+_jax_fwd1 = {}
+
+
+def _jax_forward_1(jg, d, hs_dtype, masked):
+    """JAX's single-head `attention_v3` output, once per configuration."""
+    k = (d, hs_dtype, masked)
+    if k not in _jax_fwd1:
+        h, a_s, a_d, _ = _inputs(1, seed=3, d=d)
+        _jax_fwd1[k] = np.asarray(jax_attention_v3(
+            jnp.asarray(h), jnp.asarray(a_s), jnp.asarray(a_d), jg, dropout_rate=RATE if masked else 0.0,
+            rng=jax.random.key(5), hs_dtype=getattr(jnp, hs_dtype)))
+    return _jax_fwd1[k]
+
+
+@pytest.mark.parametrize("cap", [4, 8])
+@pytest.mark.parametrize("d", [128, 96])
+@pytest.mark.parametrize("hs_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fwd_single_head_piece_order_matches_jax_and_plain(graphs, cap, d, hs_dtype, masked):
+    """Kernel 1 on the walk: the head-packed order at one head (h [N, 1, D],
+    mask [1, E]) is JAX's `attention_v3` and the plain single-head forward,
+    at D 128 and at D 96 (a row of 24 f32 or 12 bf16 chunks: a lane group
+    of the next power of two with idle lanes on the card)."""
+    g, jg = graphs
+    h, a_s, a_d = map(torch.from_numpy, _inputs(1, seed=3, d=d)[:3])
+    mask = dropout_mask(g, RATE, _seed(jax.random.key(5)), "cpu") if masked else None
+    dt = getattr(torch, hs_dtype)
+    out, den = attention_fwd_mh_pieces(h, a_s, a_d, g, mask=None if mask is None else mask[None],
+                                       hs_dtype=dt, cap=cap)
+    want_out, want_den = attention_fwd_plain(h, a_s, a_d, g, mask=mask, hs_dtype=dt)
+    torch.testing.assert_close(out, want_out, **TOL)
+    torch.testing.assert_close(den[:, 0], want_den, **TOL)
+    np.testing.assert_allclose(out.numpy(), _jax_forward_1(jg, d, hs_dtype, masked), **TOL)
     assert torch.all(out[350:] == 0) and torch.all(den[2:4] == 0)
 
 

@@ -5,10 +5,10 @@ its edge-balanced walk (rows above the piece cap, empty rows, both
 directions, the pre-gathered modes of kernels 13 and 15), the kNN
 candidates (10, 11), the read-stream probe (6), the smoke's affine pass
 (12) and the host time of a launch, the legacy attention contracts (13, 14,
-15), same-seed trainer determinism, and the edge-balanced walk of kernels 8
-and 3 (rows of 10,000 and 3,000 entries and a star's, 2 to 8 heads, strided
-head rows and column strips in B2, equal bits on a second call, misaligned
-rows raising).
+15), same-seed trainer determinism, and the edge-balanced walk of kernels
+1, 8 and 3 (rows of 10,000 and 3,000 entries and a star's, 1 to 8 heads,
+D 96 on idle tail lanes, strided head rows, column strips in kernel 1 and
+B2, equal bits on a second call, misaligned rows raising).
 
 Every test here needs an NVIDIA GPU and skips without one. This file imports
 no JAX, so it also runs where JAX is absent:
@@ -19,8 +19,10 @@ Tolerances: attention rtol 1e-4 / atol 1e-5 (both sides round the same rows
 and sum in f32; only the summation order differs); attention gradients rtol
 5e-4 / atol 1e-4 (tests/test_gat_fused.py:53-55: sums over every edge of a
 row, with cancellation, in another order); SpMM rtol 1e-4 / atol 1e-5 (the
-same rounded rows, f32 sums, another order); scores rtol 1e-5 / atol 1e-4 (f32
-dot products of width <= 256, summed in another order); kNN candidate
+same rounded rows, f32 sums, another order); scores rtol 1e-5 / atol 1e-4 (SCORE_TOL:
+f32 dot products of width <= 1,024, summed in another order; the chunk max
+on the tensor cores, 3xTF32 or bf16, against f32 FMAs), top-K indices equal
+wherever no tie within twice that band straddles a place; kNN candidate
 scores rtol 1e-5 / atol 1e-5 (f32 dot products of unit rows, another order),
 their columns equal wherever no tie within 1e-5 straddles a place (kernel 11:
 recall >= 0.999 against its plain version; on rows along an arc, where the
@@ -44,6 +46,7 @@ from plotpointe_tpu_torch.ops.topk_kernel import (
     chunk_max, chunk_max_plain, n_chunks_of, rescore, rescore_plain, topk_mips, topk_mips_ref)
 
 pytestmark = pytest.mark.cuda
+SCORE_TOL = dict(rtol=1e-5, atol=1e-4)
 
 
 @pytest.fixture()
@@ -337,22 +340,69 @@ def test_gat_fwd_rejects_unsupported_width(cuda):
         attention_fwd(h, a, a, g)
 
 
+def _untied(v, tol=SCORE_TOL):
+    """[B, k] mask of the places of descending scores v [B, k + 1] (the
+    reference's, one beyond k) that no tie within twice the score band
+    straddles."""
+    gap = (v[:, :-1] - v[:, 1:]).abs() <= 2 * (tol["atol"] + tol["rtol"] * v[:, :-1].abs())
+    tied = torch.zeros_like(v, dtype=torch.bool)
+    tied[:, :-1] |= gap
+    tied[:, 1:] |= gap
+    return ~tied[:, :-1]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,b,d", [(1037, 1, 32), (5000, 8, 128), (2000, 20, 64), (3000, 64, 128),
-                                   (700, 100, 256)])
+                                   (700, 100, 256), (4097, 65, 96), (300, 70, 1024)])
 def test_topk_kernels_match_plain(cuda, dtype, n, b, d):
+    """Both phases against their plain versions at B 1 to 100 (slabs of 8
+    to 64 queries, 65 and 100 in two; D 1,024 in slabs of 16, the widest
+    that fits), ragged N. The tensor-core chunk max is within SCORE_TOL of
+    the max of its chunk's phase-2 scores (not bit-equal: 3xTF32 or bf16
+    products against f32 FMAs), and `topk_mips` returns `topk_mips_ref`'s
+    indices wherever no tie within the band straddles a place."""
     rng = np.random.default_rng(n + b)
     x = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32), device=cuda).to(dtype)
     q = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32), device=cuda).to(dtype)
     cm = chunk_max(x, q)
-    torch.testing.assert_close(cm, chunk_max_plain(x, q), rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(cm, chunk_max_plain(x, q), **SCORE_TOL)
     cid = torch.as_tensor(rng.integers(0, n_chunks_of(n), size=(b, 11)).astype(np.int32), device=cuda)
     cid[:, 0] = n_chunks_of(n) - 1  # the tail chunk, partly past N
     sc = rescore(x, q, cid)
-    torch.testing.assert_close(sc, rescore_plain(x, q, cid), rtol=1e-5, atol=1e-4)
-    # the chunk max is exactly the max of that chunk's phase-2 scores
+    torch.testing.assert_close(sc, rescore_plain(x, q, cid), **SCORE_TOL)
+    # the chunk max is within the score band of the max of that chunk's phase-2 scores
     full = rescore(x, q, torch.arange(n_chunks_of(n), device=cuda, dtype=torch.int32).repeat(b, 1))
-    assert torch.equal(full.amax(dim=2), cm)
+    torch.testing.assert_close(full.amax(dim=2), cm, **SCORE_TOL)
+    k = 20
+    gi, gv = topk_mips(x, q, k)
+    wi, wv = topk_mips_ref(x, q, k + 1)
+    torch.testing.assert_close(gv, wv[:, :k], **SCORE_TOL)
+    keep = _untied(wv)
+    assert torch.equal(gi[keep], wi[:, :k][keep])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 8, 64])
+def test_chunkmax_on_tied_rows_gives_the_same_bits_twice(cuda, dtype, b):
+    """A catalog of 20,000 rows, 2,000 of them copies of others (exact ties
+    in every query's scores), ragged last chunk: the chunk max within
+    SCORE_TOL of the plain one, equal bits on a second call, and the top-k
+    scores of `topk_mips` those of `topk_mips_ref`, its indices too wherever
+    untied."""
+    rng = np.random.default_rng(b)
+    x = rng.normal(size=(20_000, 128)).astype(np.float32)
+    src, dst = rng.choice(20_000, size=(2, 2000), replace=False)
+    x[dst] = x[src]
+    x = torch.as_tensor(x, device=cuda).to(dtype)
+    q = torch.as_tensor(rng.normal(size=(b, 128)).astype(np.float32), device=cuda).to(dtype)
+    cm = chunk_max(x, q)
+    torch.testing.assert_close(cm, chunk_max_plain(x, q), **SCORE_TOL)
+    assert torch.equal(cm, chunk_max(x, q))
+    gi, gv = topk_mips(x, q, 20)
+    wi, wv = topk_mips_ref(x, q, 21)
+    torch.testing.assert_close(gv, wv[:, :20], **SCORE_TOL)
+    keep = _untied(wv)
+    assert torch.equal(gi[keep], wi[:, :20][keep])
 
 
 @pytest.mark.parametrize("mode", ["exact", "fast"])
@@ -368,9 +418,10 @@ def test_topk_mips_on_card_matches_reference(cuda, mode):
 
 
 def test_chunkmax_rejects_width_over_shared_memory(cuda):
-    x = torch.zeros((256, 1024), device=cuda)  # a 64-query slab of 1024 f32 is 256 KB
+    # the narrowest slab, 8 f32 queries split into hi and lo, is 256 KB at 4,096 features
+    x = torch.zeros((256, 4096), device=cuda)
     with pytest.raises(ValueError):
-        chunk_max(x, torch.zeros((4, 1024), device=cuda))
+        chunk_max(x, torch.zeros((4, 4096), device=cuda))
     with pytest.raises(ValueError):  # bf16 rows are read 8 values at a time
         chunk_max(torch.zeros((256, 36), device=cuda).bfloat16(), torch.zeros((4, 36), device=cuda).bfloat16())
 
@@ -737,7 +788,7 @@ def test_host_us_per_launch_is_finite(cuda):
     assert np.isfinite(us) and us > 0
 
 
-# -- the edge-balanced walk of kernels 8 (csrc/gat_fwd_mh.cu) and 3 (B2) -------
+# -- the edge-balanced walk of kernels 1, 8 (csrc/gat_fwd_walk.cuh) and 3 (B2) --
 
 
 def _star_graph(n=4000):
@@ -823,6 +874,52 @@ def test_bwd_src_walk_on_rows_above_the_cap_matches_plain(cuda, kind, d, hs_dtyp
     assert torch.equal(dh, again)
     if kind == "skewed":
         assert torch.all(dh[1:7] == 0)
+
+
+@pytest.mark.parametrize("kind", ["skewed", "star"])
+@pytest.mark.parametrize("d", [32, 96, 128, 544, 1024])
+@pytest.mark.parametrize("hs_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fwd_single_head_walk_on_rows_above_the_cap_matches_plain(cuda, kind, d, hs_dtype, masked):
+    """Kernel 1 on the walk over rows of 10,000 and 3,000 entries (skewed)
+    or 3,999 (star), empty rows and one-entry rows: D 96 (lane groups of the
+    next power of two, tail lanes idle), D 544 and 1,024 (column strips);
+    out and den within rtol 1e-4 / atol 1e-5 of the plain version, one count
+    per call, the same bits on a second call."""
+    rng = np.random.default_rng(d + 5)
+    g = _walk_graph(kind, rng)
+    h = torch.as_tensor(rng.normal(size=(g.n_nodes, 1, d)).astype(np.float32), device=cuda)
+    a_s, a_d = (torch.as_tensor((rng.normal(size=(1, d)) * 0.05).astype(np.float32), device=cuda)
+                for _ in range(2))
+    mask = hash_mask(99, torch.arange(g.n_edges, device=cuda), 0.3) if masked else None
+    before = cuda_build.COUNTERS["gat_fwd"].count
+    out, den = attention_fwd(h, a_s, a_d, g, mask=mask, hs_dtype=hs_dtype)
+    again = attention_fwd(h, a_s, a_d, g, mask=mask, hs_dtype=hs_dtype)
+    torch.cuda.synchronize()
+    assert cuda_build.COUNTERS["gat_fwd"].count == before + 2
+    want_out, want_den = attention_fwd_plain(h, a_s, a_d, g, mask=mask, hs_dtype=hs_dtype)
+    torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(den, want_den, rtol=1e-4, atol=1e-5)
+    assert torch.equal(out, again[0]) and torch.equal(den, again[1])
+    if kind == "skewed":
+        assert torch.all(out[1:7] == 0) and torch.all(den[1:7] == 0)
+
+
+def test_single_head_walk_raises_on_misaligned_rows(cuda):
+    """Kernel 1's f32 rows (h itself) that do not start on a 16-byte
+    boundary raise before any launch; its bf16 rows are a fresh copy."""
+    rng = np.random.default_rng(0)
+    g = _graph(rng).to(cuda)
+    n, d = g.n_nodes, 64
+    h = torch.randn(n * d + 1, device=cuda)[1:].view(n, 1, d)
+    a = torch.randn((1, d), device=cuda) * 0.1
+    before = cuda_build.COUNTERS["gat_fwd"].count
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_fwd(h, a, a, g, hs_dtype=torch.float32)
+    assert cuda_build.COUNTERS["gat_fwd"].count == before
+    out, _ = attention_fwd(h, a, a, g, hs_dtype=torch.bfloat16)
+    torch.testing.assert_close(out, attention_fwd_plain(h, a, a, g, hs_dtype=torch.bfloat16)[0],
+                               rtol=1e-4, atol=1e-5)
 
 
 def test_walk_kernels_raise_on_misaligned_rows(cuda):
