@@ -75,10 +75,13 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            1 head (v1, kernel 13) and hidden 128 / 2 heads (v1, kernel 15),
            counters at 0 before each; each against the same call under
            `reference_versions()` (gradients within GRAD_TOL; the output
-           within ATTN_TOL where rows stay f32, and for v2 within the
-           training step's band: layer 2 rounds rows to bf16, and rows that
-           differ in the last f32 bit may round apart); each kernel must
-           have launched
+           within ATTN_TOL where rows stay f32). v2 runs at the main model
+           and at V2_MODEL_SEEDS more, its output held to `v2_out_tol`:
+           the last layer rounds rows to bf16, and rows that differ in the
+           last f32 bit may round a bf16 step apart; beside each, a flip
+           control (the plain path again with the last layer's weights one
+           f32 ulp up) shows how far such flips alone move the output; each
+           kernel must have launched
   timing   CUDA-event times of each kernel, its plain version and, where one
            PyTorch call computes the same function, that call; the bound with
            its reckoning; `host_us_per_launch`, the host's time to issue one
@@ -145,6 +148,7 @@ SCORE_TOL = dict(rtol=1e-5, atol=1e-4)  # f32 dot products of width 128, another
 # bf16 value; gradients summed over every item show it at ~2e-4 of their
 # largest entry (the same band as the CPU test against JAX)
 STEP_RTOL, STEP_ATOL_OF_MAX, LOSS_RTOL = 5e-4, 1e-3, 1e-5
+V2_MODEL_SEEDS = (0, 5, 9, 11)  # legacy v2 model seeds drawn besides the main one
 SERVE_RTOL = 1e-4  # served scores vs the plain CPU answer
 CATALOG = 498_196  # the reference's serving catalog
 SOURCES = {
@@ -155,7 +159,7 @@ SOURCES = {
     "topk_chunkmax": ("plotpointe_tpu_torch/csrc/topk_chunkmax.cu", "plotpointe_tpu/ops/topk_kernel.py:140"),
     "topk_rescore": ("plotpointe_tpu_torch/csrc/topk_rescore.cu", "plotpointe_tpu/ops/topk_kernel.py:175"),
     "spmm_csr": ("plotpointe_tpu_torch/csrc/spmm_csr.cu", "plotpointe_tpu/ops/spmm_kernel.py:34"),
-    "gat_fwd_mh": ("plotpointe_tpu_torch/csrc/gat_fwd_mh.cu", "plotpointe_tpu/ops/gat_fused.py:460"),
+    "gat_fwd_mh": ("plotpointe_tpu_torch/csrc/gat_fwd.cu", "plotpointe_tpu/ops/gat_fused.py:460"),
     "gat_bwd_dst_mh": ("plotpointe_tpu_torch/csrc/gat_bwd_dst_mh.cu",
                        "plotpointe_tpu/ops/gat_fused.py:557"),
     "knn_topk": ("plotpointe_tpu_torch/csrc/knn_topk.cu", "plotpointe_tpu/ops/knn_kernel.py:44"),
@@ -189,7 +193,7 @@ LEGACY = (("legacy_v2", 128, 1), ("legacy_v1", 64, 1), ("legacy_v1_mh", 128, 2))
 LIGHTGCN = dict(embed_dim=64, n_prop_layers=3, batch_size=8192, neg_per_pos=5)
 MH_HEADS = 2
 # the libraries whose ptxas lines (registers, spills, shared memory) the build line carries
-PTXAS_REPORTED = ("knn_topk", "knn_topk_fast", "gat_fwd_mh", "gat_bwd_src", "topk_chunkmax", "gat_fwd")
+PTXAS_REPORTED = ("knn_topk", "knn_topk_fast", "gat_fwd", "gat_bwd_src", "topk_chunkmax")
 KNN = dict(k=20, min_similarity=0.3)  # the pipeline's build-knn defaults
 KNN_TOL = dict(rtol=1e-5, atol=1e-5)  # f32 scores of the same rows, summed in another order
 TIE_TOL = 1e-5  # candidates whose scores lie this close may swap places
@@ -264,36 +268,23 @@ def topk_bound(b: int, n: int, d: int, dname: str) -> dict:
 
 
 def topk_phase_split(x, q, k: int, iters: int = 20, warmup: int = 3) -> dict:
-    """One exact-mode `topk_mips(x, q, k)` split by CUDA events into four
-    stretches of device time: chunk-max, the first `torch.topk` (with the
-    chunk ids' clamp and cast), rescore, and the final selection (`torch.topk`,
-    the gather of item ids, the -1 fill). The steps repeat
-    ops/topk_kernel.topk_mips's. Each stretch runs from one event to the
-    next on the stream, so it holds the idle time the host leaves between
-    launches; each call starts after a synchronise, as a served batch does.
-    `host_ms` is the host clock per synchronised call."""
+    """One exact-mode `topk_mips(x, q, k)` split into its four stages
+    (chunk-max, the first `torch.topk`, rescore, the final selection) by a
+    CUDA event that its `stage` hook records as each stage ends. Each
+    stretch runs from one event to the next on the stream, so it holds the
+    idle time the host leaves between launches; each call starts after a
+    synchronise, as a served batch does. `host_ms` is the host clock per
+    synchronised call."""
     import torch
 
-    from plotpointe_tpu_torch.ops import topk_kernel as tk
+    from plotpointe_tpu_torch.ops.topk_kernel import topk_mips
 
-    n = x.shape[0]
     names = ("chunk_max", "first_topk", "rescore", "final_select")
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+    ev = {name: torch.cuda.Event(enable_timing=True) for name in ("start",) + names}
 
     def once():
-        ev[0].record()
-        cm = tk.chunk_max(x, q)
-        ev[1].record()
-        _, sel = torch.topk(cm, min(k + tk.CHUNK_MARGIN, cm.shape[1]), dim=1)
-        chunk_id = torch.clamp(sel, max=(n - 1) // tk.CHUNK).to(torch.int32)
-        ev[2].record()
-        scores = tk.rescore(x, q, chunk_id).flatten(1)
-        ev[3].record()
-        v, pos = torch.topk(scores, k, dim=1)
-        item = chunk_id.long()[:, :, None] * tk.CHUNK + torch.arange(tk.CHUNK, device=x.device)
-        i = torch.gather(item.flatten(1), 1, pos)
-        torch.where(v > tk.NEG_INF / 2, i, torch.full_like(i, -1)).to(torch.int32)
-        ev[4].record()
+        ev["start"].record()
+        topk_mips(x, q, k, stage=lambda name: ev[name].record())
 
     for _ in range(warmup):
         once()
@@ -303,8 +294,8 @@ def topk_phase_split(x, q, k: int, iters: int = 20, warmup: int = 3) -> dict:
     for _ in range(iters):
         once()
         torch.cuda.synchronize()
-        for j, name in enumerate(names):
-            sums[name] += ev[j].elapsed_time(ev[j + 1])
+        for before, name in zip(("start",) + names, names):
+            sums[name] += ev[before].elapsed_time(ev[name])
     host = (time.perf_counter() - t0) / iters * 1e3
     split = {name: v / iters for name, v in sums.items()}
     return {"split_ms": split, "device_ms": sum(split.values()), "host_ms": host, "iters": iters}
@@ -878,18 +869,6 @@ def phase_check(errs, rng, graph, h0, a_s, a_d, catalog, dev) -> None:
     check_knn(errs, "small", small_knn_rows(rng, dev))
 
 
-def untied(v, tol=SCORE_TOL):
-    """[B, k] mask of the places of descending scores v [B, k + 1] that no
-    tie within twice the score band straddles."""
-    import torch
-
-    gap = (v[:, :-1] - v[:, 1:]).abs() <= 2 * (tol["atol"] + tol["rtol"] * v[:, :-1].abs())
-    tied = torch.zeros_like(v, dtype=torch.bool)
-    tied[:, :-1] |= gap
-    tied[:, 1:] |= gap
-    return ~tied[:, :-1]
-
-
 def check_topk_indices(what: str, x, q, k: int) -> None:
     """`topk_mips` against `topk_mips_ref` (the full f32 score matrix and
     one `torch.topk`): scores within SCORE_TOL, indices equal wherever no
@@ -897,11 +876,11 @@ def check_topk_indices(what: str, x, q, k: int) -> None:
     score shows a tie at the last place)."""
     import torch
 
-    from plotpointe_tpu_torch.ops.topk_kernel import topk_mips, topk_mips_ref
+    from plotpointe_tpu_torch.ops.topk_kernel import topk_mips, topk_mips_ref, untied
 
     gi, gv = topk_mips(x, q, k)
     wi, wv = topk_mips_ref(x, q, k + 1)
-    keep = untied(wv)
+    keep = untied(wv, **{key: 2 * v for key, v in SCORE_TOL.items()})
     off = int((gi[keep] != wi[:, :k][keep]).sum())
     ok = off == 0 and bool(torch.allclose(gv, wv[:, :k], **SCORE_TOL))
     emit({"phase": "check", "kernel": "topk_mips", "case": what + f" k={k} indices where untied",
@@ -1859,16 +1838,20 @@ def time_topk_and_fwd_trees(graph, dev, tree: str) -> None:
     """`--compare-with`'s rows of kernels 4, 1 and 14, on inputs seeded on
     the card (so each tree gets the same): kernel 4 (chunk-max)
     over a 498,196 x 128 catalog at B 1, 8 and 64 in f32 and bf16, with its
-    bound, and the whole `topk_mips` (k 32) beside it with its split; kernel 1 on the main graph at D 128 with bf16 rows
-    and the 0.1 mask (the GAT step) and with f32 rows and no mask (the
-    export); kernel 14 (`fused_layer`, bf16 rows, the Bernoulli mask of the
-    v2 contract). Each line carries `tree`."""
+    bound, and the whole `topk_mips` (k 32) beside it, with its split where
+    the tree's `topk_mips` has the `stage` hook; kernel 1 on the main graph
+    at D 128 with bf16 rows and the 0.1 mask (the GAT step) and with f32
+    rows and no mask (the export); kernel 14 (`fused_layer`, bf16 rows, the
+    Bernoulli mask of the v2 contract). Each line carries `tree`."""
+    import inspect
+
     import torch
 
     from plotpointe_tpu_torch.ops.gat_fused import attention_fwd, hash_mask
     from plotpointe_tpu_torch.ops.gat_kernel import fused_layer, legacy_mask
     from plotpointe_tpu_torch.ops.topk_kernel import chunk_max, topk_mips
 
+    hooked = "stage" in inspect.signature(topk_mips).parameters  # older trees have no hook
     n, e, d = graph.n_nodes, graph.n_edges, 128
     gen = torch.Generator(device=dev).manual_seed(17)
     with torch.no_grad():
@@ -1881,7 +1864,8 @@ def time_topk_and_fwd_trees(graph, dev, tree: str) -> None:
                 emit({"phase": "timing", "kernel": "topk_chunkmax", "tree": tree, "shape": shape,
                       "ms": time_ms(lambda: chunk_max(x, q)), **topk_bound(b, CATALOG, d, dname)})
                 emit({"phase": "timing", "kernel": "topk_mips", "tree": tree, "shape": shape, "k": 32,
-                      "ms": time_ms(lambda: topk_mips(x, q, 32)), **topk_phase_split(x, q, 32)})
+                      "ms": time_ms(lambda: topk_mips(x, q, 32)),
+                      **(topk_phase_split(x, q, 32) if hooked else {})})
             del x
         del catalog
         h = torch.randn((n, 1, d), generator=gen, device=dev)
@@ -1963,11 +1947,40 @@ def phase_tooling(errs, dev):
     return launches, peaks
 
 
+def v2_out_tol(model, x_feats, graph, seeds, out_p) -> dict:
+    """The legacy v2 output's band against its plain path. The last layer
+    rounds its rows h to bf16, and a value whose f32 bits differ between
+    the paths (earlier layers sum in another order) may round one bf16 step
+    apart: that moves an output by at most the step times the edges'
+    summed weight, mask * num / den <= 1 / (1 - dropout). So the band is
+    the training step's band (STEP_RTOL, STEP_ATOL_OF_MAX) plus one bf16
+    step of the largest |h| (read here by the model without its last layer,
+    plain versions) over 1 - dropout."""
+    import torch
+
+    from plotpointe_tpu_torch.ops.gat_fused import reference_versions
+
+    layers = model.layers
+    with torch.no_grad(), reference_versions():
+        model.layers = layers[:-1]
+        try:
+            x = model(x_feats, graph, train=True, seeds=seeds[:-1])
+        finally:
+            model.layers = layers
+        rows_max = float(torch.einsum("nf,fhd->nhd", x, layers[-1].w).abs().max())
+    step = 2.0 ** (math.floor(math.log2(rows_max)) - 7)  # bf16 keeps 8 significant bits
+    scale = float(out_p.abs().max())
+    return dict(rtol=STEP_RTOL, atol=STEP_ATOL_OF_MAX * scale + step / (1.0 - model.attn_dropout))
+
+
 def phase_legacy(errs, rng, s, feats, graph, layers: int, dev) -> dict:
     """Path 7: the GAT forward (train=True, dropout 0.1) and the backward of
     a fixed linear loss on the main graph marked `.with_tiling()`, per
     LEGACY configuration, with the kernels (counters at 0 first) and under
-    `reference_versions()`. Returns each configuration's launches."""
+    `reference_versions()`; v2 at its model from `rng` and at each of
+    V2_MODEL_SEEDS, each beside a flip control held to the same band (the
+    band's premise). Returns each
+    configuration's launches (those of its model from `rng`)."""
     import torch
 
     from plotpointe_tpu_torch.models.gat import GATModel
@@ -1979,49 +1992,69 @@ def phase_legacy(errs, rng, s, feats, graph, layers: int, dev) -> dict:
     x_feats = torch.as_tensor(feats, device=dev)
     by_path = {}
     for label, hidden, heads in LEGACY:
-        model = GATModel(s.n_users, s.n_items, 384, hidden, n_layers=layers, heads=heads,
-                         attn_dropout=0.1)
-        model.load_state_dict(params_from_jax(random_gat_params(rng, s.n_users, 384, hidden, layers,
-                                                                heads)))
-        model.to(dev)
-        ct = torch.as_tensor(rng.normal(size=(graph.n_nodes, hidden)).astype(np.float32), device=dev)
-        seeds = [int(x) for x in rng.integers(0, 2**32, layers)]
-        runs = {}
-        for plain in (False, True):
-            model.zero_grad(set_to_none=True)
-            cuda_build.reset_counters()
-            sync()
-            t0 = time.perf_counter()
-            with reference_versions() if plain else contextlib.nullcontext():
-                out = model(x_feats, tiled, train=True, seeds=seeds)
-                (out * ct).sum().backward()
-            sync()
-            runs[plain] = (out.detach(), {n: p.grad.detach().clone() for n, p in model.named_parameters()},
-                           counts(), time.perf_counter() - t0)
-            del out
-        (out_k, grads_k, launches, wall_k), (out_p, grads_p, plain_launches, wall_p) = runs[False], runs[True]
-        f32_rows = label != "legacy_v2"
-        scale = float(out_p.abs().max())
-        out_tol = ATTN_TOL if f32_rows else dict(rtol=STEP_RTOL, atol=STEP_ATOL_OF_MAX * scale)
-        out_err = float((out_k - out_p).abs().max())
-        out_ok = bool(torch.allclose(out_k, out_p, **out_tol)) and bool(torch.isfinite(out_k).all())
-        grad_err = {n: float((grads_k[n] - g).abs().max()) for n, g in grads_p.items()}
-        bad = [n for n, g in grads_p.items() if not torch.allclose(grads_k[n], g, **GRAD_TOL)]
-        missing = [k for k in PATH_KERNELS[label] if launches[k] == 0]
-        in_plain = [k for k in PATH_KERNELS[label] if plain_launches[k]]
-        ok = out_ok and not bad and not missing and not in_plain
-        emit({"phase": "legacy", "path": label, "hidden": hidden, "heads": heads, "layers": layers,
-              "contract": "v2" if label == "legacy_v2" else "v1", "dropout": 0.1,
-              "fwd_bwd_s": wall_k, "fwd_bwd_plain_s": wall_p, "out_shape": list(out_k.shape),
-              "out_max_abs_err_vs_plain": out_err, "out_tol": out_tol,
-              "grad_max_abs_err_vs_plain": grad_err, "grad_tol": GRAD_TOL,
-              "launches": {k: v for k, v in launches.items() if v}, "ok": ok})
-        if not ok:
-            raise AssertionError(f"{label}: output ok {out_ok}, gradients off {bad}, kernels not "
-                                 f"launched {missing}, launched under the plain versions {in_plain}")
-        by_path[label] = launches
-        del model, runs, out_k, out_p, grads_k, grads_p, ct
-        torch.cuda.empty_cache()
+        v2 = label == "legacy_v2"
+        for model_seed in (None,) + (V2_MODEL_SEEDS if v2 else ()):
+            r = rng if model_seed is None else np.random.default_rng(model_seed)
+            model = GATModel(s.n_users, s.n_items, 384, hidden, n_layers=layers, heads=heads,
+                             attn_dropout=0.1)
+            model.load_state_dict(params_from_jax(random_gat_params(r, s.n_users, 384, hidden,
+                                                                    layers, heads)))
+            model.to(dev)
+            ct = torch.as_tensor(r.normal(size=(graph.n_nodes, hidden)).astype(np.float32),
+                                 device=dev)
+            seeds = [int(x) for x in r.integers(0, 2**32, layers)]
+            runs = {}
+            for plain in (False, True):
+                model.zero_grad(set_to_none=True)
+                cuda_build.reset_counters()
+                sync()
+                t0 = time.perf_counter()
+                with reference_versions() if plain else contextlib.nullcontext():
+                    out = model(x_feats, tiled, train=True, seeds=seeds)
+                    (out * ct).sum().backward()
+                sync()
+                runs[plain] = (out.detach(),
+                               {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+                               counts(), time.perf_counter() - t0)
+                del out
+            (out_k, grads_k, launches, wall_k), (out_p, grads_p, plain_launches, wall_p) = \
+                runs[False], runs[True]
+            scale = float(out_p.abs().max())
+            out_tol = v2_out_tol(model, x_feats, tiled, seeds, out_p) if v2 else ATTN_TOL
+            out_err = float((out_k - out_p).abs().max())
+            out_ok = bool(torch.allclose(out_k, out_p, **out_tol)) and bool(torch.isfinite(out_k).all())
+            grad_err = {n: float((grads_k[n] - g).abs().max()) for n, g in grads_p.items()}
+            bad = [n for n, g in grads_p.items() if not torch.allclose(grads_k[n], g, **GRAD_TOL)]
+            missing = [k for k in PATH_KERNELS[label] if launches[k] == 0]
+            in_plain = [k for k in PATH_KERNELS[label] if plain_launches[k]]
+            line = {"phase": "legacy", "path": label, "model_seed": model_seed, "hidden": hidden,
+                    "heads": heads, "layers": layers, "contract": "v2" if v2 else "v1",
+                    "dropout": 0.1, "fwd_bwd_s": wall_k, "fwd_bwd_plain_s": wall_p,
+                    "out_shape": list(out_k.shape), "out_max_abs": scale,
+                    "out_max_abs_err_vs_plain": out_err, "out_tol": out_tol}
+            control_ok = True
+            if v2:  # the flip control: the plain path alone, the last layer's rows nudged
+                w = model.layers[-1].w
+                with torch.no_grad(), reference_versions():
+                    keep = w.detach().clone()
+                    w.copy_(torch.nextafter(keep, torch.full_like(keep, float("inf"))))
+                    out_c = model(x_feats, tiled, train=True, seeds=seeds)
+                    w.copy_(keep)
+                line["flip_control_max_abs_err"] = float((out_c - out_p).abs().max())
+                control_ok = bool(torch.allclose(out_c, out_p, **out_tol))
+                del out_c
+            ok = out_ok and control_ok and not bad and not missing and not in_plain
+            emit({**line, "grad_max_abs_err_vs_plain": grad_err, "grad_tol": GRAD_TOL,
+                  "launches": {k: v for k, v in launches.items() if v}, "ok": ok})
+            if not ok:
+                raise AssertionError(
+                    f"{label} (model seed {model_seed}): output ok {out_ok}, flip control within "
+                    f"the band {control_ok}, gradients off {bad}, kernels not launched {missing}, "
+                    f"launched under the plain versions {in_plain}")
+            if model_seed is None:
+                by_path[label] = launches
+            del model, runs, out_k, out_p, grads_k, grads_p, ct
+            torch.cuda.empty_cache()
     return by_path
 
 
@@ -2226,8 +2259,7 @@ def run(args, work: Path, dev="cuda") -> int:
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"], "sol_fraction": t["bound_ms"] / t["ms"],
                         "sol_fraction_dev": sol_fraction_dev(t, peaks), "shape": t["shape"],
-                        **{key: t[key] for key in ("ops_route", "bound_cuda_cores_ms", "gather_ms")
-                           if key in t}})
+                        **({"ops_route": t["ops_route"]} if "ops_route" in t else {})})
     if "jax" in sys.modules or any(m.startswith("plotpointe_tpu.") or m == "plotpointe_tpu"
                                    for m in sys.modules):
         raise AssertionError("the port pulled in JAX or the JAX package")

@@ -1,5 +1,5 @@
 // The edge-balanced walk over a CSR's piece/unit plan, shared by the
-// gathering kernels (spmm_csr.cu, gat_fwd_mh.cu, gat_bwd_src.cu).
+// gathering kernels (spmm_csr.cu, gat_fwd.cu, gat_bwd_src.cu).
 //
 // The plan (`ops/spmm_kernel.piece_plan`, built once per CSR and cached):
 //   pieces  runs of at most CAP consecutive entries of one row, in entry

@@ -7,7 +7,7 @@ Counterpart of `plotpointe_tpu/ops/gat_fused.py` (`attention_v3`,
   B1          `_bwd_kernel`     -> `csrc/gat_bwd_dst.cu`     (`attention_bwd_dst`)
   B2          `_bwd2_kernel`    -> `csrc/gat_bwd_src.cu`     (`attention_bwd_src`)
   fence       `_gather_fence`   -> `csrc/gather_fence.cu`    (`gather_fence`)
-  mh forward  `_fwd_kernel_mh`  -> `csrc/gat_fwd_mh.cu`      (`attention_fwd_mh`)
+  mh forward  `_fwd_kernel_mh`  -> `csrc/gat_fwd.cu`         (`attention_fwd_mh`)
   mh B1       `_bwd_kernel_mh`  -> `csrc/gat_bwd_dst_mh.cu`  (`attention_bwd_dst_mh`)
   reduce      `_reduce_kernel`  -> `csrc/spmm_csr.cu`, pre-gathered rows and
                                    unit weights (`segment_sum_rows`)
@@ -18,8 +18,9 @@ tensors and as the reference its kernel is held to on the card. A wrapper
 launches its kernel for CUDA tensors (or raises) and counts the launch.
 
 Kernels 1 and 8 walk the cached piece plan of `row_ptr`, and B2 that of
-`t_ptr` (`spmm_kernel.cached_walk`); kernels 1 and 8 share one walk
-(`csrc/gat_fwd_walk.cuh`). They read rows in 16-byte loads: their wrappers
+`t_ptr` (`spmm_kernel.cached_walk`); kernels 1 and 8 are one C entry at 1
+to 8 heads (`csrc/gat_fwd.cu`) behind one wrapper (`_fwd`), each counted
+on its own counter. They read rows in 16-byte loads: their wrappers
 raise where a row view they would pass does not start 16-byte aligned, or
 its rows are not a multiple of 16 bytes apart. `attention_fwd_mh_pieces`
 (kernel 1 at one head, kernel 8 at more) and `attention_bwd_src_pieces` are
@@ -179,34 +180,40 @@ def _check(h, a_src, a_dst, graph, mask, hs_dtype):
     _check_mask(mask, graph, h.device)
 
 
-def _fwd(h2, a_src, a_dst, graph, mask, hs_dtype, plain=False, counter=LAUNCHES):
-    """h2 [N, D] -> (out [N, D], den, rows, gs, gd): the output plus the
-    per-node terms the backward reads. A launch counts on `counter`."""
-    if plain or h2.is_cpu:
-        rows, gs, gd = node_terms_plain(h2, a_src, a_dst, hs_dtype)
-        return (*_aggregate_plain(rows, gs, gd, graph, mask), rows, gs, gd)
-    n, d = h2.shape
-    dev = h2.device
-    h2 = h2.contiguous()
+def _fwd(h, a_src, a_dst, graph, mask, hs_dtype, counter, plain=False):
+    """h [N, H, D] f32, a_src/a_dst [H, D], mask [H, E] or None -> (out
+    [N, H, D], den [N, H], rows, gs, gd): the output plus the per-node terms
+    the backward reads. Kernel 1 at one head, kernel 8 at 2-8; a launch
+    counts on `counter`."""
+    n, heads, d = h.shape
+    if plain or h.is_cpu:
+        rows, gs, gd = node_terms_mh_plain(h, a_src, a_dst, hs_dtype)
+        parts = [_aggregate_plain(rows[:, k], gs[:, k], gd[:, k], graph,
+                                  None if mask is None else mask[k]) for k in range(heads)]
+        return (torch.stack([p[0] for p in parts], 1), torch.stack([p[1] for p in parts], 1),
+                rows, gs, gd)
+    dev = h.device
+    h = h.contiguous()
     bf16 = hs_dtype == torch.bfloat16
     if not bf16:
-        _check_rows_aligned("h", h2)  # the f32 rows are h itself
-    a_s, a_d = a_src.reshape(d).contiguous(), a_dst.reshape(d).contiguous()
+        _check_rows_aligned("h", h.view(n, heads * d))  # the f32 rows are h itself
+    a_s, a_d = a_src.contiguous(), a_dst.contiguous()
     m = None if mask is None else mask.contiguous()
     (piece_ptr, piece_out, unit_ptr, n_slots, split_rows, split_ptr, n_units, n_split), erow, most = \
         cached_walk(graph.row_ptr)
-    hs = torch.empty((n, d), dtype=torch.bfloat16, device=dev) if bf16 else None
-    gs = torch.empty(n, dtype=torch.float32, device=dev)
+    hs = torch.empty((n, heads, d), dtype=torch.bfloat16, device=dev) if bf16 else None
+    gs = torch.empty((n, heads), dtype=torch.float32, device=dev)
     gd, den = torch.empty_like(gs), torch.empty_like(gs)
-    out = torch.empty((n, d), dtype=torch.float32, device=dev)
-    # split rows' partial sums, one column strip (<= 512) at a time
-    scratch = torch.empty((n_slots, min(d, STRIP)), dtype=torch.float32, device=dev) if n_split else None
-    scratch_den = torch.empty(n_slots, dtype=torch.float32, device=dev) if n_split else None
-    cb.launch("gat_fwd", dev, *map(cb.ptr, (h2, a_s, a_d)), piece_ptr, piece_out, unit_ptr,
+    out = torch.empty((n, heads, d), dtype=torch.float32, device=dev)
+    # split rows' partial sums; one head runs column strips (<= 512) one at a time
+    cols = min(d, STRIP) if heads == 1 else heads * d
+    scratch = torch.empty((n_slots, cols), dtype=torch.float32, device=dev) if n_split else None
+    scratch_den = torch.empty((n_slots, heads), dtype=torch.float32, device=dev) if n_split else None
+    cb.launch("gat_fwd", dev, *map(cb.ptr, (h, a_s, a_d)), piece_ptr, piece_out, unit_ptr,
               *map(cb.ptr, (graph.src, erow, m, hs, gs, gd, out, den, scratch, scratch_den)),
-              split_rows, split_ptr, n, d, graph.n_edges, n_units, n_split, most | 1)
+              split_rows, split_ptr, n, heads, d, graph.n_edges, n_units, n_split, most | 1)
     counter.bump()
-    return out, den, (h2 if hs is None else hs), gs, gd
+    return out, den, (h if hs is None else hs), gs, gd
 
 
 def attention_fwd(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,
@@ -219,9 +226,9 @@ def attention_fwd(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, gra
     _check(h, a_src, a_dst, graph, mask, hs_dtype)
     if h.is_cpu:
         return attention_fwd_plain(h, a_src, a_dst, graph, mask, hs_dtype)
-    n, _, d = h.shape
-    out, den = _fwd(h.reshape(n, d), a_src, a_dst, graph, mask, hs_dtype)[:2]
-    return out[:, None, :], den
+    out, den = _fwd(h, a_src, a_dst, graph, None if mask is None else mask[None], hs_dtype,
+                    LAUNCHES)[:2]
+    return out, den[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -407,12 +414,14 @@ class AttentionV3(torch.autograd.Function):
         n, _, d = h.shape
         mask = dropout_mask(graph, dropout_rate, seed, h.device, id_offset)
         _check(h, a_src, a_dst, graph, mask, hs_dtype)
-        h2 = h.reshape(n, d).contiguous()
-        out2, den, rows, gs, gd = _fwd(h2, a_src, a_dst, graph, mask, hs_dtype, plain)
-        ctx.save_for_backward(h2, a_src, a_dst, out2, den, rows, gs, gd)
+        h = h.contiguous()
+        out, den, rows, gs, gd = _fwd(h, a_src, a_dst, graph, None if mask is None else mask[None],
+                                      hs_dtype, LAUNCHES, plain)
+        ctx.save_for_backward(h.view(n, d), a_src, a_dst, out.view(n, d), den.view(n),
+                              rows.view(n, d), gs.view(n), gd.view(n))
         ctx.graph, ctx.dropout_rate, ctx.seed, ctx.plain = graph, dropout_rate, seed, plain
         ctx.id_offset = id_offset
-        return out2.view(n, 1, d)
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -454,10 +463,10 @@ def dropout_mask_mh(graph: Graph, rate: float, seed: Optional[int], heads: int,
 def node_terms_mh_plain(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
                         hs_dtype: torch.dtype):
     """h [N, H, D] f32 -> (rows [N, H, D] at hs_dtype, gs [N, H] =
-    rows . a_src, gd [N, H] = h . a_dst)."""
-    rows = h.to(hs_dtype)
-    return (rows, torch.einsum("nhd,hd->nh", rows.float(), a_src),
-            torch.einsum("nhd,hd->nh", h, a_dst))
+    rows . a_src, gd [N, H] = h . a_dst): `node_terms_plain` per head."""
+    terms = [node_terms_plain(h[:, k], a_src[k:k + 1], a_dst[k:k + 1], hs_dtype)
+             for k in range(h.shape[1])]
+    return tuple(torch.stack(t, 1) for t in zip(*terms))
 
 
 def _check_packed_shape(heads, d):
@@ -485,43 +494,12 @@ def _check_mh(h, a_src, a_dst, graph, mask, hs_dtype):
         _check_tensor("mask", mask, torch.float32, h.device, (heads, graph.n_edges))
 
 
-def _fwd_mh(h, a_src, a_dst, graph, mask, hs_dtype, plain=False):
-    """h [N, H, D] -> (out [N, H, D], den [N, H], rows, gs, gd)."""
-    n, heads, d = h.shape
-    if plain or h.is_cpu:
-        rows, gs, gd = node_terms_mh_plain(h, a_src, a_dst, hs_dtype)
-        parts = [_aggregate_plain(rows[:, k], gs[:, k], gd[:, k], graph,
-                                  None if mask is None else mask[k]) for k in range(heads)]
-        return (torch.stack([p[0] for p in parts], 1), torch.stack([p[1] for p in parts], 1),
-                rows, gs, gd)
-    dev = h.device
-    h = h.contiguous()
-    bf16 = hs_dtype == torch.bfloat16
-    if not bf16:
-        _check_rows_aligned("h", h.view(n, heads * d))  # the f32 rows are h itself
-    a_s, a_d = a_src.contiguous(), a_dst.contiguous()
-    m = None if mask is None else mask.contiguous()
-    (piece_ptr, piece_out, unit_ptr, n_slots, split_rows, split_ptr, n_units, n_split), erow, most = \
-        cached_walk(graph.row_ptr)
-    hs = torch.empty((n, heads, d), dtype=torch.bfloat16, device=dev) if bf16 else None
-    gs = torch.empty((n, heads), dtype=torch.float32, device=dev)
-    gd, den = torch.empty_like(gs), torch.empty_like(gs)
-    out = torch.empty((n, heads, d), dtype=torch.float32, device=dev)
-    scratch = torch.empty((n_slots, heads * d), dtype=torch.float32, device=dev) if n_split else None
-    scratch_den = torch.empty((n_slots, heads), dtype=torch.float32, device=dev) if n_split else None
-    cb.launch("gat_fwd_mh", dev, *map(cb.ptr, (h, a_s, a_d)), piece_ptr, piece_out, unit_ptr,
-              *map(cb.ptr, (graph.src, erow, m, hs, gs, gd, out, den, scratch, scratch_den)),
-              split_rows, split_ptr, n, heads, d, graph.n_edges, n_units, n_split, most | 1)
-    MH_LAUNCHES.bump()
-    return out, den, (h if hs is None else hs), gs, gd
-
-
 def attention_fwd_mh_plain(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
                            graph: Graph, mask: Optional[torch.Tensor] = None,
                            hs_dtype: torch.dtype = torch.bfloat16):
     """h [N, H, D] f32, a_src/a_dst [H, D], mask [H, E] or None -> (out
     [N, H, D], den [N, H]): kernel 1's function for each head."""
-    return _fwd_mh(h, a_src, a_dst, graph, mask, hs_dtype, plain=True)[:2]
+    return _fwd(h, a_src, a_dst, graph, mask, hs_dtype, MH_LAUNCHES, plain=True)[:2]
 
 
 def attention_fwd_mh_pieces(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
@@ -549,10 +527,10 @@ def attention_fwd_mh(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, 
     """Head-packed attention forward (kernel 8): h [N, H, D] f32 with
     2 <= H <= 8, D a power of two in [32, 512], H * D <= 1024; a_src/a_dst
     [H, D] f32; mask [H, E] f32 or None. Returns (out [N, H, D] f32, den
-    [N, H] f32). Launches `csrc/gat_fwd_mh.cu` for CUDA tensors; runs
+    [N, H] f32). Launches `csrc/gat_fwd.cu` for CUDA tensors; runs
     `attention_fwd_mh_plain` for CPU tensors."""
     _check_mh(h, a_src, a_dst, graph, mask, hs_dtype)
-    return _fwd_mh(h, a_src, a_dst, graph, mask, hs_dtype)[:2]
+    return _fwd(h, a_src, a_dst, graph, mask, hs_dtype, MH_LAUNCHES)[:2]
 
 
 def attention_bwd_dst_mh_plain(rows, gs, gd, g, out, den, graph: Graph,
@@ -639,7 +617,7 @@ class AttentionV3MH(torch.autograd.Function):
         mask = dropout_mask_mh(graph, dropout_rate, seed, heads, h.device)
         _check_mh(h, a_src, a_dst, graph, mask, hs_dtype)
         h = h.contiguous()
-        out, den, rows, gs, gd = _fwd_mh(h, a_src, a_dst, graph, mask, hs_dtype, plain)
+        out, den, rows, gs, gd = _fwd(h, a_src, a_dst, graph, mask, hs_dtype, MH_LAUNCHES, plain)
         ctx.save_for_backward(h, a_src, a_dst, out, den, rows, gs, gd)
         ctx.graph, ctx.dropout_rate, ctx.seed, ctx.plain = graph, dropout_rate, seed, plain
         return out

@@ -177,10 +177,8 @@ def fused_layer(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph
     _check(h, a_src, a_dst, graph, mask, torch.bfloat16)
     if h.is_cpu:
         return fused_layer_plain(h, a_src, a_dst, graph, mask)
-    n, _, d = h.shape
-    out = _fwd(h.reshape(n, d), a_src, a_dst, graph, mask, torch.bfloat16,
-               counter=FUSED_LAYER_LAUNCHES)[0]
-    return out.view(n, 1, d)
+    return _fwd(h, a_src, a_dst, graph, None if mask is None else mask[None], torch.bfloat16,
+                FUSED_LAYER_LAUNCHES)[0]
 
 
 def _v1_forward(h, a_src, a_dst, graph, mask, plain):

@@ -27,7 +27,7 @@ Each kernel wrapper runs its plain version for CPU tensors.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -117,28 +117,40 @@ def rescore(item_vecs: torch.Tensor, queries: torch.Tensor, chunk_id: torch.Tens
     return out
 
 
-def topk_mips(item_vecs: torch.Tensor, queries: torch.Tensor, k: int,
-              mode: str = "exact") -> Tuple[torch.Tensor, torch.Tensor]:
+def topk_mips(item_vecs: torch.Tensor, queries: torch.Tensor, k: int, mode: str = "exact",
+              stage: Optional[Callable[[str], None]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k inner-product search. item_vecs [N, D] and queries [B, D] in one
     dtype (float32, or bfloat16 for half the catalog stream). Returns
     (indices [B, k] int32, scores [B, k] f32), scores descending and exact
-    f32 re-scores of the selected items."""
+    f32 re-scores of the selected items. `stage`, if given, is called with
+    each stage's name as the stage's work is queued: "chunk_max",
+    "first_topk" (with the chunk ids' clamp and cast), "rescore" and
+    "final_select" (the last `torch.topk`, the item ids, the -1 fill); a
+    timing hook (a caller may record a CUDA event in it)."""
     if mode not in ("exact", "fast"):
         raise ValueError(f"mode must be 'exact' or 'fast'; got {mode!r}")
     n = item_vecs.shape[0]
     if not 0 < k <= n:
         raise ValueError(f"k must be in [1, {n}]; got {k}")
     cm = chunk_max(item_vecs, queries)
+    if stage is not None:
+        stage("chunk_max")
     margin = CHUNK_MARGIN if mode == "exact" else FAST_MARGIN
     r = min(k + margin, cm.shape[1])
     _, sel = torch.topk(cm, r, dim=1)
     chunk_id = torch.clamp(sel, max=(n - 1) // CHUNK).to(torch.int32)
+    if stage is not None:
+        stage("first_topk")
     scores = rescore(item_vecs, queries, chunk_id).flatten(1)  # [B, R * 128], NEG_INF past N
+    if stage is not None:
+        stage("rescore")
     v, pos = torch.topk(scores, k, dim=1)
     item = chunk_id.long()[:, :, None] * CHUNK + torch.arange(CHUNK, device=cm.device)
     i = torch.gather(item.flatten(1), 1, pos)
-    i = torch.where(v > NEG_INF / 2, i, torch.full_like(i, -1))
-    return i.to(torch.int32), v
+    i = torch.where(v > NEG_INF / 2, i, torch.full_like(i, -1)).to(torch.int32)
+    if stage is not None:
+        stage("final_select")
+    return i, v
 
 
 def topk_mips_ref(item_vecs: torch.Tensor, queries: torch.Tensor,
@@ -147,3 +159,15 @@ def topk_mips_ref(item_vecs: torch.Tensor, queries: torch.Tensor,
     scores = queries.float() @ item_vecs.float().T
     v, i = torch.topk(scores, k, dim=1)
     return i.to(torch.int32), v
+
+
+def untied(v: torch.Tensor, rtol: float, atol: float) -> torch.Tensor:
+    """[B, k] mask of the places of descending scores v [B, k + 1] (a
+    reference's, one beyond k) that no tie straddles: neighbours within
+    atol + rtol * |v| count as tied. Where a mask is true, any correct
+    top-k holds the reference's index; elsewhere it may hold a tied one."""
+    gap = (v[:, :-1] - v[:, 1:]).abs() <= atol + rtol * v[:, :-1].abs()
+    tied = torch.zeros_like(v, dtype=torch.bool)
+    tied[:, :-1] |= gap
+    tied[:, 1:] |= gap
+    return ~tied[:, :-1]

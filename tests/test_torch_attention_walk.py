@@ -2,7 +2,7 @@
 the order of sums of their edge-balanced walk, on the CPU:
 `attention_fwd_mh_pieces` (kernel 1 at one head, kernel 8 at more) and
 `attention_bwd_src_pieces` sum each piece of `piece_plan` alone and a split
-row's pieces in piece order, as `csrc/gat_fwd_walk.cuh` and
+row's pieces in piece order, as `csrc/gat_fwd.cu` and
 `csrc/gat_bwd_src.cu` do. A small cap (4, 8) on rows of 0 to 300 entries
 splits many rows. Each order is held against the JAX package (Pallas in
 interpret mode, as tests/test_torch_multihead.py and

@@ -43,7 +43,8 @@ from plotpointe_tpu_torch.ops.gat_fused import (
     node_terms_plain, reference_versions)
 from plotpointe_tpu_torch.ops.segment import segment_softmax_attention
 from plotpointe_tpu_torch.ops.topk_kernel import (
-    chunk_max, chunk_max_plain, n_chunks_of, rescore, rescore_plain, topk_mips, topk_mips_ref)
+    chunk_max, chunk_max_plain, n_chunks_of, rescore, rescore_plain, topk_mips, topk_mips_ref,
+    untied)
 
 pytestmark = pytest.mark.cuda
 SCORE_TOL = dict(rtol=1e-5, atol=1e-4)
@@ -340,15 +341,8 @@ def test_gat_fwd_rejects_unsupported_width(cuda):
         attention_fwd(h, a, a, g)
 
 
-def _untied(v, tol=SCORE_TOL):
-    """[B, k] mask of the places of descending scores v [B, k + 1] (the
-    reference's, one beyond k) that no tie within twice the score band
-    straddles."""
-    gap = (v[:, :-1] - v[:, 1:]).abs() <= 2 * (tol["atol"] + tol["rtol"] * v[:, :-1].abs())
-    tied = torch.zeros_like(v, dtype=torch.bool)
-    tied[:, :-1] |= gap
-    tied[:, 1:] |= gap
-    return ~tied[:, :-1]
+# a tie within twice the score band may put either index at a place
+TIE_BAND = {key: 2 * v for key, v in SCORE_TOL.items()}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -377,7 +371,7 @@ def test_topk_kernels_match_plain(cuda, dtype, n, b, d):
     gi, gv = topk_mips(x, q, k)
     wi, wv = topk_mips_ref(x, q, k + 1)
     torch.testing.assert_close(gv, wv[:, :k], **SCORE_TOL)
-    keep = _untied(wv)
+    keep = untied(wv, **TIE_BAND)
     assert torch.equal(gi[keep], wi[:, :k][keep])
 
 
@@ -401,7 +395,7 @@ def test_chunkmax_on_tied_rows_gives_the_same_bits_twice(cuda, dtype, b):
     gi, gv = topk_mips(x, q, 20)
     wi, wv = topk_mips_ref(x, q, 21)
     torch.testing.assert_close(gv, wv[:, :20], **SCORE_TOL)
-    keep = _untied(wv)
+    keep = untied(wv, **TIE_BAND)
     assert torch.equal(gi[keep], wi[:, :20][keep])
 
 
@@ -788,7 +782,7 @@ def test_host_us_per_launch_is_finite(cuda):
     assert np.isfinite(us) and us > 0
 
 
-# -- the edge-balanced walk of kernels 1, 8 (csrc/gat_fwd_walk.cuh) and 3 (B2) --
+# -- the edge-balanced walk of kernels 1, 8 (csrc/gat_fwd.cu) and 3 (B2) --
 
 
 def _star_graph(n=4000):

@@ -21,7 +21,8 @@ import jax.numpy as jnp
 from plotpointe_tpu.ops.topk_kernel import topk_mips_xla
 from plotpointe_tpu_torch.ops import topk_kernel
 from plotpointe_tpu_torch.ops.knn_kernel import split_tf32
-from plotpointe_tpu_torch.ops.topk_kernel import CHUNK, NEG_INF, chunk_max_plain, n_chunks_of
+from plotpointe_tpu_torch.ops.topk_kernel import (
+    CHUNK, NEG_INF, chunk_max_plain, n_chunks_of, untied)
 
 SCORE_TOL = dict(rtol=1e-5, atol=1e-4)
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -71,15 +72,6 @@ def test_emulated_phase1_matches_f32_and_f64(n, d):
     assert got.shape == (16, n_chunks_of(n))
 
 
-def _untied(v, tol=1e-5):
-    """[B, k] mask of places no tie within `tol` straddles."""
-    gap = np.abs(np.diff(v, axis=1)) <= tol
-    tied = np.zeros(v.shape, dtype=bool)
-    tied[:, :-1] |= gap
-    tied[:, 1:] |= gap
-    return ~tied
-
-
 @pytest.mark.parametrize("mode", ["exact", "fast"])
 def test_topk_with_emulated_phase1_matches_jax_xla(monkeypatch, mode):
     """A 3,037-item catalog (a ragged last chunk of 93 items) with 150
@@ -91,7 +83,8 @@ def test_topk_with_emulated_phase1_matches_jax_xla(monkeypatch, mode):
     monkeypatch.setattr(topk_kernel, "chunk_max", chunk_max_3xtf32)
     gi, gv = topk_kernel.topk_mips(torch.from_numpy(x), torch.from_numpy(q), k, mode=mode)
     ji, jv = map(np.asarray, topk_mips_xla(jnp.asarray(x), jnp.asarray(q), k + 1))
-    keep = _untied(jv)[:, :k]  # the (k + 1)-th score shows a tie at the last place
+    # the (k + 1)-th score shows a tie at the last place
+    keep = untied(torch.from_numpy(jv), rtol=0.0, atol=1e-5).numpy()
     ji, jv = ji[:, :k], jv[:, :k]
     np.testing.assert_allclose(gv.numpy(), jv, **TOL)
     assert keep.mean() > 0.9
