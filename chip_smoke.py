@@ -109,13 +109,13 @@ Nothing here imports JAX or the JAX package.
     python3 chip_smoke.py --compare-with DIR
 
 times only kernels 7, 12, 13 and 15 and `host_us_per_launch` (`time_rule2`),
-kernels 8 and 3 at the 2-head and GAT training shapes and kernel 8 at the
-export's (`time_gather_trees`), kernel 4 at B 1, 8 and 64 in f32 and bf16
-and kernels 1 and 14 at the training and export shapes
+kernels 8, 3, 2 and 9 at the 2-head and GAT training shapes and kernels 8,
+2 and 9 with f32 rows (`time_gather_trees`), kernel 4 at B 1, 8 and 64 in
+f32 and bf16 and kernels 1 and 14 at the training and export shapes
 (`time_topk_and_fwd_trees`), and kernels 10 and 11 on the graph-build
-subsets at 63,001 x 128 and x 384 with the ptxas report of kernels 1, 3,
-4, 8, 10 and 11 (`time_knn_trees`), for the port in the checkout DIR
-(an earlier commit, say) and for this one, each tree in a process of its
+subsets at 63,001 x 128 and x 384 with the ptxas report of kernels 1-4 and
+8-11 (`time_knn_trees`), for the port in the checkout DIR (an earlier
+commit, say) and for this one, each tree in a process of its
 own that builds its own kernels, in turns (DIR, this, this, DIR) on one
 card; both trees read the same graph and rows, saved once; every line
 carries its "tree".
@@ -160,8 +160,7 @@ SOURCES = {
     "topk_rescore": ("plotpointe_tpu_torch/csrc/topk_rescore.cu", "plotpointe_tpu/ops/topk_kernel.py:175"),
     "spmm_csr": ("plotpointe_tpu_torch/csrc/spmm_csr.cu", "plotpointe_tpu/ops/spmm_kernel.py:34"),
     "gat_fwd_mh": ("plotpointe_tpu_torch/csrc/gat_fwd.cu", "plotpointe_tpu/ops/gat_fused.py:460"),
-    "gat_bwd_dst_mh": ("plotpointe_tpu_torch/csrc/gat_bwd_dst_mh.cu",
-                       "plotpointe_tpu/ops/gat_fused.py:557"),
+    "gat_bwd_dst_mh": ("plotpointe_tpu_torch/csrc/gat_bwd_dst.cu", "plotpointe_tpu/ops/gat_fused.py:557"),
     "knn_topk": ("plotpointe_tpu_torch/csrc/knn_topk.cu", "plotpointe_tpu/ops/knn_kernel.py:44"),
     "knn_topk_fast": ("plotpointe_tpu_torch/csrc/knn_topk_fast.cu",
                       "plotpointe_tpu/ops/knn_kernel.py:80"),
@@ -193,7 +192,7 @@ LEGACY = (("legacy_v2", 128, 1), ("legacy_v1", 64, 1), ("legacy_v1_mh", 128, 2))
 LIGHTGCN = dict(embed_dim=64, n_prop_layers=3, batch_size=8192, neg_per_pos=5)
 MH_HEADS = 2
 # the libraries whose ptxas lines (registers, spills, shared memory) the build line carries
-PTXAS_REPORTED = ("knn_topk", "knn_topk_fast", "gat_fwd", "gat_bwd_src", "topk_chunkmax")
+PTXAS_REPORTED = ("knn_topk", "knn_topk_fast", "gat_fwd", "gat_bwd_dst", "gat_bwd_src", "topk_chunkmax")
 KNN = dict(k=20, min_similarity=0.3)  # the pipeline's build-knn defaults
 KNN_TOL = dict(rtol=1e-5, atol=1e-5)  # f32 scores of the same rows, summed in another order
 TIE_TOL = 1e-5  # candidates whose scores lie this close may swap places
@@ -309,6 +308,16 @@ def fwd_mh_bytes(n: int, e: int, hh: int, d: int, masked: bool) -> dict:
             "mask": hh * e * 4 if masked else 0, "out": n * hh * d * 4, "den": n * hh * 4}
 
 
+def bwd_dst_bytes(n: int, e: int, hh: int, d: int, isz: int, masked: bool) -> dict:
+    """B1's compulsory bytes at hh heads (kernel 2 at one, 9 at more): each
+    input read once, each output written once; the per-edge row gathers and
+    the per-block partial rows of d a_src (a scratch buffer of this design)
+    are not compulsory traffic."""
+    return {"rows": n * hh * d * isz, "g": n * hh * d * 4, "out": n * hh * d * 4, "src": e * 4,
+            "mask": hh * e * 4 if masked else 0, "row_ptr": (n + 1) * 4, "gs_gd_den": 3 * n * hh * 4,
+            "de_sum_godot": 2 * n * hh * 4, "da_src": hh * d * 4}
+
+
 def bwd_src_bytes(n: int, e: int, d: int, isz: int) -> dict:
     """B2's compulsory bytes with the mask: each input read once, dh
     written once (the per-edge cotangent gathers are not)."""
@@ -419,6 +428,15 @@ class Errors:
         if not ok:
             raise AssertionError(f"{name} ({what}) disagrees with its plain version: max abs err {err}")
 
+    def same_bits(self, name: str, what: str, got, again) -> None:
+        """Two launches of a kernel on the same inputs must give equal bits."""
+        import torch
+
+        ok = all(torch.equal(a, b) for a, b in zip(got, again))
+        emit({"phase": "check", "kernel": name, "case": what + " launched twice: equal bits", "ok": ok})
+        if not ok:
+            raise AssertionError(f"{name} ({what}) gave other bits on a second launch")
+
 
 def post(url: str, payload) -> tuple[int, dict]:
     req = urllib.request.Request(url, data=json.dumps(payload).encode(),
@@ -436,7 +454,7 @@ def main() -> int:
     ap.add_argument("--epochs", type=int, default=3, help="optimizer steps of the train phase")
     ap.add_argument("--layers", type=int, default=2, help="GAT depth of the trained model")
     ap.add_argument("--compare-with", metavar="DIR", default=None,
-                    help="only time kernels 1, 3, 4, 7, 8, 10-15 and host_us_per_launch, for "
+                    help="only time kernels 1-4, 7-15 and host_us_per_launch, for "
                          "the port in DIR (another checkout) and this one, in turns on this card")
     ap.add_argument("--rows-of", metavar="DIR", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--graph", default=None, help=argparse.SUPPRESS)
@@ -494,8 +512,8 @@ def rows_of(args) -> int:
 
 def run_compare(args, work: Path) -> int:
     """Kernels 7, 12, 13 and 15, the launch path's host time, kernels 8, 3,
-    4, 1 and 14 on the main graph and catalog of `run`, then kernels 10 and
-    11 on its graph-build subsets
+    2, 9, 4, 1 and 14 on the main graph and catalog of `run`, then kernels 10
+    and 11 on its graph-build subsets
     (`build-subset` of the seeded catalog at 128 and 384 d), for the
     checkout `--compare-with` and this one, each in a process of its own
     that builds that checkout's kernels, in turns (the other, this, this,
@@ -618,6 +636,7 @@ def check_attention(errs, rng, label, g, h, a_s, a_d, dev):
                 got1, want1 = attention_bwd_dst(*args), attention_bwd_dst_plain(*args)
                 for part, x, y in zip(("de_sum", "godot", "da_src"), got1, want1):
                     errs.check("gat_bwd_dst", f"{what} {part}", x, y, GRAD_TOL)
+                errs.same_bits("gat_bwd_dst", what, got1, attention_bwd_dst(*args))
                 args2 = (rows, ct.to(rows_dt), a_s, gs, gd, want[1], want1[1], g, mk)
                 errs.check("gat_bwd_src", what + " dh", attention_bwd_src(*args2),
                            attention_bwd_src_plain(*args2), GRAD_TOL)
@@ -757,6 +776,7 @@ def check_multihead(errs, rng, label, g, dev, layer=None):
                     got1, want1 = attention_bwd_dst_mh(*args), attention_bwd_dst_mh_plain(*args)
                     for part, x, y in zip(("de_sum", "godot", "da_src"), got1, want1):
                         errs.check("gat_bwd_dst_mh", f"{what} {part}", x, y, GRAD_TOL)
+                    errs.same_bits("gat_bwd_dst_mh", what, got1, attention_bwd_dst_mh(*args))
                     k = heads - 1  # B2 on the last head's rows, read with a row stride
                     args2 = (rows[:, k], ct.to(rows_dt)[:, k], a_s[k:k + 1], gs[:, k].contiguous(),
                              gd[:, k].contiguous(), want[1][:, k].contiguous(),
@@ -1514,12 +1534,7 @@ def time_backward(rows_out, graph, h0, a_s, a_d, dev, rng):
             godot = attention_bwd_dst(*a1)[1]
             a2 = (rows, ct.to(rows_dt), a_s, gs, gd, den, godot, graph, mask)
             shape = f"N={n} E={e} D={d} rows={dname} mask=0.1"
-            # compulsory bytes: each input read once, each output written once;
-            # the per-edge row gathers and B1's per-warp partial rows of
-            # da_src (a scratch buffer of this design) are not compulsory traffic
-            b1_bytes = {"rows": n * d * isz, "g": n * d * 4, "out": n * d * 4, "src": e * 4,
-                        "mask": e * 4, "row_ptr": (n + 1) * 4, "gs_gd_den": 3 * n * 4,
-                        "de_sum_godot": 2 * n * 4, "da_src": d * 4}
+            b1_bytes = bwd_dst_bytes(n, e, 1, d, isz, True)
             b2_bytes = bwd_src_bytes(n, e, d, isz)
             ops = 4 * e * d  # per edge: one row dot product and one row axpy
             for kname, fn, plain, nbytes in (
@@ -1611,9 +1626,9 @@ def profile_train_step(label: str, tr, step_s: float) -> None:
             # kernels 1 and 8 share one walk: its row is whichever the step ran
             for k, pats in (("gat_fwd or gat_fwd_mh walk", ("attention_walk<", "attention_walk_combine(")),
                             ("gat_fwd or gat_fwd_mh node_terms", ("node_terms<",)),
-                            ("gat_bwd_dst", ("bwd_dst<",)),
+                            # kernels 2 and 9 likewise
+                            ("gat_bwd_dst or gat_bwd_dst_mh", ("bwd_dst_walk<", "bwd_dst_combine(")),
                             ("gat_bwd_src", ("bwd_src_units<", "bwd_src_combine(")),
-                            ("gat_bwd_dst_mh", ("bwd_dst_mh<",)),
                             ("spmm_csr", ("spmm_units<", "spmm_combine(")))}
     emit({"phase": "timing", "what": f"{label} training step profile", "device_busy_ms": busy,
           "step_wall_ms_unprofiled": step_s * 1e3, "idle_share": 1.0 - busy / (step_s * 1e3),
@@ -1760,17 +1775,13 @@ def time_multihead(rows_out, graph, dev, rng) -> None:
     with torch.no_grad():
         for rows_dt, mk in ((torch.float32, None), (torch.bfloat16, mask)):
             isz, dname = (4 if rows_dt == torch.float32 else 2), str(rows_dt)[6:]
-            m_bytes = 0 if mk is None else hh * e * 4
             shape = f"N={n} E={e} H={hh} D={d} rows={dname} mask={0.1 if mk is not None else 0}"
             fwd_bytes = fwd_mh_bytes(n, e, hh, d, mk is not None)
             fwd_ops = 2 * e * hh * d + 4 * n * hh * d
             rows, gs, gd = node_terms_mh_plain(h, a_s, a_d, rows_dt)
             out, den = attention_fwd_mh(h, a_s, a_d, graph, mask=mk, hs_dtype=rows_dt)
             a1 = (rows, gs, gd, ct, out, den, graph, mk)
-            b1_bytes = {"rows": n * hh * d * isz, "g": n * hh * d * 4, "out": n * hh * d * 4,
-                        "src": e * 4, "mask": m_bytes, "row_ptr": (n + 1) * 4,
-                        "gs_gd_den": 3 * n * hh * 4, "de_sum_godot": 2 * n * hh * 4,
-                        "da_src": hh * d * 4}
+            b1_bytes = bwd_dst_bytes(n, e, hh, d, isz, mk is not None)
             b1_ops = 4 * e * hh * d
             for kname, fn, plain, nbytes, ops in (
                     ("gat_fwd_mh", lambda: attention_fwd_mh(h, a_s, a_d, graph, mask=mk, hs_dtype=rows_dt),
@@ -1796,12 +1807,16 @@ def time_gather_trees(graph, dev, tree: str) -> None:
     and no mask (the export), as `time_multihead` times it; B2 at D 128 with
     bf16 rows and the mask, on contiguous rows (the GAT step, as
     `time_backward` times it) and on the last head's row-strided rows of
-    [N, 2, 128] tensors (the 2-head step). Each line carries its bound, its
+    [N, 2, 128] tensors (the 2-head step); kernels 2 (B1) at D 128 and 9 at
+    heads 2, D 128, each with bf16 rows and the 0.1 mask (the training
+    steps) and with f32 rows (kernel 2 masked, as `time_backward` times it;
+    kernel 9 without, as `time_multihead`). Each line carries its bound, its
     gather ceiling and `tree`."""
     import torch
 
     from plotpointe_tpu_torch.ops.gat_fused import (
-        attention_bwd_src, attention_fwd_mh, dropout_mask_mh, hash_mask)
+        attention_bwd_dst, attention_bwd_dst_mh, attention_bwd_src, attention_fwd_mh, dropout_mask_mh,
+        hash_mask)
 
     n, e, hh, d = graph.n_nodes, graph.n_edges, MH_HEADS, 128
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -1832,6 +1847,25 @@ def time_gather_trees(graph, dev, tree: str) -> None:
                   "shape": f"N={n} E={e} D={d} rows=bfloat16 mask=0.1 {label}",
                   "ms": time_ms(lambda: attention_bwd_src(rows, gh, a_s[1:], gs, gd, den, godot, graph, m1)),
                   "bound_ms": b_ms, "bound_by": b_by, "gather_ms": gather_ms(nbytes, e, d * 2)})
+        # kernels 2 (B1, head 0's contiguous rows, the mask: as `time_backward`)
+        # and 9 (both heads; the mask with bf16 rows: as `time_multihead`)
+        gs2, gd2, out2 = t(n, hh, scale=0.5), t(n, hh, scale=0.5), t(n, hh, d, scale=0.1)
+        den2 = torch.rand((n, hh), generator=gen, device=dev) * 4 + 1
+        for rows_dt in (torch.bfloat16, torch.float32):
+            isz, dname = (4 if rows_dt == torch.float32 else 2), str(rows_dt)[6:]
+            rows = h.to(rows_dt)
+            mk = mask if rows_dt == torch.bfloat16 else None
+            a1 = [x[:, 0].contiguous() for x in (rows, gs2, gd2, ct, out2, den2)]
+            for kname, fn, hk, masked in (
+                    ("gat_bwd_dst", lambda: attention_bwd_dst(*a1, graph, m1), 1, True),
+                    ("gat_bwd_dst_mh", lambda: attention_bwd_dst_mh(rows, gs2, gd2, ct, out2, den2, graph, mk),
+                     hh, mk is not None)):
+                nbytes = bwd_dst_bytes(n, e, hk, d, isz, masked)
+                b_ms, b_by = bound(sum(nbytes.values()), 4 * e * hk * d, "float32")
+                emit({"phase": "timing", "kernel": kname, "tree": tree,
+                      "shape": f"N={n} E={e} H={hk} D={d} rows={dname} mask={0.1 if masked else 0}",
+                      "ms": time_ms(fn), "bound_ms": b_ms, "bound_by": b_by,
+                      "gather_ms": gather_ms(nbytes, e, hk * d * isz)})
 
 
 def time_topk_and_fwd_trees(graph, dev, tree: str) -> None:

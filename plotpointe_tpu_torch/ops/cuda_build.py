@@ -36,14 +36,14 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "plotpointe_tpu_torch"
 KERNELS = ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "gather_fence", "topk_chunkmax", "topk_rescore",
-           "spmm_csr", "gat_bwd_dst_mh", "knn_topk", "knn_topk_fast", "stream_probe",
-           "smoke_affine")
+           "spmm_csr", "knn_topk", "knn_topk_fast", "stream_probe", "smoke_affine")
 # TPU kernels that a source above computes in another mode, each with a
 # counter of its own: the head-packed forward (kernel 8) is gat_fwd at 2-8
-# heads; the legacy attention contracts' reduces (v1's weighted one and the
-# unweighted one) are spmm_csr over pre-gathered rows; v2's fused layer is
-# gat_fwd with an explicit mask.
-SHARED = ("gat_fwd_mh", "fused_segment_reduce", "onehot_reduce", "fused_layer")
+# heads and the head-packed B1 (kernel 9) gat_bwd_dst at 2-8 heads; the
+# legacy attention contracts' reduces (v1's weighted one and the unweighted
+# one) are spmm_csr over pre-gathered rows; v2's fused layer is gat_fwd with
+# an explicit mask.
+SHARED = ("gat_fwd_mh", "gat_bwd_dst_mh", "fused_segment_reduce", "onehot_reduce", "fused_layer")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 P = ctypes.c_void_p
@@ -51,13 +51,12 @@ I = ctypes.c_int
 # C entry point and argument types of each library
 SIGNATURES = {
     "gat_fwd": ("ppt_gat_fwd", [P] * 18 + [I] * 7 + [P]),
-    "gat_bwd_dst": ("ppt_gat_bwd_dst", [P, I] + [P] * 11 + [I, I, I, P, P]),
+    "gat_bwd_dst": ("ppt_gat_bwd_dst", [P, I] + [P] * 18 + [I] * 7 + [P, P]),
     "gat_bwd_src": ("ppt_gat_bwd_src", [P, P, I] + [P] * 18 + [I] * 6 + [P, P]),
     "gather_fence": ("ppt_gather_fence", [P, I, I, I, P, P]),
     "topk_chunkmax": ("ppt_topk_chunkmax", [P, P, P, I, I, I, I, P]),
     "topk_rescore": ("ppt_topk_rescore", [P, P, P, P, I, I, I, I, I, P]),
     "spmm_csr": ("ppt_spmm_csr", [P, I] + [P] * 9 + [I, I, I, I, P]),
-    "gat_bwd_dst_mh": ("ppt_gat_bwd_dst_mh", [P, I] + [P] * 11 + [I, I, I, I, I, P]),
     "knn_topk": ("ppt_knn_topk", [P, P, P, P, I, I, I, P]),
     "knn_topk_fast": ("ppt_knn_topk_fast", [P, P, P, I, I, I, P]),
     "stream_probe": ("ppt_stream_probe", [P, ctypes.c_float, P, I, I, I, P]),

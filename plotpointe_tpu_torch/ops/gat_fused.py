@@ -3,12 +3,12 @@ CUDA kernels, their plain versions, and the autograd ops.
 
 Counterpart of `plotpointe_tpu/ops/gat_fused.py` (`attention_v3`,
 `attention_v3_mh`) and its kernels:
-  forward     `_fwd_kernel`     -> `csrc/gat_fwd.cu`         (`attention_fwd`)
-  B1          `_bwd_kernel`     -> `csrc/gat_bwd_dst.cu`     (`attention_bwd_dst`)
-  B2          `_bwd2_kernel`    -> `csrc/gat_bwd_src.cu`     (`attention_bwd_src`)
-  fence       `_gather_fence`   -> `csrc/gather_fence.cu`    (`gather_fence`)
-  mh forward  `_fwd_kernel_mh`  -> `csrc/gat_fwd.cu`         (`attention_fwd_mh`)
-  mh B1       `_bwd_kernel_mh`  -> `csrc/gat_bwd_dst_mh.cu`  (`attention_bwd_dst_mh`)
+  forward     `_fwd_kernel`     -> `csrc/gat_fwd.cu`       (`attention_fwd`)
+  B1          `_bwd_kernel`     -> `csrc/gat_bwd_dst.cu`   (`attention_bwd_dst`)
+  B2          `_bwd2_kernel`    -> `csrc/gat_bwd_src.cu`   (`attention_bwd_src`)
+  fence       `_gather_fence`   -> `csrc/gather_fence.cu`  (`gather_fence`)
+  mh forward  `_fwd_kernel_mh`  -> `csrc/gat_fwd.cu`       (`attention_fwd_mh`)
+  mh B1       `_bwd_kernel_mh`  -> `csrc/gat_bwd_dst.cu`   (`attention_bwd_dst_mh`)
   reduce      `_reduce_kernel`  -> `csrc/spmm_csr.cu`, pre-gathered rows and
                                    unit weights (`segment_sum_rows`)
 The multi-head backward runs B2 once per head, on that head's rows of the
@@ -17,13 +17,15 @@ Each `*_plain` function is the same function in plain PyTorch, used for CPU
 tensors and as the reference its kernel is held to on the card. A wrapper
 launches its kernel for CUDA tensors (or raises) and counts the launch.
 
-Kernels 1 and 8 walk the cached piece plan of `row_ptr`, and B2 that of
-`t_ptr` (`spmm_kernel.cached_walk`); kernels 1 and 8 are one C entry at 1
-to 8 heads (`csrc/gat_fwd.cu`) behind one wrapper (`_fwd`), each counted
-on its own counter. They read rows in 16-byte loads: their wrappers
+Kernels 1, 8, 2 (B1) and 9 walk the cached piece plan of `row_ptr`, and B2
+that of `t_ptr` (`spmm_kernel.cached_walk`). Kernels 1 and 8 are one C
+entry at 1 to 8 heads (`csrc/gat_fwd.cu`) behind one wrapper (`_fwd`), and
+so are kernels 2 and 9 (`csrc/gat_bwd_dst.cu`, `_bwd_dst`); each kernel
+counts on its own counter. They read rows in 16-byte loads: their wrappers
 raise where a row view they would pass does not start 16-byte aligned, or
 its rows are not a multiple of 16 bytes apart. `attention_fwd_mh_pieces`
-(kernel 1 at one head, kernel 8 at more) and `attention_bwd_src_pieces` are
+(kernel 1 at one head, kernel 8 at more), `attention_bwd_dst_pieces`
+(kernel 2 at one head, kernel 9 at more) and `attention_bwd_src_pieces` are
 the functions in the walks' order of sums, for the tests.
 
 Rounding matches the TPU kernels: source rows are rounded to `hs_dtype`
@@ -58,7 +60,7 @@ from plotpointe_tpu_torch.graphs.csr import Graph
 from plotpointe_tpu_torch.ops import cuda_build as cb
 from plotpointe_tpu_torch.ops.segment import EPS, LEAKY_SLOPE, LOGIT_CLAMP, edge_numerators
 from plotpointe_tpu_torch.ops.spmm_kernel import (
-    CAP, cached_walk, piece_order_sum, spmm_gathered, spmm_gathered_plain)
+    CAP, WALK_UNITS, cached_walk, piece_order_sum, piece_plan, spmm_gathered, spmm_gathered_plain)
 
 LAUNCHES = cb.COUNTERS["gat_fwd"]
 BWD_DST_LAUNCHES = cb.COUNTERS["gat_bwd_dst"]
@@ -71,8 +73,6 @@ STRIP = 512  # rows wider than this run in column strips in the kernels (csrc/at
 MAX_PACKED_HEADS = 8
 MAX_PACKED_WIDTH = 1024  # heads * D the head-packed kernels hold in registers
 HEAD_ID_STRIDE = 1 << 27  # head k's mask hashes canonical id + k * 2**27
-B1_MAX_BLOCKS = 1024  # B1's fixed grid: blocks of 8 warps striding over the rows
-_WARPS_PER_BLOCK = 8
 _M32 = 0xFFFFFFFF
 
 
@@ -246,20 +246,28 @@ def _edge_terms(gs, gd, src, dst):
     return num, deriv
 
 
+def _bwd_dst_terms(rows, gs, gd, g, out, den, graph: Graph, mask: Optional[torch.Tensor]):
+    """One head of B1, per edge: (de [E], godot [N] = g . out, the source
+    rows [E, D] in f32). rows [N, D] at the row type; gs/gd/den [N]; g/out
+    [N, D] f32; mask [E] or None."""
+    src, dst = graph.src.long(), graph.dst.long()
+    hs = rows.float()[src]
+    _, deriv = _edge_terms(gs, gd, src, dst)
+    ghs = (g[dst] * hs).sum(1)
+    godot = (g * out).sum(1)
+    m = 1.0 if mask is None else mask
+    return ((m * ghs - godot[dst]) / (den[dst] + EPS)) * deriv, godot, hs
+
+
 def attention_bwd_dst_plain(rows, gs, gd, g, out, den, graph: Graph,
                             mask: Optional[torch.Tensor] = None):
     """B1's function. rows [N, D] at the row type; gs/gd/den [N]; g/out
     [N, D] f32. Returns (de_sum [N], godot [N] = g . out, da_src [1, D] =
     sum_e de_e * rows[src_e])."""
-    src, dst = graph.src.long(), graph.dst.long()
-    hs = rows.float()
-    _, deriv = _edge_terms(gs, gd, src, dst)
-    ghs = (g[dst] * hs[src]).sum(1)
-    godot = (g * out).sum(1)
-    m = 1.0 if mask is None else mask
-    de = ((m * ghs - godot[dst]) / (den[dst] + EPS)) * deriv
-    de_sum = torch.zeros(graph.n_nodes, dtype=torch.float32, device=rows.device).index_add_(0, dst, de)
-    return de_sum, godot, (de[:, None] * hs[src]).sum(0, keepdim=True)
+    de, godot, hs = _bwd_dst_terms(rows, gs, gd, g, out, den, graph, mask)
+    de_sum = torch.zeros(graph.n_nodes, dtype=torch.float32, device=rows.device).index_add_(
+        0, graph.dst.long(), de)
+    return de_sum, godot, (de[:, None] * hs).sum(0, keepdim=True)
 
 
 def attention_bwd_src_plain(rows, gh, a_src, gs, gd, den, godot, graph: Graph,
@@ -299,28 +307,47 @@ def _edge_scratch(graph: Graph, d: int, device) -> Optional[torch.Tensor]:
         if d > STRIP else None
 
 
+def _bwd_dst(rows, gs, gd, g, out, den, graph: Graph, mask, counter):
+    """B1 at 1 to 8 heads on the card: rows [N, H, D] at the row type,
+    gs/gd/den [N, H], g/out [N, H, D] f32, mask [H, E] or None -> (de_sum
+    [N, H], godot [N, H], da_src [H, D]). One call of `csrc/gat_bwd_dst.cu`
+    (kernel 2 at one head, kernel 9 at more), counted on `counter`; the
+    kernel writes one partial row of d a_src a block, summed here."""
+    n, heads, d = rows.shape
+    dev = rows.device
+    rows = rows.contiguous()
+    _check_rows_aligned("rows", rows.view(n, heads * d))
+    g, out = cb.aligned(g), cb.aligned(out)  # read in 16-byte loads
+    gs, gd, den = (t.contiguous() for t in (gs, gd, den))
+    m = None if mask is None else mask.contiguous()
+    (piece_ptr, piece_out, unit_ptr, n_slots, split_rows, split_ptr, n_units, n_split), erow, most = \
+        cached_walk(graph.row_ptr)
+    de_sum = torch.empty((n, heads), dtype=torch.float32, device=dev)
+    godot = torch.empty_like(de_sum)
+    partial = torch.empty((-(-n_units // WALK_UNITS), heads * d), dtype=torch.float32, device=dev)
+    # split rows' piece sums of de and their godot
+    scratch = torch.empty((n_slots, 2 * heads), dtype=torch.float32, device=dev) if n_split else None
+    ghs = _edge_scratch(graph, d, dev) if heads == 1 else None  # held until the launch is queued
+    cb.launch("gat_bwd_dst", dev, cb.ptr(rows), int(rows.dtype == torch.bfloat16),
+              *map(cb.ptr, (gs, gd, g, out, den)), piece_ptr, piece_out, unit_ptr,
+              *map(cb.ptr, (graph.row_ptr, graph.src, erow, m, de_sum, godot, partial, scratch)),
+              split_rows, split_ptr, n, heads, d, graph.n_edges, n_units, n_split, most | 1, cb.ptr(ghs))
+    counter.bump()
+    return de_sum, godot, partial.sum(0).view(heads, d)
+
+
 def attention_bwd_dst(rows, gs, gd, g, out, den, graph: Graph,
                       mask: Optional[torch.Tensor] = None):
     """B1: `attention_bwd_dst_plain`'s function; launches `csrc/gat_bwd_dst.cu`
-    for CUDA tensors. The kernel writes one partial row of d a_src per warp;
-    they are summed here in a fixed order."""
+    at one head for CUDA tensors (rows that do not start 16-byte aligned
+    raise). The kernel writes one partial row of d a_src per block; they are
+    summed here."""
     _check_bwd(rows, graph, mask, gs=gs, gd=gd, g=g, out=out, den=den)
     if rows.is_cpu:
         return attention_bwd_dst_plain(rows, gs, gd, g, out, den, graph, mask)
-    n, d = rows.shape
-    n_blocks = max(1, min(B1_MAX_BLOCKS, -(-n // _WARPS_PER_BLOCK)))
-    dev = rows.device
-    de_sum = torch.empty(n, dtype=torch.float32, device=dev)
-    godot = torch.empty_like(de_sum)
-    partial = torch.empty((n_blocks * _WARPS_PER_BLOCK, d), dtype=torch.float32, device=dev)
-    args = [t.contiguous() for t in (rows, gs, gd, g, out, den, graph.row_ptr, graph.src)]
-    m = None if mask is None else mask.contiguous()
-    ghs = _edge_scratch(graph, d, dev)  # held until the launch is queued
-    cb.launch("gat_bwd_dst", dev, cb.ptr(args[0]), int(rows.dtype == torch.bfloat16),
-              *map(cb.ptr, args[1:]), cb.ptr(m), cb.ptr(de_sum), cb.ptr(godot), cb.ptr(partial),
-              n, d, n_blocks, cb.ptr(ghs))
-    BWD_DST_LAUNCHES.bump()
-    return de_sum, godot, partial.sum(0, keepdim=True)
+    de_sum, godot, da_src = _bwd_dst(rows.unsqueeze(1), gs[:, None], gd[:, None], g, out, den[:, None],
+                                     graph, None if mask is None else mask[None], BWD_DST_LAUNCHES)
+    return de_sum[:, 0], godot[:, 0], da_src
 
 
 def attention_bwd_src(rows, gh, a_src, gs, gd, den, godot, graph: Graph,
@@ -548,8 +575,9 @@ def attention_bwd_dst_mh_plain(rows, gs, gd, g, out, den, graph: Graph,
 def attention_bwd_dst_mh(rows, gs, gd, g, out, den, graph: Graph,
                          mask: Optional[torch.Tensor] = None):
     """Kernel 9: `attention_bwd_dst_mh_plain`'s function; launches
-    `csrc/gat_bwd_dst_mh.cu` for CUDA tensors. The kernel writes one partial
-    row of d a_src per warp; they are summed here in a fixed order."""
+    `csrc/gat_bwd_dst.cu` at 2-8 heads for CUDA tensors (rows that do not
+    start 16-byte aligned raise). The kernel writes one partial row of
+    d a_src per block; they are summed here."""
     n, heads, d = rows.shape
     _check_packed_shape(heads, d)
     if n != graph.n_nodes or rows.dtype not in (torch.float32, torch.bfloat16):
@@ -563,17 +591,36 @@ def attention_bwd_dst_mh(rows, gs, gd, g, out, den, graph: Graph,
         _check_tensor("mask", mask, torch.float32, dev, (heads, graph.n_edges))
     if rows.is_cpu:
         return attention_bwd_dst_mh_plain(rows, gs, gd, g, out, den, graph, mask)
-    n_blocks = max(1, min(B1_MAX_BLOCKS, -(-n // _WARPS_PER_BLOCK)))
-    de_sum = torch.empty((n, heads), dtype=torch.float32, device=dev)
-    godot = torch.empty_like(de_sum)
-    partial = torch.empty((n_blocks * _WARPS_PER_BLOCK, heads * d), dtype=torch.float32, device=dev)
-    args = [t.contiguous() for t in (rows, gs, gd, g, out, den, graph.row_ptr, graph.src)]
-    m = None if mask is None else mask.contiguous()
-    cb.launch("gat_bwd_dst_mh", dev, cb.ptr(args[0]), int(rows.dtype == torch.bfloat16),
-              *map(cb.ptr, args[1:]), cb.ptr(m), cb.ptr(de_sum), cb.ptr(godot), cb.ptr(partial),
-              n, heads, d, graph.n_edges, n_blocks)
-    MH_BWD_DST_LAUNCHES.bump()
-    return de_sum, godot, partial.sum(0).view(heads, d)
+    return _bwd_dst(rows, gs, gd, g, out, den, graph, mask, MH_BWD_DST_LAUNCHES)
+
+
+def attention_bwd_dst_pieces(rows, gs, gd, g, out, den, graph: Graph,
+                             mask: Optional[torch.Tensor] = None, cap: int = CAP):
+    """B1 and kernel 9 in the walk's order of sums, at 1 to 8 heads: rows
+    [N, H, D] at the row type, gs/gd/den [N, H], g/out [N, H, D] f32, mask
+    [H, E] or None -> (de_sum [N, H], godot [N, H], da_src [H, D]). de_sum
+    sums each piece of `piece_plan(row_ptr, cap)` in entry order and a split
+    row's pieces in piece order; d a_src sums each unit's entries in entry
+    order (one lane's run), a block's WALK_UNITS units in unit order, then
+    the blocks. For the tests of that order."""
+    heads, d = rows.shape[1:]
+    dev = rows.device
+    terms = [_bwd_dst_terms(rows[:, k], gs[:, k], gd[:, k], g[:, k], out[:, k], den[:, k], graph,
+                            None if mask is None else mask[k]) for k in range(heads)]
+    de = torch.stack([t[0] for t in terms], 1)
+    msg = torch.cat([t[0][:, None] * t[2] for t in terms], 1)  # [E, H * D]
+    plan = piece_plan(graph.row_ptr, cap)
+    piece_ptr = graph.row_ptr if plan.piece_ptr is None else plan.piece_ptr
+    piece_unit = torch.repeat_interleave(torch.arange(plan.n_units, device=dev),
+                                         (plan.unit_ptr[1:] - plan.unit_ptr[:-1]).long(),
+                                         output_size=plan.n_pieces)
+    entry_unit = torch.repeat_interleave(piece_unit, (piece_ptr[1:] - piece_ptr[:-1]).long(),
+                                         output_size=graph.n_edges)
+    units = torch.zeros((plan.n_units, heads * d), device=dev).index_add_(0, entry_unit, msg)
+    blocks = torch.zeros((-(-plan.n_units // WALK_UNITS), heads * d), device=dev).index_add_(
+        0, torch.arange(plan.n_units, device=dev) // WALK_UNITS, units)
+    return (piece_order_sum(de, graph.row_ptr, cap), torch.stack([t[1] for t in terms], 1),
+            blocks.sum(0).view(heads, d))
 
 
 def _backward_mh(h, a_src, a_dst, graph, g, out, den, rows, gs, gd, mask, plain):

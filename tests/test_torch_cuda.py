@@ -6,9 +6,10 @@ directions, the pre-gathered modes of kernels 13 and 15), the kNN
 candidates (10, 11), the read-stream probe (6), the smoke's affine pass
 (12) and the host time of a launch, the legacy attention contracts (13, 14,
 15), same-seed trainer determinism, and the edge-balanced walk of kernels
-1, 8 and 3 (rows of 10,000 and 3,000 entries and a star's, 1 to 8 heads,
-D 96 on idle tail lanes, strided head rows, column strips in kernel 1 and
-B2, equal bits on a second call, misaligned rows raising).
+1, 8, 3, 2 and 9 (rows of 10,000 and 3,000 entries and a star's, rows
+ending at a piece boundary, 1 to 8 heads, D 96 on idle tail lanes, strided
+head rows, column strips in kernels 1, 3 and 2, equal bits on a second
+call, misaligned rows raising).
 
 Every test here needs an NVIDIA GPU and skips without one. This file imports
 no JAX, so it also runs where JAX is absent:
@@ -18,7 +19,9 @@ no JAX, so it also runs where JAX is absent:
 Tolerances: attention rtol 1e-4 / atol 1e-5 (both sides round the same rows
 and sum in f32; only the summation order differs); attention gradients rtol
 5e-4 / atol 1e-4 (tests/test_gat_fused.py:53-55: sums over every edge of a
-row, with cancellation, in another order); SpMM rtol 1e-4 / atol 1e-5 (the
+row, with cancellation, in another order), and for B1's d a_src, a sum over
+every edge, that band plus a bound of f32 summation error against an f64
+reference (`_hold_b1`); SpMM rtol 1e-4 / atol 1e-5 (the
 same rounded rows, f32 sums, another order); scores rtol 1e-5 / atol 1e-4 (SCORE_TOL:
 f32 dot products of width <= 1,024, summed in another order; the chunk max
 on the tensor cores, 3xTF32 or bf16, against f32 FMAs), top-K indices equal
@@ -95,21 +98,94 @@ def _attn_inputs(rng, g, d, cuda):
     return t(g.n_nodes, 1, d), t(1, d, scale=0.2), t(1, d, scale=0.2), t(g.n_nodes, d)
 
 
+def _b1_f64(rows, gs, gd, g, out, den, graph, mask):
+    """B1's d a_src [H, D] in f64 from the same inputs (rows [N, H, D] at
+    the row type, gs/gd/den [N, H], g/out [N, H, D], mask [H, E] or None)
+    and sum_e |de_e * hs_s| [H, D]. The clamp's inside test is taken on the
+    f32 logits, as both f32 versions take it; every other product and sum
+    is f64."""
+    src, dst = graph.src.long(), graph.dst.long()
+    ref, mag = [], []
+    for k in range(rows.shape[1]):
+        x = gs[src, k] + gd[dst, k]
+        lx = torch.where(x > 0, x, 0.2 * x)
+        inside = ((lx > -10) & (lx < 10)).double()
+        xd = x.double()
+        lxd = torch.where(xd > 0, xd, 0.2 * xd)
+        deriv = torch.exp(lxd.clamp(-10, 10)) * inside * torch.where(xd > 0, 1.0, 0.2)
+        hs, gk = rows[:, k].double()[src], g[:, k].double()
+        ghs = (gk[dst] * hs).sum(1)
+        godot = (gk * out[:, k].double()).sum(1)
+        m = 1.0 if mask is None else mask[k].double()
+        term = (((m * ghs - godot[dst]) / (den[:, k].double()[dst] + 1e-9)) * deriv)[:, None] * hs
+        ref.append(term.sum(0))
+        mag.append(term.abs().sum(0))
+    return torch.stack(ref), torch.stack(mag)
+
+
+def _b1_sum_depth(graph):
+    """The most f32 roundings a term of the kernel's d a_src passes: at most
+    UNIT + CAP - 1 additions in its lane's run over its unit (a unit holds
+    at most UNIT + CAP entries; each step one FMA), WALK_UNITS - 1 in its
+    block's sum of the group rows and n_blocks - 1 in the wrapper's sum of
+    the block rows. Recursive summation errs by at most that many times
+    2**-24 * sum |term| (first order)."""
+    from plotpointe_tpu_torch.ops.spmm_kernel import CAP, UNIT, WALK_UNITS, piece_plan
+
+    n_units = piece_plan(graph.row_ptr.cpu()).n_units
+    return UNIT + CAP + WALK_UNITS + -(-n_units // WALK_UNITS)
+
+
+def _assert_da_src(got, ref, mag, depth, what):
+    """|got - ref| <= GRAD_TOL + depth * 2**-24 * sum_e |de_e * hs_s|: d a_src
+    sums every edge with cancellation, so the relative band alone is narrower
+    than f32 summation error where a column's sum is near 0."""
+    band = GRAD_TOL["atol"] + GRAD_TOL["rtol"] * ref.abs() + depth * 2.0 ** -24 * mag
+    err = (got.double() - ref).abs()
+    assert bool((err <= band).all()), f"{what}: worst |err| - band {float((err - band).max())}"
+
+
+def _hold_b1(got, want, args):
+    """Kernel 2 or 9 (`got`) and its f32 plain version (`want`): de_sum and
+    godot within GRAD_TOL of each other; d a_src of both against the f64
+    reference, the kernel within its order's depth (`_b1_sum_depth`), the
+    plain version within E (PyTorch's sum over the E rows, in an order
+    unknown here: at most E - 1 additions, plus the product's rounding)."""
+    graph = args[6]
+    for name, a, b in zip(("de_sum", "godot"), got, want):
+        torch.testing.assert_close(a, b, **GRAD_TOL, msg=name)
+    rows, gs, gd, g, out, den = args[:6]
+    if rows.dim() == 2:  # one head: [N, D] rows, [N] tables, mask [E]
+        rows, g, out = rows[:, None], g[:, None], out[:, None]
+        gs, gd, den = gs[:, None], gd[:, None], den[:, None]
+    mask = args[7] if args[7] is None or args[7].dim() == 2 else args[7][None]
+    ref, mag = _b1_f64(rows, gs, gd, g, out, den, graph, mask)
+    _assert_da_src(got[2], ref, mag, _b1_sum_depth(graph), "kernel d a_src")
+    _assert_da_src(want[2], ref, mag, graph.n_edges, "plain d a_src")
+
+
 @pytest.mark.parametrize("d", [32, 64, 128, 512, 544, 1024])
 @pytest.mark.parametrize("hs_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("masked", [False, True])
 def test_gat_bwd_kernels_match_plain(cuda, d, hs_dtype, masked):
+    """B1 and B2 on inputs that are the same on every run: the node terms
+    and the forward's out and den come from the plain versions on the CPU
+    (not from `index_add_`'s float atomics on the card). de_sum, godot and
+    dh within GRAD_TOL of the plain versions; d a_src against f64
+    (`_hold_b1`)."""
     rng = np.random.default_rng(d + 1)
-    g = _graph(rng).to(cuda)
-    h, a_s, a_d, ct = _attn_inputs(rng, g, d, cuda)
-    mask = hash_mask(99, torch.arange(g.n_edges), 0.3).to(cuda) if masked else None
+    g = _graph(rng)
+    h, a_s, a_d, ct = _attn_inputs(rng, g, d, "cpu")
+    mask = hash_mask(99, torch.arange(g.n_edges), 0.3) if masked else None
     rows, gs, gd = node_terms_plain(h[:, 0], a_s, a_d, hs_dtype)
     out, den = attention_fwd_plain(h, a_s, a_d, g, mask=mask, hs_dtype=hs_dtype)
-    args = (rows, gs, gd, ct, out[:, 0], den, g, mask)
+    g, a_s, ct = g.to(cuda), a_s.to(cuda), ct.to(cuda)
+    rows, gs, gd, out, den = (t.to(cuda) for t in (rows, gs, gd, out[:, 0], den))
+    mask = None if mask is None else mask.to(cuda)
+    args = (rows, gs, gd, ct, out, den, g, mask)
     before = {k: cuda_build.COUNTERS[k].count for k in ("gat_bwd_dst", "gat_bwd_src")}
     got = attention_bwd_dst(*args)
-    for name, a, b in zip(("de_sum", "godot", "da_src"), got, attention_bwd_dst_plain(*args)):
-        torch.testing.assert_close(a, b, **GRAD_TOL, msg=name)
+    _hold_b1(got, attention_bwd_dst_plain(*args), args)
     args2 = (rows, ct.to(hs_dtype), a_s, gs, gd, den, got[1], g, mask)
     dh = attention_bwd_src(*args2)
     torch.cuda.synchronize()
@@ -269,16 +345,17 @@ def test_multihead_kernels_match_plain(cuda, heads, d, hs_dtype, masked):
     want_out, want_den = attention_fwd_mh_plain(h, a_s, a_d, g, mask=mask, hs_dtype=hs_dtype)
     torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(den, want_den, rtol=1e-4, atol=1e-5)
+    # kernel 9's inputs from the walk forward (the same bits on every run,
+    # unlike the plain forward's float atomics on the card)
     rows, gs, gd = node_terms_mh_plain(h, a_s, a_d, hs_dtype)
-    args = (rows, gs, gd, ct, want_out, want_den, g, mask)
+    args = (rows, gs, gd, ct, out, den, g, mask)
     got = attention_bwd_dst_mh(*args)
-    for name, a, b in zip(("de_sum", "godot", "da_src"), got, attention_bwd_dst_mh_plain(*args)):
-        torch.testing.assert_close(a, b, **GRAD_TOL, msg=name)
+    _hold_b1(got, attention_bwd_dst_mh_plain(*args), args)
     # B2 on one head's rows of the [N, H, D] tensors, read with a row stride
     gh = ct.to(hs_dtype)
     k = heads - 1
     args2 = (rows[:, k], gh[:, k], a_s[k:k + 1], gs[:, k].contiguous(), gd[:, k].contiguous(),
-             want_den[:, k].contiguous(), got[1][:, k].contiguous(), g, None if mask is None else mask[k])
+             den[:, k].contiguous(), got[1][:, k].contiguous(), g, None if mask is None else mask[k])
     torch.testing.assert_close(attention_bwd_src(*args2), attention_bwd_src_plain(*args2), **GRAD_TOL)
     torch.cuda.synchronize()
     assert {k: cuda_build.COUNTERS[k].count - before[k] for k in before} == \
@@ -936,4 +1013,117 @@ def test_walk_kernels_raise_on_misaligned_rows(cuda):
     vec = torch.rand(n, device=cuda) + 1.0
     with pytest.raises(ValueError, match="16-byte"):
         attention_bwd_src(rows, rows, a[:1], vec, vec, vec, vec, g)
+    assert {k: cuda_build.COUNTERS[k].count for k in before} == before
+
+
+# -- the edge-balanced walk of kernels 2 (B1) and 9 (csrc/gat_bwd_dst.cu) --
+
+
+def _boundary_graph(rng, n=3000):
+    """Rows that end exactly at a piece boundary: node 0 takes 100 CAP
+    in-edges, nodes 1 and 2 CAP and 2 CAP, node 3 CAP + 1; nodes 4..9 have
+    none (a run of empty rows); the rest lognormal in-degrees."""
+    from plotpointe_tpu_torch.ops.spmm_kernel import CAP
+
+    deg = np.concatenate([[100 * CAP, CAP, 2 * CAP, CAP + 1], np.zeros(6, int),
+                          np.minimum(rng.lognormal(1.5, 1.3, n - 10).astype(int), 400)])
+    dst = np.repeat(np.arange(n), deg)
+    return build_graph(rng.integers(10, n, dst.shape[0]), dst, n).to("cuda")
+
+
+def _b1_walk_graph(kind, rng):
+    return _boundary_graph(rng) if kind == "boundary" else _walk_graph(kind, rng)
+
+
+def _b1_walk_inputs(rng, g, heads, d, hs_dtype, masked, cuda):
+    """Rows, node terms, and the walk forward's out and den (the same bits
+    on every run); the cotangent scaled by 0.02 so a row of thousands of
+    entries sums to O(1)."""
+    from plotpointe_tpu_torch.ops.gat_fused import attention_fwd_mh, dropout_mask_mh, node_terms_mh_plain
+
+    def t(*shape, scale=1.0):
+        return torch.as_tensor((rng.normal(size=shape) * scale).astype(np.float32), device=cuda)
+
+    h, ct = t(g.n_nodes, heads, d), t(g.n_nodes, heads, d, scale=0.02)
+    a_s, a_d = t(heads, d, scale=0.1), t(heads, d, scale=0.1)
+    mask = dropout_mask_mh(g, 0.3, 77, max(heads, 2), cuda)[:heads] if masked else None
+    if heads == 1:
+        out, den = attention_fwd(h, a_s, a_d, g, mask=None if mask is None else mask[0], hs_dtype=hs_dtype)
+        den = den[:, None]
+    else:
+        out, den = attention_fwd_mh(h, a_s, a_d, g, mask=mask, hs_dtype=hs_dtype)
+    rows, gs, gd = node_terms_mh_plain(h, a_s, a_d, hs_dtype)
+    return rows, gs, gd, ct, out, den, mask
+
+
+@pytest.mark.parametrize("kind", ["skewed", "star", "boundary"])
+@pytest.mark.parametrize("d", [32, 96, 128, 544, 1024])
+@pytest.mark.parametrize("hs_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_bwd_dst_walk_on_rows_above_the_cap_matches_plain(cuda, kind, d, hs_dtype, masked):
+    """Kernel 2 (B1) on the walk over rows of 10,000 entries (skewed), 3,999
+    (star) or exact multiples of the piece cap (boundary), runs of empty
+    rows and one-entry rows: D 96 (lane groups with idle tail lanes), D 544
+    and 1,024 (column strips after `row_dots`); de_sum and godot within
+    GRAD_TOL of the plain version, d a_src against f64 (`_hold_b1`), empty
+    rows zero, one count per call, the same bits on a second call."""
+    rng = np.random.default_rng(d + 11)
+    g = _b1_walk_graph(kind, rng)
+    rows, gs, gd, ct, out, den, mask = _b1_walk_inputs(rng, g, 1, d, hs_dtype, masked, cuda)
+    args = (rows[:, 0], gs[:, 0].contiguous(), gd[:, 0].contiguous(), ct[:, 0].contiguous(),
+            out[:, 0].contiguous(), den[:, 0].contiguous(), g, None if mask is None else mask[0])
+    before = cuda_build.COUNTERS["gat_bwd_dst"].count
+    got, again = attention_bwd_dst(*args), attention_bwd_dst(*args)
+    torch.cuda.synchronize()
+    assert cuda_build.COUNTERS["gat_bwd_dst"].count == before + 2
+    _hold_b1(got, attention_bwd_dst_plain(*args), args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if kind != "star":
+        empty = slice(1, 7) if kind == "skewed" else slice(4, 10)
+        assert torch.all(got[0][empty] == 0) and torch.all(got[1][empty] == 0)
+
+
+@pytest.mark.parametrize("kind", ["skewed", "star", "boundary"])
+@pytest.mark.parametrize("heads,d", [(2, 128), (4, 128), (8, 128), (2, 32), (3, 64)])
+@pytest.mark.parametrize("hs_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_bwd_dst_mh_walk_on_rows_above_the_cap_matches_plain(cuda, kind, heads, d, hs_dtype, masked):
+    """Kernel 9 on the same walk at 2 to 8 heads (lane groups of 8 to 32
+    lanes, 1 to 8 chunks a lane, heads sharing a lane's chunk slots or
+    taking whole ones): de_sum and godot within GRAD_TOL of the plain
+    version, d a_src against f64 (`_hold_b1`), one count per call, the same
+    bits on a second call."""
+    from plotpointe_tpu_torch.ops.gat_fused import attention_bwd_dst_mh, attention_bwd_dst_mh_plain
+
+    rng = np.random.default_rng(heads * d + 13)
+    g = _b1_walk_graph(kind, rng)
+    rows, gs, gd, ct, out, den, mask = _b1_walk_inputs(rng, g, heads, d, hs_dtype, masked, cuda)
+    args = (rows, gs, gd, ct, out, den, g, mask)
+    before = cuda_build.COUNTERS["gat_bwd_dst_mh"].count
+    got, again = attention_bwd_dst_mh(*args), attention_bwd_dst_mh(*args)
+    torch.cuda.synchronize()
+    assert cuda_build.COUNTERS["gat_bwd_dst_mh"].count == before + 2
+    _hold_b1(got, attention_bwd_dst_mh_plain(*args), args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_bwd_dst_walk_raises_on_misaligned_rows(cuda):
+    """Kernels 2 and 9 read rows in 16-byte loads: rows that do not start on
+    a 16-byte boundary raise before any launch (no plain version runs on
+    the card)."""
+    from plotpointe_tpu_torch.ops.gat_fused import attention_bwd_dst_mh
+
+    rng = np.random.default_rng(0)
+    g = _graph(rng).to(cuda)
+    n, d = g.n_nodes, 64
+    vec = torch.rand(n, device=cuda) + 1.0
+    before = {k: cuda_build.COUNTERS[k].count for k in ("gat_bwd_dst", "gat_bwd_dst_mh")}
+    for dt in (torch.float32, torch.bfloat16):
+        rows = torch.randn(n * 2 * d + 8, device=cuda).to(dt)[1:1 + n * 2 * d]
+        ct = torch.randn((n, 2, d), device=cuda)
+        with pytest.raises(ValueError, match="16-byte"):
+            attention_bwd_dst(rows[:n * d].view(n, d), vec, vec, ct[:, 0], ct[:, 1], vec, g)
+        with pytest.raises(ValueError, match="16-byte"):
+            attention_bwd_dst_mh(rows.view(n, 2, d), vec[:, None].repeat(1, 2), vec[:, None].repeat(1, 2),
+                                 ct, ct, vec[:, None].repeat(1, 2), g)
     assert {k: cuda_build.COUNTERS[k].count for k in before} == before
