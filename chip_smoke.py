@@ -18,7 +18,11 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            at the main paths' shapes (tolerances below); kernels 1, 2, 3 and
            14 at widths above one column strip (D 1,024 on 40 nodes, D 544
            on the main graph); top-K's kernels 4 and 5 on the 498,196-row
-           catalog at B 1, 8 and 64, and `topk_mips`'s indices against
+           catalog at B 1, 8 and 64 (kernel 5 also equal bits on a second
+           launch), the select kernel's two selections bit-equal to their
+           plain versions on the same rows and on rows with exact ties, and
+           on a long row of the per-request kind (k 2,000 and 5,000 over
+           2,008 chunks' scores), and `topk_mips`'s indices against
            `topk_mips_ref`'s wherever untied; the attention ops' and the SpMM
            operator's gradients vs autograd of the plain goldens
   train    path 1, every launch counter set to 0 first: `train_from_artifacts`
@@ -86,12 +90,14 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            PyTorch call computes the same function, that call; the bound with
            its reckoning; `host_us_per_launch`, the host's time to issue one
            call of the kernel 12, 4 and 7 wrappers beside
-           `torch.addcmul`; kernel 1 with the export's f32 rows and the
+           `torch.addcmul`, and one whole `topk_mips` call at B 1 and 8;
+           kernel 1 with the export's f32 rows and the
            training step's bf16 rows and mask, split into its CUDA kernels and
-           timed on a graph of the same size without degree skew; kernel 4 at
-           B 1, 8 and 64 in f32 and bf16, and one `topk_mips` call split by
-           CUDA events into chunk-max, the first `torch.topk`, rescore and
-           the final selection; the training step
+           timed on a graph of the same size without degree skew; kernels 4,
+           5 and the select kernel (both selections, beside `torch.topk` of
+           the same rows) at B 1, 8 and 64 in f32 and bf16, and one
+           `topk_mips` call split by CUDA events into chunk-max, the first
+           selection, rescore and the final selection; the training step
            split into sampling, forward, backward and optimizer, and its
            device time by kernel with the idle share (torch.profiler); one
            eval pass; kernel 7 in both directions with `torch.sparse.mm` as
@@ -110,15 +116,18 @@ Nothing here imports JAX or the JAX package.
 
 times only kernels 7, 12, 13 and 15 and `host_us_per_launch` (`time_rule2`),
 kernels 8, 3, 2 and 9 at the 2-head and GAT training shapes and kernels 8,
-2 and 9 with f32 rows (`time_gather_trees`), kernel 4 at B 1, 8 and 64 in
-f32 and bf16 and kernels 1 and 14 at the training and export shapes
+2 and 9 with f32 rows (`time_gather_trees`), kernels 4 and 5, the select
+kernel (where the tree has it) and `topk_mips` at B 1, 8 and 64 in f32 and
+bf16 and kernels 1 and 14 at the training and export shapes
 (`time_topk_and_fwd_trees`), and kernels 10 and 11 on the graph-build
-subsets at 63,001 x 128 and x 384 with the ptxas report of kernels 1-4 and
-8-11 (`time_knn_trees`), for the port in the checkout DIR (an earlier
-commit, say) and for this one, each tree in a process of its
-own that builds its own kernels, in turns (DIR, this, this, DIR) on one
+subsets at 63,001 x 128 and x 384 with the ptxas report of kernels 1-5,
+8-11 and the select kernel, where the tree has them (`time_knn_trees`),
+for the port in the checkout DIR (an earlier commit, say) and for this
+one, each tree in a process of its own that builds its own kernels, in
+turns (DIR, this, this, DIR) on one
 card; both trees read the same graph and rows, saved once; every line
-carries its "tree".
+carries its "tree". Kernel 5's scores of the same chunks must be the same
+bits in both trees.
 """
 from __future__ import annotations
 
@@ -151,6 +160,8 @@ STEP_RTOL, STEP_ATOL_OF_MAX, LOSS_RTOL = 5e-4, 1e-3, 1e-5
 V2_MODEL_SEEDS = (0, 5, 9, 11)  # legacy v2 model seeds drawn besides the main one
 SERVE_RTOL = 1e-4  # served scores vs the plain CPU answer
 CATALOG = 498_196  # the reference's serving catalog
+CHUNK_ROWS = 128  # items per top-K chunk
+SELECT_KERNELS = ("select_rows", "sort_tiles", "rank_tiles")  # csrc/topk_select.cu's kernels
 SOURCES = {
     "gat_fwd": ("plotpointe_tpu_torch/csrc/gat_fwd.cu", "plotpointe_tpu/ops/gat_fused.py:91"),
     "gat_bwd_dst": ("plotpointe_tpu_torch/csrc/gat_bwd_dst.cu", "plotpointe_tpu/ops/gat_fused.py:185"),
@@ -158,6 +169,8 @@ SOURCES = {
     "gather_fence": ("plotpointe_tpu_torch/csrc/gather_fence.cu", "plotpointe_tpu/ops/gat_fused.py:43"),
     "topk_chunkmax": ("plotpointe_tpu_torch/csrc/topk_chunkmax.cu", "plotpointe_tpu/ops/topk_kernel.py:140"),
     "topk_rescore": ("plotpointe_tpu_torch/csrc/topk_rescore.cu", "plotpointe_tpu/ops/topk_kernel.py:175"),
+    # the selections between the top-K kernels: XLA ops in the JAX package, not a Pallas kernel
+    "topk_select": ("plotpointe_tpu_torch/csrc/topk_select.cu", "plotpointe_tpu/ops/topk_kernel.py:296"),
     "spmm_csr": ("plotpointe_tpu_torch/csrc/spmm_csr.cu", "plotpointe_tpu/ops/spmm_kernel.py:34"),
     "gat_fwd_mh": ("plotpointe_tpu_torch/csrc/gat_fwd.cu", "plotpointe_tpu/ops/gat_fused.py:460"),
     "gat_bwd_dst_mh": ("plotpointe_tpu_torch/csrc/gat_bwd_dst.cu", "plotpointe_tpu/ops/gat_fused.py:557"),
@@ -175,9 +188,9 @@ SOURCES = {
 # backward kernels gather rows themselves, so there are no two XLA gathers
 # to order) and is only checked and timed
 PATH_KERNELS = {"train": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src"),
-                "serve": ("gat_fwd", "topk_chunkmax", "topk_rescore"),
+                "serve": ("gat_fwd", "topk_chunkmax", "topk_rescore", "topk_select"),
                 "lightgcn_train": ("spmm_csr",),
-                "lightgcn_serve": ("spmm_csr", "topk_chunkmax", "topk_rescore"),
+                "lightgcn_serve": ("spmm_csr", "topk_chunkmax", "topk_rescore", "topk_select"),
                 "mh_train": ("gat_fwd_mh", "gat_bwd_dst_mh", "gat_bwd_src"),
                 "mh_export": ("gat_fwd_mh",),
                 "graph_build": ("knn_topk",),
@@ -192,7 +205,8 @@ LEGACY = (("legacy_v2", 128, 1), ("legacy_v1", 64, 1), ("legacy_v1_mh", 128, 2))
 LIGHTGCN = dict(embed_dim=64, n_prop_layers=3, batch_size=8192, neg_per_pos=5)
 MH_HEADS = 2
 # the libraries whose ptxas lines (registers, spills, shared memory) the build line carries
-PTXAS_REPORTED = ("knn_topk", "knn_topk_fast", "gat_fwd", "gat_bwd_dst", "gat_bwd_src", "topk_chunkmax")
+PTXAS_REPORTED = ("knn_topk", "knn_topk_fast", "gat_fwd", "gat_bwd_dst", "gat_bwd_src", "topk_chunkmax",
+                  "topk_rescore", "topk_select")
 KNN = dict(k=20, min_similarity=0.3)  # the pipeline's build-knn defaults
 KNN_TOL = dict(rtol=1e-5, atol=1e-5)  # f32 scores of the same rows, summed in another order
 TIE_TOL = 1e-5  # candidates whose scores lie this close may swap places
@@ -266,9 +280,21 @@ def topk_bound(b: int, n: int, d: int, dname: str) -> dict:
             "bound_cuda_cores_ms": bound(sum(nbytes.values()), ops, "float32")[0]}
 
 
+def rescore_bound(b: int, r: int, d: int, sz: int, cid) -> tuple[float, str]:
+    """Kernel 5's bound for b queries of r chunks each (ids `cid`) over rows
+    of `sz` bytes a value: each distinct chunk read once, the queries and
+    ids read, the [b, r, 128] f32 scores written; the f32 FMAs of every
+    score."""
+    import torch
+
+    uniq = int(torch.unique(cid).numel())
+    return bound(uniq * CHUNK_ROWS * d * sz + b * d * sz + b * r * 4 + b * r * CHUNK_ROWS * 4,
+                 2 * b * r * CHUNK_ROWS * d, "float32")
+
+
 def topk_phase_split(x, q, k: int, iters: int = 20, warmup: int = 3) -> dict:
     """One exact-mode `topk_mips(x, q, k)` split into its four stages
-    (chunk-max, the first `torch.topk`, rescore, the final selection) by a
+    (chunk-max, the first selection, rescore, the final selection) by a
     CUDA event that its `stage` hook records as each stage ends. Each
     stretch runs from one event to the next on the stream, so it holds the
     idle time the host leaves between launches; each call starts after a
@@ -376,6 +402,29 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
+def device_ms(fn, keys=("",), iters: int = 20, warmup: int = 3, tries: int = 3):
+    """Mean device time per call of `fn`, summed over its CUDA kernels whose
+    names hold one of `keys` (every kernel by default), from torch.profiler:
+    the kernels' own run time. CUDA events around back-to-back calls take
+    in the host's time to issue each call where that is the longer, as it
+    is for the few-microsecond top-K kernels. A profile that recorded no
+    such kernel (it happens) is taken again; None after `tries` of them."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in prof.key_averages() if any(k in e.key for k in keys))
+        if total > 0:
+            return total / iters / 1e3
+    return None
+
+
 def host_us_per_launch(fn, calls: int = 200, warmup: int = 20) -> float:
     """Host microseconds per call of `fn` over `calls` calls with no
     synchronise inside the loop, after `warmup` calls and a synchronise:
@@ -428,6 +477,20 @@ class Errors:
         if not ok:
             raise AssertionError(f"{name} ({what}) disagrees with its plain version: max abs err {err}")
 
+    def equal(self, name: str, what: str, got, want) -> None:
+        """A kernel that only compares and moves values must give its plain
+        version's bits: every tensor of `got` equal to its counterpart."""
+        import torch
+
+        err = max(float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
+                  for g, w in zip(got, want))
+        ok = all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+        self.max[name] = max(self.max.get(name, 0.0), err)
+        emit({"phase": "check", "kernel": name, "case": what + ": equal bits", "max_abs_err": err,
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"{name} ({what}) differs from its plain version: max abs err {err}")
+
     def same_bits(self, name: str, what: str, got, again) -> None:
         """Two launches of a kernel on the same inputs must give equal bits."""
         import torch
@@ -454,7 +517,7 @@ def main() -> int:
     ap.add_argument("--epochs", type=int, default=3, help="optimizer steps of the train phase")
     ap.add_argument("--layers", type=int, default=2, help="GAT depth of the trained model")
     ap.add_argument("--compare-with", metavar="DIR", default=None,
-                    help="only time kernels 1-4, 7-15 and host_us_per_launch, for "
+                    help="only time kernels 1-5, 7-15, the select kernel and host_us_per_launch, for "
                          "the port in DIR (another checkout) and this one, in turns on this card")
     ap.add_argument("--rows-of", metavar="DIR", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--graph", default=None, help=argparse.SUPPRESS)
@@ -500,7 +563,7 @@ def rows_of(args) -> int:
                             **{k: z[k].to("cuda") for k in GRAPH_ARRAYS})
     time_rule2({}, graph, "cuda", tree=args.tree)
     time_gather_trees(graph, "cuda", args.tree)
-    time_topk_and_fwd_trees(graph, "cuda", args.tree)
+    time_topk_and_fwd_trees(graph, "cuda", args.tree, Path(args.graph).parent)
     del graph, z
     torch.cuda.empty_cache()
     from plotpointe_tpu_torch.graphs.knn import l2_normalize
@@ -512,7 +575,8 @@ def rows_of(args) -> int:
 
 def run_compare(args, work: Path) -> int:
     """Kernels 7, 12, 13 and 15, the launch path's host time, kernels 8, 3,
-    2, 9, 4, 1 and 14 on the main graph and catalog of `run`, then kernels 10
+    2, 9, 4, 5, the select kernel, 1 and 14 on the main graph and catalog of
+    `run` (kernel 5's scores held equal between the trees), then kernels 10
     and 11 on its graph-build subsets
     (`build-subset` of the seeded catalog at 128 and 384 d), for the
     checkout `--compare-with` and this one, each in a process of its own
@@ -550,6 +614,15 @@ def run_compare(args, work: Path) -> int:
               "seconds": time.perf_counter() - t0})
         if proc.returncode != 0:
             raise AssertionError(f"timing the {tree} tree failed: {proc.stderr[-3000:]}")
+    # kernel 5 of this tree against the other's, on the same chunks: the same
+    # FMAs in the same order give the same bits
+    for mine in sorted(work.glob("rescore_change_*.pt")):
+        got, want = torch.load(mine), torch.load(work / mine.name.replace("_change_", "_parent_"))
+        same = torch.equal(got, want)
+        emit({"phase": "compare", "kernel": "topk_rescore", "case": mine.stem[len("rescore_change_"):],
+              "equal_bits_to_the_other_tree": same, "max_abs_diff": float((got - want).abs().max())})
+        if not same:
+            raise AssertionError(f"kernel 5 ({mine.stem}) gives other bits than the other tree's")
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0
 
@@ -839,7 +912,8 @@ def phase_check(errs, rng, graph, h0, a_s, a_d, catalog, dev) -> None:
     from plotpointe_tpu_torch.graphs.csr import build_graph
     from plotpointe_tpu_torch.ops.gat_fused import gather_fence, gather_fence_plain
     from plotpointe_tpu_torch.ops.topk_kernel import (
-        CHUNK_MARGIN, chunk_max, chunk_max_plain, n_chunks_of, rescore, rescore_plain)
+        CHUNK, CHUNK_MARGIN, chunk_max, chunk_max_plain, n_chunks_of, rescore, rescore_plain,
+        select_chunks, select_chunks_plain, select_items, select_items_plain)
 
     small_n, small_e = 3000, 30_000
     src = rng.integers(0, small_n, small_e)
@@ -880,11 +954,32 @@ def phase_check(errs, rng, graph, h0, a_s, a_d, catalog, dev) -> None:
                 what = f"{label} N={n} B={b} {str(dt)[6:]}"
                 cm = chunk_max(x, q)
                 errs.check("topk_chunkmax", what, cm, chunk_max_plain(x, q), SCORE_TOL)
-                cid = torch.topk(cm, min(32 + CHUNK_MARGIN, cm.shape[1]), dim=1)[1].to(torch.int32)
+                r = min(32 + CHUNK_MARGIN, cm.shape[1])
+                cid = select_chunks(cm, r, n)
+                errs.equal("topk_select", what + f" first r={r}", [cid], [select_chunks_plain(cm, r, n)])
                 cid[:, -1] = n_chunks_of(n) - 1  # the tail chunk, partly past N
-                errs.check("topk_rescore", what + f" R={cid.shape[1]}", rescore(x, q, cid),
-                           rescore_plain(x, q, cid), SCORE_TOL)
+                sc = rescore(x, q, cid)
+                errs.check("topk_rescore", what + f" R={r}", sc, rescore_plain(x, q, cid), SCORE_TOL)
+                errs.same_bits("topk_rescore", what + f" R={r}", [sc], [rescore(x, q, cid)])
+                scores = sc.flatten(1)
+                errs.equal("topk_select", what + f" final W={scores.shape[1]} k=32",
+                           select_items(scores, cid, 32), select_items_plain(scores, cid, 32))
+                # exact ties: the maxima and the scores on a grid of 1/4
+                tied_cm, tied_sc = torch.round(cm * 4) / 4, torch.round(scores * 4) / 4
+                errs.equal("topk_select", what + " first, tied maxima", [select_chunks(tied_cm, r, n)],
+                           [select_chunks_plain(tied_cm, r, n)])
+                errs.equal("topk_select", what + " final, tied scores", select_items(tied_sc, cid, 32),
+                           select_items_plain(tied_sc, cid, 32))
                 check_topk_indices(what, x, q, 32)
+        # the per-request path's long rows: B 1, a k of 2,000 over its 2,008 chunks' scores (read
+        # from global memory on each pass); 5,000 sorts its survivors through scratch
+        own = np.random.default_rng(2008)  # leaves the main numpy stream as it was
+        long = torch.as_tensor(np.round(own.normal(size=(1, 2008 * CHUNK)) * 64) / 64,
+                               dtype=torch.float32, device=dev)
+        cid = torch.arange(2008, device=dev, dtype=torch.int32)[None] * 2
+        for k in (2000, 5000):
+            errs.equal("topk_select", f"long row W={long.shape[1]} final k={k}", select_items(long, cid, k),
+                       select_items_plain(long, cid, k))
     sync()
     check_knn(errs, "small", small_knn_rows(rng, dev))
 
@@ -1503,11 +1598,14 @@ def time_knn_trees(feats, tree: str) -> None:
 
 def ptxas_report(names) -> dict:
     """Each library's `nvcc -Xptxas -v` lines (registers, spills, entry
-    functions) from the `<lib>.log` its build wrote."""
+    functions) from the `<lib>.log` its build wrote; a library whose source
+    the tree lacks is left out."""
     from plotpointe_tpu_torch.ops import cuda_build
 
     out = {}
     for name in names:
+        if not (cuda_build.CSRC / f"{name}.cu").exists():  # an older tree, without this source
+            continue
         lines = cuda_build.lib_path(name).with_suffix(".log").read_text().splitlines()
         out[name] = [ln.strip() for ln in lines if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
     return out
@@ -1672,7 +1770,7 @@ def time_rule2(rows_out, graph, dev, tree: str = "change") -> None:
     from plotpointe_tpu_torch.ops.gat_fused import segment_sum_rows, segment_sum_rows_plain
     from plotpointe_tpu_torch.ops.gat_kernel import fused_segment_reduce, fused_segment_reduce_plain
     from plotpointe_tpu_torch.ops.spmm_kernel import spmm_csr, spmm_csr_plain
-    from plotpointe_tpu_torch.ops.topk_kernel import chunk_max
+    from plotpointe_tpu_torch.ops.topk_kernel import chunk_max, topk_mips
 
     n, e, d = graph.n_nodes, graph.n_edges, LIGHTGCN["embed_dim"]
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -1750,6 +1848,11 @@ def time_rule2(rows_out, graph, dev, tree: str = "change") -> None:
         emit({"phase": "timing", "what": "host_us_per_launch", "tree": tree, "calls": 200,
               "smoke_affine [256, 128] f32": host_us_per_launch(lambda: affine(small)),
               "topk_chunkmax N=4096 D=128 B=8 f32": host_us_per_launch(lambda: chunk_max(xt, qt)),
+              # one whole call (all its launches and the ops between them)
+              "topk_mips N=4096 D=128 B=1 f32 k=32": host_us_per_launch(lambda: topk_mips(xt, qt[:1], 32),
+                                                                       calls=50),
+              "topk_mips N=4096 D=128 B=8 f32 k=32": host_us_per_launch(lambda: topk_mips(xt, qt, 32),
+                                                                       calls=50),
               f"spmm_csr N={n} E={e} D={d} rows=bfloat16 dst": host_us_per_launch(
                   lambda: spmm_csr(xb, v, graph.row_ptr, graph.src, torch.bfloat16)),
               "torch.addcmul [256, 128] f32": host_us_per_launch(lambda: torch.addcmul(one, small, two)),
@@ -1868,12 +1971,16 @@ def time_gather_trees(graph, dev, tree: str) -> None:
                       "gather_ms": gather_ms(nbytes, e, hk * d * isz)})
 
 
-def time_topk_and_fwd_trees(graph, dev, tree: str) -> None:
-    """`--compare-with`'s rows of kernels 4, 1 and 14, on inputs seeded on
-    the card (so each tree gets the same): kernel 4 (chunk-max)
-    over a 498,196 x 128 catalog at B 1, 8 and 64 in f32 and bf16, with its
-    bound, and the whole `topk_mips` (k 32) beside it, with its split where
-    the tree's `topk_mips` has the `stage` hook; kernel 1 on the main graph
+def time_topk_and_fwd_trees(graph, dev, tree: str, bits_dir: Path) -> None:
+    """`--compare-with`'s rows of kernels 4, 5, the select kernel, 1 and 14,
+    on inputs seeded on the card (so each tree gets the same): kernel 4
+    (chunk-max) over a 498,196 x 128 catalog at B 1, 8 and 64 in f32 and
+    bf16, with its bound, and the whole `topk_mips` (k 32) beside it, with
+    its split where the tree's `topk_mips` has the `stage` hook; kernel 5 on
+    the 40 chunks of largest plain maxima a query, listed by value (the
+    order of earlier trees' paths) and ascending (this tree's), with its
+    scores of the ascending list saved to `bits_dir` for the parent-bits
+    comparison; the select kernel where the tree has it; kernel 1 on the main graph
     at D 128 with bf16 rows and the 0.1 mask (the GAT step) and with f32
     rows and no mask (the export); kernel 14 (`fused_layer`, bf16 rows, the
     Bernoulli mask of the v2 contract). Each line carries `tree`."""
@@ -1883,9 +1990,11 @@ def time_topk_and_fwd_trees(graph, dev, tree: str) -> None:
 
     from plotpointe_tpu_torch.ops.gat_fused import attention_fwd, hash_mask
     from plotpointe_tpu_torch.ops.gat_kernel import fused_layer, legacy_mask
-    from plotpointe_tpu_torch.ops.topk_kernel import chunk_max, topk_mips
+    from plotpointe_tpu_torch.ops import topk_kernel
+    from plotpointe_tpu_torch.ops.topk_kernel import chunk_max, chunk_max_plain, rescore, topk_mips
 
     hooked = "stage" in inspect.signature(topk_mips).parameters  # older trees have no hook
+    r = 32 + 8  # k 32 and the exact margin
     n, e, d = graph.n_nodes, graph.n_edges, 128
     gen = torch.Generator(device=dev).manual_seed(17)
     with torch.no_grad():
@@ -1900,6 +2009,17 @@ def time_topk_and_fwd_trees(graph, dev, tree: str) -> None:
                 emit({"phase": "timing", "kernel": "topk_mips", "tree": tree, "shape": shape, "k": 32,
                       "ms": time_ms(lambda: topk_mips(x, q, 32)),
                       **(topk_phase_split(x, q, 32) if hooked else {})})
+                cm = chunk_max_plain(x, q)  # cuBLAS maxima: the same chunks in both trees
+                by_value = torch.topk(cm, r, dim=1)[1].to(torch.int32)
+                for order, cid in (("value", by_value), ("ascending", torch.sort(by_value, dim=1)[0])):
+                    b_ms, b_by = rescore_bound(b, r, d, 2 if dt == torch.bfloat16 else 4, cid)
+                    emit({"phase": "timing", "kernel": "topk_rescore", "tree": tree, "shape": shape, "R": r,
+                          "chunk_order": order, "ms": time_ms(lambda: rescore(x, q, cid)),
+                          "device_ms": device_ms(lambda: rescore(x, q, cid), ("rescore",)), "bound_ms": b_ms,
+                          "bound_by": b_by})
+                torch.save(rescore(x, q, cid).cpu(), bits_dir / f"rescore_{tree}_{dname}_B{b}.pt")
+                if hasattr(topk_kernel, "select_items"):
+                    time_select(shape, cm, cid, rescore(x, q, cid).flatten(1), r, 32, tree=tree)
             del x
         del catalog
         h = torch.randn((n, 1, d), generator=gen, device=dev)
@@ -2129,7 +2249,7 @@ def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev):
     from plotpointe_tpu_torch.ops.gat_fused import attention_fwd, attention_fwd_plain, hash_mask
     from plotpointe_tpu_torch.ops.gat_fused import gather_fence, gather_fence_plain
     from plotpointe_tpu_torch.ops.topk_kernel import (
-        CHUNK, CHUNK_MARGIN, chunk_max, chunk_max_plain, rescore, rescore_plain, topk_mips,
+        CHUNK_MARGIN, chunk_max, chunk_max_plain, rescore, rescore_plain, select_chunks, topk_mips,
         topk_mips_ref)
 
     n, e, d = graph.n_nodes, graph.n_edges, 128
@@ -2184,12 +2304,12 @@ def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev):
                 q = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32), device=dev).to(dt)
                 k = 32  # the served kk: k=20 plus history, rounded up to 32
                 r = k + CHUNK_MARGIN
-                cid = torch.topk(chunk_max(x, q), r, dim=1)[1].to(torch.int32)
-                uniq = int(torch.unique(cid).numel())
+                cm = chunk_max(x, q)
+                cid = select_chunks(cm, r, CATALOG)
+                scores = rescore(x, q, cid).flatten(1)
                 shape = f"N={CATALOG} D={d} B={b} {dname}"
                 cm_b = topk_bound(b, CATALOG, d, dname)
-                rs_b = bound(uniq * CHUNK * d * sz + b * d * sz + b * r * 4 + b * r * CHUNK * 4,
-                             2 * b * r * CHUNK * d, dname)
+                rs_b = rescore_bound(b, r, d, sz, cid)
                 line = {"phase": "timing", "kernel": "topk_chunkmax", "shape": shape,
                         "ms": time_ms(lambda: chunk_max(x, q)),
                         "plain_ms": time_ms(lambda: chunk_max_plain(x, q), 5), **cm_b,
@@ -2207,16 +2327,48 @@ def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev):
                 }
                 for kname, (k_ms, p_ms, (b_ms, b_by), lib) in lines.items():
                     line = {"phase": "timing", "kernel": kname, "shape": shape, "ms": k_ms,
-                            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "ops_dtype": dname,
-                            "library_ms": lib}
+                            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "ops_dtype": "float32" if kname == "topk_rescore" else dname, "library_ms": lib}
+                    if kname == "topk_rescore":
+                        line["device_ms"] = device_ms(lambda: rescore(x, q, cid), ("rescore",))
                     emit(line)
                     if dt == torch.float32 and b == 64:
                         rows[kname] = line
                 emit({"phase": "timing", "what": "topk_mips split", "shape": shape, "k": k,
                       **topk_phase_split(x, q, k)})
+                for line in time_select(shape, cm, cid, scores, r, k):
+                    if dt == torch.float32 and b == 64 and "final" in line["shape"]:
+                        rows["topk_select"] = line
     time_rule2(rows, graph, dev)
     time_multihead(rows, graph, dev, rng)
     return rows
+
+
+def time_select(shape: str, cm, cid, scores, r: int, k: int, **extra) -> list:
+    """The select kernel in both modes on one batch's rows, beside
+    `torch.topk` of the same rows: the first selection (r of the
+    [B, n_chunks] maxima) and the final one (k of the [B, r * 128]
+    scores). Bound: each input read once, each output written once; one
+    comparison a value."""
+    import torch
+
+    from plotpointe_tpu_torch.ops.topk_kernel import (
+        select_chunks, select_chunks_plain, select_items, select_items_plain)
+
+    b = cm.shape[0]
+    cases = (("first", cm, r, lambda: select_chunks(cm, r, CATALOG),
+              lambda: select_chunks_plain(cm, r, CATALOG), {"x": cm.numel() * 4, "ids": b * r * 4}),
+             ("final", scores, k, lambda: select_items(scores, cid, k),
+              lambda: select_items_plain(scores, cid, k),
+              {"x": scores.numel() * 4, "chunk_id": cid.numel() * 4, "ids": b * k * 4, "values": b * k * 4}))
+    lines = []
+    for what, rows_in, rr, fn, plain, nbytes in cases:
+        lib = lambda: torch.topk(rows_in, rr, dim=1)  # noqa: E731
+        lines.append(timing_row(
+            "topk_select", f"{shape} {what} [{b}, {rows_in.shape[1]}] r={rr}", fn, plain, nbytes,
+            rows_in.numel(), "float32", library=lib, library_what=f"torch.topk(x, {rr}, dim=1)",
+            device_ms=device_ms(fn, SELECT_KERNELS), library_device_ms=device_ms(lib), **extra))
+    return lines
 
 
 def run(args, work: Path, dev="cuda") -> int:

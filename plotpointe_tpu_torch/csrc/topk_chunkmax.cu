@@ -441,13 +441,8 @@ cudaError_t launch(const void* x, const void* q, float* out, int n, int b, int d
   constexpr bool F32 = sizeof(T) == 4;
   const size_t smem = cm_smem(NQ, d, F32);
   static std::atomic<unsigned long long> opted{0};  // a bit per device
-  const unsigned long long bit = dev < CM_MAX_DEVICES ? 1ull << dev : 0;
-  if (!(opted.load(std::memory_order_relaxed) & bit)) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        chunkmax<T, NQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, lim.smem_optin);
-    if (err != cudaSuccess) return err;
-    opted.fetch_or(bit, std::memory_order_relaxed);
-  }
+  const cudaError_t opt = opt_in_smem(chunkmax<T, NQ>, opted, dev);
+  if (opt != cudaSuccess) return opt;
   static std::atomic<unsigned long long> fit{0};  // (smem << 8) | blocks an SM holds
   unsigned long long f = fit.load(std::memory_order_relaxed);
   if (f >> 8 != smem) {

@@ -36,7 +36,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "plotpointe_tpu_torch"
 KERNELS = ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "gather_fence", "topk_chunkmax", "topk_rescore",
-           "spmm_csr", "knn_topk", "knn_topk_fast", "stream_probe", "smoke_affine")
+           "topk_select", "spmm_csr", "knn_topk", "knn_topk_fast", "stream_probe", "smoke_affine")
 # TPU kernels that a source above computes in another mode, each with a
 # counter of its own: the head-packed forward (kernel 8) is gat_fwd at 2-8
 # heads and the head-packed B1 (kernel 9) gat_bwd_dst at 2-8 heads; the
@@ -56,6 +56,7 @@ SIGNATURES = {
     "gather_fence": ("ppt_gather_fence", [P, I, I, I, P, P]),
     "topk_chunkmax": ("ppt_topk_chunkmax", [P, P, P, I, I, I, I, P]),
     "topk_rescore": ("ppt_topk_rescore", [P, P, P, P, I, I, I, I, I, P]),
+    "topk_select": ("ppt_topk_select", [P, I, I, I, I, I, P, P, P, P, P]),
     "spmm_csr": ("ppt_spmm_csr", [P, I] + [P] * 9 + [I, I, I, I, P]),
     "knn_topk": ("ppt_knn_topk", [P, P, P, P, I, I, I, P]),
     "knn_topk_fast": ("ppt_knn_topk_fast", [P, P, P, I, I, I, P]),

@@ -5,11 +5,13 @@ Counterpart of `plotpointe_tpu/ops/topk_kernel.py::topk_mips_pallas`:
   phase 1 (`chunk_max`, kernel `csrc/topk_chunkmax.cu`, on `wgmma`): stream
       the catalog once and keep only the max score of each 128-item chunk
       per query;
-  selection: exact `torch.topk` over the chunk maxima, r = min(k + 8,
-      n_chunks) chunks ("exact") or k + 2 ("fast");
+  first selection (`select_chunks`, kernel `csrc/topk_select.cu`): the
+      r = min(k + 8, n_chunks) chunks ("exact") or k + 2 ("fast") of
+      largest max, written in ascending chunk order;
   phase 2 (`rescore`, kernel `csrc/topk_rescore.cu`): exact f32 scores of
       the selected chunks' items;
-  a final `torch.topk` orders the survivors. Slots with no real candidate
+  final selection (`select_items`, the same select kernel): the top k of
+      the survivors, descending, as item ids. Slots with no real candidate
       get index -1 and score -1e30.
 
 Exactness: every chunk holding a true top-k item has a max >= the k-th
@@ -20,8 +22,19 @@ tables in one pass, f32 tables in three TF32 passes over the hi/lo split of
 max may differ from the phase-2 score of its item by f32 rounding, as the
 JAX kernel's MXU phase 1 differs from its phase 2: the margins (8 exact, 2
 fast) absorb such ~1-ulp differences, as CHUNK_MARGIN does in JAX. The
-selection uses f32 maxima (the JAX package's truncated packed keys are a
-TPU device); ties at the k-th score may resolve to either index.
+selections use f32 values (the JAX package's truncated packed keys are a
+TPU device).
+
+Ties: both selections rank by (value descending, position ascending), the
+order of `lax.top_k` and of a stable descending sort. Since the first
+selection lists the chunks in ascending order, a position in the final
+selection's [B, r * 128] rows follows the item index, so equal scores go
+to the smaller item index, as `lax.top_k` over the full score matrix
+orders them: where the scores are exact (copied rows score alike), the
+result is that of `lax.top_k(q @ X.T, k)`. With ties at the k-th score, a
+tied item of smaller index lies in a selected chunk: the chunks of max
+equal to the k-th score are taken in ascending order, each holds one tied
+item at least, and the margin leaves room for every one needed.
 
 Each kernel wrapper runs its plain version for CPU tensors.
 """
@@ -40,6 +53,9 @@ NEG_INF = -1e30
 
 CHUNKMAX_LAUNCHES = cb.COUNTERS["topk_chunkmax"]
 RESCORE_LAUNCHES = cb.COUNTERS["topk_rescore"]
+SELECT_LAUNCHES = cb.COUNTERS["topk_select"]
+SELECT_SORT_CAP = 2048  # csrc/topk_select.cu's SORT_CAP: a final selection of more sorts through scratch
+_FIRST, _FINAL = 0, 1  # the select kernel's modes
 
 
 def n_chunks_of(n: int) -> int:
@@ -63,6 +79,80 @@ def rescore_plain(item_vecs: torch.Tensor, queries: torch.Tensor,
     rows = item_vecs[item.clamp(max=n - 1)].float()  # [B, R, 128, D]
     s = torch.einsum("brcd,bd->brc", rows, queries.float())
     return torch.where(item < n, s, torch.full_like(s, NEG_INF))
+
+
+def select_topk_plain(x: torch.Tensor, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top r of each row of x [B, W] f32: (values [B, r] descending,
+    positions [B, r] int64), ties at equal value to the smaller position (a
+    stable descending sort, the order of `lax.top_k`; -0 ranks as +0, NaN
+    below every number)."""
+    pos = torch.sort(-x, dim=1, stable=True).indices[:, :r]
+    return torch.gather(x, 1, pos), pos
+
+
+def select_chunks_plain(cm: torch.Tensor, r: int, n: int) -> torch.Tensor:
+    """The first selection: the r chunks of largest max in cm [B, n_chunks]
+    (ties to the smaller chunk), as int32 chunk ids [B, r] in ascending
+    order, clamped to the last chunk of an n-item catalog."""
+    pos = select_topk_plain(cm, r)[1]
+    return torch.sort(pos, dim=1).values.clamp(max=(n - 1) // CHUNK).to(torch.int32)
+
+
+def select_items_plain(scores: torch.Tensor, chunk_id: torch.Tensor,
+                       k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The final selection: the top k of scores [B, R * 128] (the rescore's
+    output for chunk_id [B, R]) as (item ids [B, k] int32, values [B, k]),
+    values descending, ties to the smaller position; id -1 where the value
+    is <= NEG_INF / 2."""
+    v, pos = select_topk_plain(scores, k)
+    item = torch.gather(chunk_id.long(), 1, pos // CHUNK) * CHUNK + pos % CHUNK
+    return torch.where(v > NEG_INF / 2, item, torch.full_like(item, -1)).to(torch.int32), v
+
+
+def _check_rows(x: torch.Tensor, r: int) -> None:
+    if x.dim() != 2 or x.dtype != torch.float32 or x.shape[0] == 0:
+        raise ValueError(f"need a float32 [B, W] matrix; got {x.dtype} {tuple(x.shape)}")
+    if not 0 < r <= x.shape[1]:
+        raise ValueError(f"r must be in [1, {x.shape[1]}]; got {r}")
+
+
+def select_chunks(cm: torch.Tensor, r: int, n: int) -> torch.Tensor:
+    """First selection. cm [B, n_chunks] f32 chunk maxima of an n-item
+    catalog -> int32 chunk ids [B, r] of the r largest, ascending."""
+    _check_rows(cm, r)
+    if cm.is_cpu:
+        return select_chunks_plain(cm, r, n)
+    b, w = cm.shape
+    cm = cm.contiguous()
+    out = torch.empty((b, r), dtype=torch.int32, device=cm.device)
+    cb.launch("topk_select", cm.device, cm.data_ptr(), b, w, r, _FIRST, (n - 1) // CHUNK, None,
+              out.data_ptr(), None, None)
+    SELECT_LAUNCHES.bump()
+    return out
+
+
+def select_items(scores: torch.Tensor, chunk_id: torch.Tensor,
+                 k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Final selection. scores [B, R * 128] f32 of the items of chunk_id
+    [B, R] int32 -> (item ids [B, k] int32, -1 past the candidates; values
+    [B, k] f32, descending)."""
+    _check_rows(scores, k)
+    b, w = scores.shape
+    if chunk_id.dim() != 2 or chunk_id.dtype != torch.int32 or tuple(chunk_id.shape) != (b, w // CHUNK) \
+            or w % CHUNK or chunk_id.device != scores.device:
+        raise ValueError(f"chunk_id must be int32 [{b}, {w // CHUNK}] on {scores.device} for scores "
+                         f"[{b}, {w}] (W a multiple of {CHUNK})")
+    if scores.is_cpu:
+        return select_items_plain(scores, chunk_id, k)
+    scores, chunk_id = scores.contiguous(), chunk_id.contiguous()
+    ids = torch.empty((b, k), dtype=torch.int32, device=scores.device)
+    v = torch.empty((b, k), dtype=torch.float32, device=scores.device)
+    scratch = (torch.empty((b, k), dtype=torch.int64, device=scores.device)
+               if k > SELECT_SORT_CAP else None)
+    cb.launch("topk_select", scores.device, scores.data_ptr(), b, w, k, _FINAL, 0, chunk_id.data_ptr(),
+              ids.data_ptr(), v.data_ptr(), cb.ptr(scratch))
+    SELECT_LAUNCHES.bump()
+    return ids, v
 
 
 def _check_table(item_vecs: torch.Tensor, queries: torch.Tensor) -> None:
@@ -122,11 +212,12 @@ def topk_mips(item_vecs: torch.Tensor, queries: torch.Tensor, k: int, mode: str 
     """Top-k inner-product search. item_vecs [N, D] and queries [B, D] in one
     dtype (float32, or bfloat16 for half the catalog stream). Returns
     (indices [B, k] int32, scores [B, k] f32), scores descending and exact
-    f32 re-scores of the selected items. `stage`, if given, is called with
-    each stage's name as the stage's work is queued: "chunk_max",
-    "first_topk" (with the chunk ids' clamp and cast), "rescore" and
-    "final_select" (the last `torch.topk`, the item ids, the -1 fill); a
-    timing hook (a caller may record a CUDA event in it)."""
+    f32 re-scores of the selected items, ties to the smaller index. On the
+    card it is four launches (chunk-max, select, rescore, select) with only
+    allocations between them. `stage`, if given, is called with each
+    stage's name as the stage's work is queued: "chunk_max", "first_topk"
+    (the first selection), "rescore" and "final_select"; a timing hook (a
+    caller may record a CUDA event in it)."""
     if mode not in ("exact", "fast"):
         raise ValueError(f"mode must be 'exact' or 'fast'; got {mode!r}")
     n = item_vecs.shape[0]
@@ -136,18 +227,13 @@ def topk_mips(item_vecs: torch.Tensor, queries: torch.Tensor, k: int, mode: str 
     if stage is not None:
         stage("chunk_max")
     margin = CHUNK_MARGIN if mode == "exact" else FAST_MARGIN
-    r = min(k + margin, cm.shape[1])
-    _, sel = torch.topk(cm, r, dim=1)
-    chunk_id = torch.clamp(sel, max=(n - 1) // CHUNK).to(torch.int32)
+    chunk_id = select_chunks(cm, min(k + margin, cm.shape[1]), n)
     if stage is not None:
         stage("first_topk")
     scores = rescore(item_vecs, queries, chunk_id).flatten(1)  # [B, R * 128], NEG_INF past N
     if stage is not None:
         stage("rescore")
-    v, pos = torch.topk(scores, k, dim=1)
-    item = chunk_id.long()[:, :, None] * CHUNK + torch.arange(CHUNK, device=cm.device)
-    i = torch.gather(item.flatten(1), 1, pos)
-    i = torch.where(v > NEG_INF / 2, i, torch.full_like(i, -1)).to(torch.int32)
+    i, v = select_items(scores, chunk_id, k)
     if stage is not None:
         stage("final_select")
     return i, v

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 attention (kernels 1, 2, 3 and the head-packed 8, 9; rows wider than 512 in
-column strips), the gather fence (16), top-K (4, 5), the CSR SpMM (7) and
+column strips), the gather fence (16), top-K (4, 5 and the select kernel
+between them, bit-equal to its plain version; `topk_mips` as four launches),
+the CSR SpMM (7) and
 its edge-balanced walk (rows above the piece cap, empty rows, both
 directions, the pre-gathered modes of kernels 13 and 15), the kNN
 candidates (10, 11), the read-stream probe (6), the smoke's affine pass
@@ -46,8 +48,8 @@ from plotpointe_tpu_torch.ops.gat_fused import (
     node_terms_plain, reference_versions)
 from plotpointe_tpu_torch.ops.segment import segment_softmax_attention
 from plotpointe_tpu_torch.ops.topk_kernel import (
-    chunk_max, chunk_max_plain, n_chunks_of, rescore, rescore_plain, topk_mips, topk_mips_ref,
-    untied)
+    CHUNK, NEG_INF, chunk_max, chunk_max_plain, n_chunks_of, rescore, rescore_plain, select_chunks,
+    select_chunks_plain, select_items, select_items_plain, topk_mips, topk_mips_ref, untied)
 
 pytestmark = pytest.mark.cuda
 SCORE_TOL = dict(rtol=1e-5, atol=1e-4)
@@ -441,6 +443,7 @@ def test_topk_kernels_match_plain(cuda, dtype, n, b, d):
     cid[:, 0] = n_chunks_of(n) - 1  # the tail chunk, partly past N
     sc = rescore(x, q, cid)
     torch.testing.assert_close(sc, rescore_plain(x, q, cid), **SCORE_TOL)
+    assert torch.equal(sc, rescore(x, q, cid))  # the same bits on a second launch
     # the chunk max is within the score band of the max of that chunk's phase-2 scores
     full = rescore(x, q, torch.arange(n_chunks_of(n), device=cuda, dtype=torch.int32).repeat(b, 1))
     torch.testing.assert_close(full.amax(dim=2), cm, **SCORE_TOL)
@@ -486,6 +489,108 @@ def test_topk_mips_on_card_matches_reference(cuda, mode):
     torch.testing.assert_close(gv, wv, rtol=1e-5, atol=1e-4)
     got = torch.gather(q @ x.T, 1, gi.long())
     torch.testing.assert_close(got, wv, rtol=1e-5, atol=1e-4)
+
+
+def _select_rows(rng, b, w, cuda):
+    """Rows with exact ties (values on a grid of 1/4), NEG_INF runs (the
+    rescore's fill past N) and a few values at the grid's top."""
+    x = np.round(rng.normal(size=(b, w)) * 4) / 4
+    x[rng.random((b, w)) < 0.2] = NEG_INF
+    x[:, -37:] = NEG_INF
+    return torch.as_tensor(x.astype(np.float32), device=cuda)
+
+
+def _assert_same(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w), f"{int((g != w).sum())} of {g.numel()} entries differ"
+
+
+@pytest.mark.parametrize("b", [1, 8, 64, 100])
+@pytest.mark.parametrize("w", [3893, 5120])
+def test_select_kernel_is_bit_equal_to_plain(cuda, b, w):
+    """Both modes of the select kernel against their plain versions at the
+    served widths (the 498,196-row catalog's 3,893 chunk maxima; 40 chunks'
+    scores): ids and values bit for bit, ties and NEG_INF among the rows,
+    at r 1, the served r, and r = W; the final mode with the tail chunk."""
+    rng = np.random.default_rng(b * 7 + w)
+    x = _select_rows(rng, b, w, cuda)
+    n = (w - 2) * CHUNK - 50  # the last chunk is w - 3: the clamp binds on the last positions
+    for r in (1, 40, w):
+        _assert_same([select_chunks(x, r, n)], [select_chunks_plain(x.cpu(), r, n).to(cuda)])
+    if w % CHUNK == 0:
+        cid = torch.as_tensor(np.sort(rng.choice(3893, size=(b, w // CHUNK)), axis=1).astype(np.int32),
+                              device=cuda)
+        cid[:, -1] = 3892  # the tail chunk
+        for k in (1, 32, 2048, 2049, w):
+            _assert_same(select_items(x, cid, k), [t.to(cuda) for t in select_items_plain(x.cpu(), cid.cpu(), k)])
+
+
+@pytest.mark.parametrize("w,r", [(300_032, 2000), (300_032, 20_000), (8192, 8192)])
+def test_select_kernel_on_long_rows(cuda, w, r):
+    """The per-request path's long rows (B 1: a large k over its chunks'
+    scores), read from global memory on each pass; above 2,048 survivors
+    the final selection sorts through its scratch buffer."""
+    rng = np.random.default_rng(w + r)
+    x = _select_rows(rng, 1, w, cuda)
+    _assert_same([select_chunks(x, r, 10**9)], [select_chunks_plain(x.cpu(), r, 10**9).to(cuda)])
+    cid = torch.arange(w // CHUNK, device=cuda, dtype=torch.int32)[None] * 3
+    _assert_same(select_items(x, cid, r), [t.to(cuda) for t in select_items_plain(x.cpu(), cid.cpu(), r)])
+    _assert_same(select_items(x, cid, r), select_items(x, cid, r))
+
+
+def test_topk_mips_is_four_launches_and_no_torch_op(cuda):
+    """One `topk_mips` call on the card launches chunk-max, select,
+    rescore and select (the launch counters), and the device runs those
+    kernels and nothing else (torch.profiler)."""
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.normal(size=(20_000, 128)).astype(np.float32), device=cuda)
+    q = torch.as_tensor(rng.normal(size=(8, 128)).astype(np.float32), device=cuda)
+    topk_mips(x, q, 32)
+    torch.cuda.synchronize()
+    cuda_build.reset_counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        topk_mips(x, q, 32)
+        torch.cuda.synchronize()
+    launches = {k: c.count for k, c in cuda_build.COUNTERS.items() if c.count}
+    assert launches == {"topk_chunkmax": 1, "topk_select": 2, "topk_rescore": 1}
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = ("chunkmax", "select_rows", "rescore")
+    assert len(kernels) == 4 and all(any(o in k for o in ours) for k in kernels), kernels
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 8, 64])
+def test_topk_mips_on_card_matches_the_cpu_plain_route(cuda, dtype, b):
+    """A catalog of 30,000 rows, 3,000 of them copies: the card's indices
+    are the CPU plain route's wherever no near-tie of two different rows
+    straddles a place (copies tie exactly on both, and both put the smaller
+    index first), its scores within SCORE_TOL."""
+    rng = np.random.default_rng(40 + b)
+    x = rng.normal(size=(30_000, 128)).astype(np.float32)
+    src, dst = rng.choice(30_000, size=(2, 3000), replace=False)
+    x[dst] = x[src]
+    xc = torch.as_tensor(x).to(dtype)
+    q = (torch.as_tensor(x[rng.choice(30_000, b)]) + 0.1).to(dtype)
+    k = 32
+    gi, gv = topk_mips(xc.to(cuda), q.to(cuda), k)
+    wi, wv = topk_mips(xc, q, k + 1)
+    torch.testing.assert_close(gv.cpu(), wv[:, :k], **SCORE_TOL)
+    gap = (wv[:, :-1] - wv[:, 1:]).abs()
+    near = (gap > 0) & (gap <= TIE_BAND["atol"] + TIE_BAND["rtol"] * wv[:, :-1].abs())
+    straddled = torch.zeros_like(wv, dtype=torch.bool)
+    straddled[:, :-1] |= near
+    straddled[:, 1:] |= near
+    keep = ~straddled[:, :k]
+    assert torch.equal(gi.cpu()[keep], wi[:, :k][keep])
+
+
+def test_select_rejects_bad_rows_on_card(cuda):
+    x = torch.zeros((2, 256), device=cuda)
+    with pytest.raises(ValueError):
+        select_chunks(x, 257, 1000)
+    with pytest.raises(ValueError):
+        select_items(x, torch.zeros((2, 2), dtype=torch.int32), 4)  # chunk ids on another device
 
 
 def test_chunkmax_rejects_width_over_shared_memory(cuda):
