@@ -86,6 +86,23 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            control (the plain path again with the last layer's weights one
            f32 ulp up) shows how far such flips alone move the output; each
            kernel must have launched
+  anchor   path 8, the quality anchor: the anchor's data alone first (the
+           generator's host seconds, peak host memory), then, counters at
+           0, `cli anchor --scale full` in-process with the gate's defaults
+           and the port's baseline file (`tools/anchor_baseline.json`):
+           the chance, popularity, inverse-popularity and factor-oracle
+           baselines, the untrained GAT, the reference protocol (20 epochs
+           of one 200,000-sample Adam step, bf16 rows) and the 32-step
+           beyond-parity leg (adam; the gate skips the adamw leg). The gate
+           must print PASS; the dataset block and generator config must
+           equal `docs/results/anchor_full_r05.json`'s and the baselines'
+           NDCG@20 lie within 0.005 of its; kernels 1, 2 and 3 must have
+           launched. Each leg's metrics and wall beside the archive's
+  ablate   path 9, the anchor's data as interactions.npz with its 128-d
+           (fused) and 384-d (txt) features, then, counters at 0, `cli
+           ablate` in-process over the seven variants at 1 epoch of 200,000
+           samples: no variant may report an error; kernels 1, 2, 3, 7, 8
+           and 9 must have launched
   timing   CUDA-event times of each kernel, its plain version and, where one
            PyTorch call computes the same function, that call; the bound with
            its reckoning; `host_us_per_launch`, the host's time to issue one
@@ -198,11 +215,19 @@ PATH_KERNELS = {"train": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src"),
                 "tooling": ("smoke_affine", "stream_probe"),
                 "legacy_v2": ("fused_layer",),
                 "legacy_v1": ("fused_segment_reduce",),
-                "legacy_v1_mh": ("onehot_reduce",)}
+                "legacy_v1_mh": ("onehot_reduce",),
+                "anchor": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src"),
+                "ablate": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "spmm_csr", "gat_fwd_mh",
+                           "gat_bwd_dst_mh")}
 # the legacy phase's configurations: (path, hidden, heads); v2 takes 1 head
 # with D % 128 == 0, v1 the rest (64 is the reference's hidden-dim ablation)
 LEGACY = (("legacy_v2", 128, 1), ("legacy_v1", 64, 1), ("legacy_v1_mh", 128, 2))
 LIGHTGCN = dict(embed_dim=64, n_prop_layers=3, batch_size=8192, neg_per_pos=5)
+# the quality anchor's archived JAX run at full shape, and how near the
+# port's reference-free baselines must land (their negatives are other draws)
+ARCHIVED_ANCHOR = "docs/results/anchor_full_r05.json"
+ANCHOR_BASELINES = ("chance", "popularity", "inverse_popularity", "factor_oracle")
+ANCHOR_BASELINE_TOL = 0.005
 MH_HEADS = 2
 # the libraries whose ptxas lines (registers, spills, shared memory) the build line carries
 PTXAS_REPORTED = ("knn_topk", "knn_topk_fast", "gat_fwd", "gat_bwd_dst", "gat_bwd_src", "topk_chunkmax",
@@ -2101,6 +2126,152 @@ def phase_tooling(errs, dev):
     return launches, peaks
 
 
+def in_process_cli(argv) -> tuple[str, int]:
+    """`python -m plotpointe_tpu_torch.cli ARGV` in this process: (its
+    standard output, its exit code)."""
+    from plotpointe_tpu_torch import cli
+
+    out, code = io.StringIO(), 0
+    with contextlib.redirect_stdout(out):
+        try:
+            cli.main(argv)
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else 1
+            if not isinstance(e.code, int):
+                print(e.code)
+    return out.getvalue(), code
+
+
+def peak_host_gb() -> float:
+    """This process's peak resident memory so far, GB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def phase_anchor(work: Path, dev) -> tuple[dict, tuple]:
+    """Path 8: the quality anchor. First the anchor's data alone, as the
+    gate's config generates it (the generator's host seconds and peak host
+    memory), kept for the ablate path. Then, counters at 0, `cli anchor
+    --scale full` in-process with the gate's defaults, the port's baseline
+    file as `--gate-baseline` and the beyond-parity leg (adam; the gate
+    skips the adamw leg): it must print PASS, launch kernels 1, 2 and 3, and
+    match the archived JAX run (`ARCHIVED_ANCHOR`): the dataset block and
+    generator config field for field, the baselines' NDCG@20 within
+    ANCHOR_BASELINE_TOL. Returns (launches, (interactions, item factors,
+    generator config))."""
+    from plotpointe_tpu_torch.ops import cuda_build
+    from plotpointe_tpu_torch.tools import anchor
+
+    cfg = json.loads(anchor.BASELINE.read_text())["generator_config"]
+    rss_before = peak_host_gb()
+    t0 = time.perf_counter()
+    inter, (_, i_fac) = anchor.anchor_data(cfg)
+    gen_s = time.perf_counter() - t0
+    gen_peak = peak_host_gb()
+
+    # the wall of each scored leg: the anchor's own evals, in its order
+    # (the trainer's val and test evals call their own import of sampled_eval)
+    from plotpointe_tpu_torch.train import evaluate
+
+    eval_walls, plain_eval = [], evaluate.sampled_eval
+
+    def timed_eval(*a, **kw):
+        t = time.perf_counter()
+        r = plain_eval(*a, **kw)
+        sync()
+        eval_walls.append(time.perf_counter() - t)
+        return r
+
+    cuda_build.reset_counters()
+    t0 = time.perf_counter()
+    evaluate.sampled_eval = timed_eval
+    try:
+        out, code = in_process_cli(["anchor", "--scale", "full", "--out", str(work / "anchor"),
+                                    "--gate-baseline", str(anchor.BASELINE), "--device", str(dev)])
+    finally:
+        evaluate.sampled_eval = plain_eval
+    sync()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    res = json.loads((work / "anchor" / "anchor.json").read_text())
+    gates = [json.loads(x) for x in out.splitlines() if x.startswith('{"anchor_gate"')]
+    gate = gates[-1] if gates else None
+    archived = json.loads((Path(__file__).resolve().parent / ARCHIVED_ANCHOR).read_text())
+    legs = {k: v for k, v in res.items()
+            if k != "reference_band" and isinstance(v, dict) and ("ndcg@20" in v or "error" in v)}
+    for k, w in zip((*ANCHOR_BASELINES, "gat_init"), eval_walls):
+        legs[k] = {**legs[k], "eval_wall_s": w}
+    baseline_err = {k: abs(res[k]["ndcg@20"] - archived[k]["ndcg@20"]) for k in ANCHOR_BASELINES}
+    same_data = res["dataset"] == archived["dataset"]
+    same_cfg = res["generator_config"] == archived["generator_config"]
+    missing = [k for k in PATH_KERNELS["anchor"] if launches[k] == 0]
+    passed = code == 0 and gate is not None and gate["anchor_gate"] == "PASS"
+    ok = (passed and same_data and same_cfg and max(baseline_err.values()) <= ANCHOR_BASELINE_TOL
+          and not missing)
+    emit({"phase": "anchor", "wall_s": wall, "generator_host_s": gen_s,
+          "peak_host_gb_before_generator": rss_before, "peak_host_gb_after_generator": gen_peak,
+          "peak_host_gb": peak_host_gb(), "exit_code": code, "gate": gate,
+          "generator_hash": res["generator_hash"], "dataset": res["dataset"],
+          "dataset_equals_archive": same_data, "generator_config_equals_archive": same_cfg,
+          "legs": {k: {**v, **({"archive": {m: archived[k].get(m) for m in ("ndcg@20", "recall@20")}}
+                              if k in archived else {})} for k, v in legs.items()},
+          "baseline_ndcg20_abs_err_vs_archive": baseline_err, "launches": launches, "ok": ok})
+    if not passed:
+        raise AssertionError(f"anchor: exit {code}, gate {gate}: {out[-2000:]}")
+    if not (same_data and same_cfg):
+        raise AssertionError(f"anchor: dataset {res['dataset']} / config {res['generator_config']} "
+                             f"differ from {ARCHIVED_ANCHOR}")
+    if max(baseline_err.values()) > ANCHOR_BASELINE_TOL:
+        raise AssertionError(f"anchor: baselines off the archive by {baseline_err}")
+    if missing:
+        raise AssertionError(f"anchor: kernels not launched on the path: {missing}")
+    return launches, (inter, i_fac, cfg)
+
+
+def phase_ablate(work: Path, data, dev) -> dict:
+    """Path 9: the anchor's data as interactions.npz with its features
+    (`synthetic_features` of the generator's item factors at 128 d as
+    fused_interacted.npy, at 384 d as txt_interacted.npy), then, counters at
+    0, `cli ablate` in-process over its seven variants at 1 epoch of
+    200,000 samples: no variant may report an error, kernels 1, 2, 3, 7, 8
+    and 9 must have launched."""
+    from plotpointe_tpu_torch.cli import ABLATIONS
+    from plotpointe_tpu_torch.data.splits import first_occurrence_unique
+    from plotpointe_tpu_torch.ops import cuda_build
+    from plotpointe_tpu_torch.tools import anchor
+
+    inter, i_fac, cfg = data
+    staging, emb = work / "ablate_staging", work / "ablate_embeddings"
+    staging.mkdir()
+    emb.mkdir()
+    np.savez(staging / "interactions.npz", **inter)
+    n_items = len(first_occurrence_unique(inter["asin"]))
+    for name, dim in (("fused", 128), ("txt", 384)):
+        _, feats = anchor.anchor_features(inter, i_fac, n_items, dim, cfg["seed"], cfg["feature_noise"])
+        np.save(emb / f"{name}_interacted.npy", feats)
+
+    cuda_build.reset_counters()
+    t0 = time.perf_counter()
+    out, code = in_process_cli(["ablate", "--staging-prefix", str(staging), "--embeddings-prefix",
+                                str(emb), "--models-prefix", str(work / "ablate_models"),
+                                "--epochs", "1", "--samples-per-epoch", "200000",
+                                "--device", str(dev)])
+    sync()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    report = json.loads((work / "ablate_models" / "ablations_report.json").read_text())
+    failed = sorted(set(ABLATIONS) - {k for k, v in report.items() if "test" in v})
+    missing = [k for k in PATH_KERNELS["ablate"] if launches[k] == 0]
+    emit({"phase": "ablate", "wall_s": wall, "variants": report, "exit_code": code,
+          "launches": launches, "ok": code == 0 and not failed and not missing})
+    if code != 0 or failed:
+        raise AssertionError(f"ablate: exit {code}, variants without test metrics {failed}: {out[-2000:]}")
+    if missing:
+        raise AssertionError(f"ablate: kernels not launched on the path: {missing}")
+    return launches
+
+
 def v2_out_tol(model, x_feats, graph, seeds, out_p) -> dict:
     """The legacy v2 output's band against its plain path. The last layer
     rounds its rows h to bf16, and a value whose f32 bits differ between
@@ -2425,6 +2596,10 @@ def run(args, work: Path, dev="cuda") -> int:
     by_path["tooling"], peaks = phase_tooling(errs, dev)
     # path 7: the legacy attention contracts on a tiled graph
     by_path.update(phase_legacy(errs, rng, s, feats, graph, args.layers, dev))
+    # paths 8 and 9: the quality anchor at full shape, then the ablation sweep on its data
+    by_path["anchor"], anchor_data = phase_anchor(work, dev)
+    by_path["ablate"] = phase_ablate(work, anchor_data, dev)
+    del anchor_data
 
     rows = phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev)
     time_train_step("gat", trainer, s, samples=trainer.cfg.samples_per_epoch)

@@ -14,10 +14,19 @@ Counterpart of `plotpointe_tpu/cli.py` for the ported commands:
   build-knn     interacted features -> ii_edges_{name}.npz + ii_{name}_stats.json
   smoke   the five capability checks of tools/smoke_gpu.py (kernel 12
           among them); exit 1 unless every check passes
-train, export, serve, build-knn and smoke run on the GPU unless given
-`--device cpu`; build-ui and build-subset are numpy on the host. Tables are read from
-`{prefix}/interactions.npz` and `{prefix}/items.npz` (column arrays) when
-they exist, else from the parquet files.
+  synth     seeded synthetic interactions + catalog -> parquet (pandas)
+  stage     SNAP loose-JSON dumps -> parquet with the contract filters (pandas)
+  validate  contract checks of staged data; exit 0, or 2 on a violation
+  gate      promotion gate over metrics JSON; exit 0, or 3 on a fail
+  validate-manifests  check manifest artifact prefixes; exit 0, or 2
+  anchor    the quality anchor (tools/anchor.py); exit 3 on a gate fail
+  ablate    the seven-variant single-variable sweep -> ablations_report.json
+train, export, serve, build-knn, smoke, anchor and ablate run on the GPU
+unless given `--device cpu`; the other commands run on the host (synth,
+stage and parquet I/O need pandas and pyarrow, the package's `data`
+extra). Tables are read from `{prefix}/interactions.npz` and
+`{prefix}/items.npz` (column arrays) when they exist, else from the parquet
+files.
 """
 from __future__ import annotations
 
@@ -130,6 +139,109 @@ def _cmd_smoke(args):
     smoke_main(["--device", args.device])
 
 
+def _cmd_synth(args):
+    from plotpointe_tpu_torch.data.synthetic import synthetic_catalog, synthetic_interactions
+    from plotpointe_tpu_torch.utils.artifacts import ArtifactStore, require_pandas
+
+    pd = require_pandas()  # before the work: the tables are written as parquet
+    inter, (_, i_fac) = synthetic_interactions(
+        args.users, args.items, args.interactions, seed=args.seed, return_factors=True,
+        n_clusters=args.clusters, candidate_pool=args.candidate_pool,
+        affinity_strength=args.affinity, cluster_pool_bias=args.cluster_pool_bias,
+        user_cluster_sigma=args.user_cluster_sigma, item_cluster_sigma=args.item_cluster_sigma)
+    items = synthetic_catalog(inter, n_extra_items=args.extra_items, seed=args.seed,
+                              item_factors=i_fac)
+    store = ArtifactStore()
+    store.save_parquet(pd.DataFrame(inter), f"{args.out}/interactions.parquet")
+    store.save_parquet(pd.DataFrame(items), f"{args.out}/items.parquet")
+    print(json.dumps({"n_interactions": len(inter["asin"]), "n_items": len(items["asin"]),
+                      "out": args.out}))
+
+
+def _cmd_stage(args):
+    from plotpointe_tpu_torch.data.stage import stage
+
+    _, stats = stage(args.reviews, args.meta, args.out, max_records=args.max_records)
+    print(json.dumps(stats, indent=2))
+
+
+def _cmd_validate(args):
+    from plotpointe_tpu_torch.data.validate import validate
+    from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
+
+    store = ArtifactStore()
+    rep = validate(store.load_interactions(args.prefix), store.load_items(args.prefix))
+    print(json.dumps(rep.to_dict(), indent=2))
+    sys.exit(0 if rep.passed else 2)
+
+
+def _cmd_gate(args):
+    from plotpointe_tpu_torch.tools.promotion_gate import main as gate_main
+
+    gate_main(["--current", args.current, "--baseline", args.baseline, "--split", args.split,
+               "--metric", args.metric, "--mode", args.mode, "--tol", str(args.tol)])
+
+
+def _cmd_validate_manifests(args):
+    from plotpointe_tpu_torch.tools.manifest_validate import main as mv_main
+
+    mv_main(["--registry", args.registry]
+            + (["--manifest-id", args.manifest_id] if args.manifest_id else []))
+
+
+def _cmd_anchor(args):
+    from plotpointe_tpu_torch.tools.anchor import run
+
+    run(args)
+
+
+ABLATIONS = {  # the JAX sweep's seven single-variable variants
+    "fused_bpr_l2_h1": {},
+    "bce": {"loss": "bce"},
+    "txt": {"item_features": "txt"},
+    "heads2": {"heads": 2},
+    "layers1": {"layers": 1},
+    "layers3": {"layers": 3},
+    "lightgcn": {"model_family": "lightgcn"},
+}
+
+
+def _cmd_ablate(args):
+    """The single-variable sweep, one variant after another in-process; a
+    variant that raises is reported as {"error": ...} and the command then
+    exits 1 after writing the report."""
+    from plotpointe_tpu_torch.config import TrainConfig
+    from plotpointe_tpu_torch.pipeline import train_from_artifacts
+    from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
+
+    base = dict(
+        model_family="gat", hidden_dim=args.hidden_dim, layers=2, heads=1,
+        epochs=args.epochs, samples_per_epoch=args.samples_per_epoch,
+        steps_per_epoch=args.steps_per_epoch, eval_neg_k=args.eval_neg_k,
+        item_features=args.item_features, loss="bpr", attn_impl=args.attn_impl,
+        optimizer=args.optimizer, warmup_steps=args.warmup_steps)
+    only = None if args.only is None else args.only.split(",")
+    report = {}
+    for name, delta in ABLATIONS.items():
+        if only and name not in only:
+            continue
+        cfg = TrainConfig(**{**base, **delta}, run_id=f"ablate_{name}")
+        try:
+            r = train_from_artifacts(cfg, staging_prefix=args.staging_prefix,
+                                     embeddings_prefix=args.embeddings_prefix,
+                                     models_prefix=f"{args.models_prefix}/{name}",
+                                     device=args.device)
+            report[name] = {"test": r["test"], "best_val_ndcg@20": r["best_val_ndcg@20"]}
+        except Exception as e:  # noqa: BLE001 - one failed variant must not stop the sweep
+            report[name] = {"error": f"{type(e).__name__}: {e}"[:200]}
+        print(json.dumps({name: report[name]}), flush=True)
+    ArtifactStore().save_json(report, f"{args.models_prefix}/ablations_report.json")
+    print(json.dumps(report, indent=2))
+    failed = [n for n, r in report.items() if "error" in r]
+    if failed:
+        sys.exit(f"ablation variants failed: {failed}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="plotpointe_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -215,6 +327,72 @@ def build_parser() -> argparse.ArgumentParser:
     b = sub.add_parser("smoke", help="GPU capability smoke test (5 checks)")
     b.add_argument("--device", default="cuda", help="default: cuda; cpu runs the plain kernel")
     b.set_defaults(fn=_cmd_smoke)
+
+    b = sub.add_parser("synth", help="generate a synthetic staged dataset (parquet)")
+    b.add_argument("--out", required=True)
+    b.add_argument("--users", type=int, default=2000)
+    b.add_argument("--items", type=int, default=1200)
+    b.add_argument("--interactions", type=int, default=50_000)
+    b.add_argument("--extra-items", type=int, default=0)
+    b.add_argument("--seed", type=int, default=42)
+    b.add_argument("--clusters", type=int, default=0)
+    b.add_argument("--candidate-pool", type=int, default=16)
+    b.add_argument("--affinity", type=float, default=3.0)
+    b.add_argument("--cluster-pool-bias", type=float, default=0.0)
+    b.add_argument("--user-cluster-sigma", type=float, default=0.6)
+    b.add_argument("--item-cluster-sigma", type=float, default=0.35)
+    b.set_defaults(fn=_cmd_synth)
+
+    b = sub.add_parser("stage", help="stage SNAP loose-JSON dumps into parquet")
+    b.add_argument("--reviews", required=True, help="reviews .json(.gz) path")
+    b.add_argument("--meta", required=True, help="item metadata .json(.gz) path")
+    b.add_argument("--out", required=True)
+    b.add_argument("--max-records", type=int, default=None)
+    b.set_defaults(fn=_cmd_stage)
+
+    b = sub.add_parser("validate", help="contract-validate staged data")
+    b.add_argument("--prefix", required=True,
+                   help="holds interactions and items, each .npz (column arrays) or .parquet")
+    b.set_defaults(fn=_cmd_validate)
+
+    b = sub.add_parser("gate", help="promotion gate")
+    b.add_argument("--current", required=True)
+    b.add_argument("--baseline", required=True)
+    b.add_argument("--split", default="test")
+    b.add_argument("--metric", default="ndcg@20")
+    b.add_argument("--mode", default="improve_or_equal")
+    b.add_argument("--tol", type=float, default=0.0)
+    b.set_defaults(fn=_cmd_gate)
+
+    b = sub.add_parser("validate-manifests", help="check manifest artifact prefixes exist")
+    b.add_argument("--registry", default="manifests/registry.json")
+    b.add_argument("--manifest-id", default=None)
+    b.set_defaults(fn=_cmd_validate_manifests)
+
+    from plotpointe_tpu_torch.tools.anchor import build_parser as anchor_flags
+
+    b = anchor_flags(sub.add_parser(
+        "anchor", help="quality anchor: the reference GAT protocol on full-shape "
+                       "Amazon-calibrated synthetic data + controlled baselines"))
+    b.set_defaults(fn=_cmd_anchor)
+
+    b = sub.add_parser("ablate", help="single-variable ablation sweep + report")
+    b.add_argument("--staging-prefix", required=True)
+    b.add_argument("--embeddings-prefix", required=True)
+    b.add_argument("--models-prefix", required=True)
+    b.add_argument("--hidden-dim", type=int, default=128)
+    b.add_argument("--steps-per-epoch", type=int, default=1)
+    b.add_argument("--epochs", type=int, default=10)
+    b.add_argument("--samples-per-epoch", type=int, default=100_000)
+    b.add_argument("--eval-neg-k", type=int, default=500)
+    b.add_argument("--item-features", default="fused")
+    b.add_argument("--attn-impl", choices=["auto", "xla", "pallas"], default="auto",
+                   help="attention row type: pallas (and auto on CUDA) bf16 rows, xla f32 rows")
+    b.add_argument("--optimizer", choices=["adam", "adamw"], default="adam")
+    b.add_argument("--warmup-steps", type=int, default=0)
+    b.add_argument("--only", default=None, help="comma-separated variant names")
+    b.add_argument("--device", default=None, help="default: cuda")
+    b.set_defaults(fn=_cmd_ablate)
     return p
 
 

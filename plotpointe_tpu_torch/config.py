@@ -1,8 +1,11 @@
-"""Training and kNN configs: dataclasses with environment-variable overrides.
+"""Training and kNN configs (dataclasses with environment-variable
+overrides) and the feature-manifest registry.
 
-Counterpart of `plotpointe_tpu/config.py::TrainConfig` (same fields, same
+Counterpart of `plotpointe_tpu/config.py`: `TrainConfig` (same fields, same
 defaults, same `from_env` / `to_dict` / `from_dict`), so a checkpoint's
-embedded `train_config` reads in both packages, and of its `KnnConfig`.
+embedded `train_config` reads in both packages; `KnnConfig`; and
+`FeatureManifest`, `load_registry`, `load_manifest` (the same manifest JSON
+schema and the same errors).
 
 `attn_impl` (GAT) and `spmm_impl` (LightGCN) keep the JAX values and pick
 the type the kernels round gathered rows to (`ops/gat_kernel.resolve_hs_dtype`):
@@ -13,8 +16,10 @@ both run the same CUDA kernels.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Dict, Optional
 
 
@@ -100,3 +105,61 @@ class KnnConfig:
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
+
+
+@dataclass
+class FeatureManifest:
+    """One dataset's artifact prefixes and default feature choice."""
+
+    id: str
+    dataset: str
+    paths: Dict[str, str]
+    defaults: Dict[str, str] = field(default_factory=dict)
+
+    REQUIRED_PATHS = ("staging_prefix", "embeddings_prefix", "graphs_prefix")
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "FeatureManifest":
+        """Raises ValueError naming the first missing key."""
+        for k in ("id", "dataset", "paths", "defaults"):
+            if k not in d:
+                raise ValueError(f"Manifest missing required key: {k}")
+        for p in FeatureManifest.REQUIRED_PATHS:
+            if p not in d["paths"]:
+                raise ValueError(f"Manifest.paths missing required key: {p}")
+        return FeatureManifest(id=d["id"], dataset=d["dataset"], paths=d["paths"],
+                               defaults=d.get("defaults", {}))
+
+    def resolve_paths(self) -> Dict[str, str]:
+        """The manifest's entries under the trainer's flag names."""
+        return {
+            "staging_prefix": self.paths["staging_prefix"],
+            "embeddings_prefix": self.paths["embeddings_prefix"],
+            "graphs_prefix": self.paths["graphs_prefix"],
+            "item_features": self.defaults.get("item_features", "fused"),
+        }
+
+
+def load_registry(registry_path: str | Path = "manifests/registry.json") -> Dict[str, str]:
+    """{manifest id: manifest path}; ValueError without a `manifests` key."""
+    with open(registry_path) as f:
+        reg = json.load(f)
+    if "manifests" not in reg:
+        raise ValueError("Registry missing 'manifests'")
+    return reg["manifests"]
+
+
+def load_manifest(manifest_id: str,
+                  registry_path: str | Path = "manifests/registry.json") -> FeatureManifest:
+    """The registry's manifest `manifest_id` (KeyError if unlisted). A
+    relative manifest path that does not exist from the working directory
+    is taken from the registry's grandparent directory (the repo root for
+    `manifests/registry.json`)."""
+    manifests = load_registry(registry_path)
+    if manifest_id not in manifests:
+        raise KeyError(f"Manifest id not found in registry: {manifest_id}")
+    p = Path(manifests[manifest_id])
+    if not p.is_absolute() and not p.exists():
+        p = Path(registry_path).parent.parent / p
+    with open(p) as f:
+        return FeatureManifest.from_dict(json.load(f))

@@ -49,6 +49,23 @@ def first_occurrence_unique(values: np.ndarray) -> np.ndarray:
     return uniq[np.argsort(first, kind="stable")]
 
 
+def first_of_each_key(*keys: np.ndarray) -> np.ndarray:
+    """Boolean mask of the rows whose key tuple appears on no earlier row:
+    the rows pandas' `drop_duplicates(keep="first")` keeps. Keys are
+    sortable arrays of one length."""
+    n = len(keys[0])
+    if n == 0:
+        return np.zeros(0, bool)
+    order = np.lexsort(keys[::-1])  # stable: equal keys keep their row order
+    same = np.ones(n - 1, bool)
+    for k in keys:
+        sk = np.asarray(k)[order]
+        same &= sk[1:] == sk[:-1]
+    keep = np.zeros(n, bool)
+    keep[order[np.r_[True, ~same]]] = True
+    return keep
+
+
 def build_node_maps(interactions) -> Tuple[Dict, Dict]:
     """First-occurrence-order id maps {id: index} for users and items."""
     users = first_occurrence_unique(_column(interactions, "user_id")).tolist()

@@ -7,10 +7,14 @@ softmax denominator eps 1e-9. Any number of heads. Dropout, as in the
 JAX golden, is a keep-scaled [E, H] multiplier on alpha after
 normalisation (`bernoulli_mask` draws one).
 
-`gather_rows` is a row gather whose backward is a sorted segment sum, so the
-loss's gradient into the node table is the same on every run: the autograd
-of `x[idx]` accumulates duplicate rows in an order that can change from run
-to run on CUDA.
+Every sum of the attention golden runs in a fixed order, so its forward
+and its autograd give the same bits on every run, as the JAX reference
+does: `index_sum_rows` (a stable sort by index, then one segment sum per
+index, each in row order) takes the place of `index_add_`, which adds by
+float atomics on CUDA, and `gather_rows` (a row gather whose backward is
+`index_sum_rows`) the place of `x[idx]`, whose autograd accumulates
+duplicate rows in an order that changes from run to run on CUDA, and on
+the CPU too. On the CPU `index_sum_rows` gives `index_add_`'s bits.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ EPS = 1e-9
 
 def edge_numerators(gs: torch.Tensor, gd: torch.Tensor, graph: Graph) -> torch.Tensor:
     """exp(clamp(lrelu(gs[src] + gd[dst]))) per edge from per-node logit terms."""
-    e = gs[graph.src.long()] + gd[graph.dst.long()]
+    e = gather_rows(gs, graph.src) + gather_rows(gd, graph.dst)
     e = torch.where(e > 0, e, LEAKY_SLOPE * e)
     return torch.exp(torch.clamp(e, -LOGIT_CLAMP, LOGIT_CLAMP))
 
@@ -48,18 +52,17 @@ def segment_softmax_attention(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch
     alpha = exp(e) / sum_{s' -> d} exp(e'), out[d] = sum alpha * h[s]. mask
     [E, H] (or None) multiplies alpha after normalisation."""
     alpha = attention_weights(h, a_src, a_dst, graph, mask)
-    return torch.zeros_like(h).index_add_(0, graph.dst.long(), alpha[..., None] * h[graph.src.long()])
+    return index_sum_rows(alpha[..., None] * gather_rows(h, graph.src), graph.dst, graph.n_nodes)
 
 
 def attention_weights(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,
                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """alpha [E, H] of `segment_softmax_attention`, times `mask` if given."""
-    dst = graph.dst.long()
     gs = torch.einsum("nhd,hd->nh", h, a_src)
     gd = torch.einsum("nhd,hd->nh", h, a_dst)
     num = edge_numerators(gs, gd, graph)  # [E, H]
-    den = torch.zeros(graph.n_nodes, h.shape[1], dtype=num.dtype, device=h.device).index_add_(0, dst, num)
-    alpha = num / (den[dst] + EPS)
+    den = index_sum_rows(num, graph.dst, graph.n_nodes)
+    alpha = num / (gather_rows(den, graph.dst) + EPS)
     return alpha if mask is None else alpha * mask
 
 
@@ -71,8 +74,9 @@ def spmm(graph: Graph, values: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def index_sum_rows(rows: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """out[k] = sum of rows[t] over t with idx[t] == k, out [n, D], summed in
-    a fixed order: a stable sort by index, then one segment sum per index."""
+    """out[k] = sum of rows[t] over t with idx[t] == k, out [n, ...], summed
+    in a fixed order: a stable sort by index, then one segment sum per
+    index. Differentiable."""
     order = torch.argsort(idx, stable=True)
     uniq, counts = torch.unique_consecutive(idx[order], return_counts=True)
     sums = torch.segment_reduce(rows[order], "sum", lengths=counts, axis=0)

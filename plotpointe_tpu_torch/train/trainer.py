@@ -45,8 +45,8 @@ from plotpointe_tpu_torch.train.evaluate import sampled_eval
 from plotpointe_tpu_torch.train.losses import LOSSES
 from plotpointe_tpu_torch.train.sampling import rank_to_item, sample_bpr_triples, uniform_ranks
 from plotpointe_tpu_torch.utils.logging import log_event
+from plotpointe_tpu_torch.utils.prng import stream_seed
 
-_M64 = (1 << 64) - 1
 STREAM_INIT, STREAM_TRAIN, STREAM_EVAL = 0, 1, 2
 TEST_EVAL_INDEX = 10_000  # the JAX trainer's fold_in index of the test eval
 
@@ -73,15 +73,6 @@ def make_optimizer(params, lr: float, l2: float, optimizer: str = "adam",
         sched = torch.optim.lr_scheduler.LambdaLR(
             opt, lambda step: min(1.0, (step + 1) / warmup_steps))
     return opt, sched
-
-
-def stream_seed(seed: int, stream: int, index: int) -> int:
-    """A 63-bit seed for one use of the generator (splitmix64 of the three)."""
-    x = (seed * 0x9E3779B97F4A7C15 + (stream + 1) * 0xBF58476D1CE4E5B9
-         + (index + 1) * 0x94D049BB133111EB) & _M64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
-    return (x ^ (x >> 31)) >> 1
 
 
 def _clone_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:

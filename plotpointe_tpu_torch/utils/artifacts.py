@@ -2,6 +2,7 @@
 
 Counterpart of `plotpointe_tpu/utils/artifacts.py` (its local-path half):
 npy, json, npz and parquet files addressed by plain paths or `file://` URIs.
+Parquet needs pandas and pyarrow, as in the JAX package; the rest is numpy.
 The gs:// half is not ported yet (see ROADMAP.md).
 """
 from __future__ import annotations
@@ -11,6 +12,17 @@ from pathlib import Path
 from typing import Any, Dict
 
 import numpy as np
+
+
+def require_pandas():
+    """The pandas module, or an ImportError naming the package's `data`
+    extra: parquet tables need pandas and pyarrow."""
+    try:
+        import pandas as pd
+    except ImportError as e:
+        raise ImportError("parquet tables need pandas and pyarrow: install the package's "
+                          "`data` extra (or keep tables as .npz column arrays)") from e
+    return pd
 
 
 def _local(uri: str) -> Path:
@@ -63,9 +75,12 @@ class ArtifactStore:
         return uri
 
     def load_parquet(self, uri: str):
-        import pandas as pd
+        return require_pandas().read_parquet(self.fetch(uri))
 
-        return pd.read_parquet(self.fetch(uri))
+    def save_parquet(self, df, uri: str) -> str:
+        """Write a DataFrame (pandas and pyarrow, as in the JAX package)."""
+        df.to_parquet(self.target(uri), index=False)
+        return uri
 
     def load_interactions(self, prefix: str):
         """`{prefix}/interactions.npz` (a dict of column arrays, no pandas

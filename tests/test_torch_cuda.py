@@ -856,6 +856,33 @@ def test_legacy_dispatch_on_card_matches_reference_versions(cuda, heads, d):
         torch.testing.assert_close(a, b, **GRAD_TOL)
 
 
+def test_legacy_v1_two_heads_gives_the_same_bits_twice(cuda):
+    """`attention_v1` at 2 heads of 128 with a dropout mask on a graph with a
+    destination of 10,000 in-edges and a source of 3,000 out-edges: the
+    forward and the gradients of a fixed linear loss are the same bits on a
+    second run. The backward is the golden's autograd, so every sum in it
+    (softmax denominator, aggregation, the gathers' backward) must run in a
+    fixed order on the card."""
+    from plotpointe_tpu_torch.ops.gat_kernel import attention_v1, legacy_mask
+
+    rng = np.random.default_rng(12)
+    g = _skewed_graph(rng).with_tiling().to(cuda)
+    h = torch.as_tensor(rng.normal(size=(g.n_nodes, 2, 128)).astype(np.float32), device=cuda)
+    a_s, a_d = (torch.as_tensor(rng.normal(size=(2, 128)).astype(np.float32) * 0.1, device=cuda)
+                for _ in range(2))
+    ct = torch.as_tensor(rng.normal(size=(g.n_nodes, 2, 128)).astype(np.float32), device=cuda)
+    mask = legacy_mask(g, 2, 0.1, 7, cuda)
+    runs = []
+    for _ in range(2):
+        x = [t.clone().requires_grad_() for t in (h, a_s, a_d)]
+        out = attention_v1(*x, g, mask)
+        (out * ct).sum().backward()
+        torch.cuda.synchronize()
+        runs.append([out.detach()] + [t.grad for t in x])
+    for name, a, b in zip(("out", "dh", "da_src", "da_dst"), *runs):
+        assert torch.equal(a, b), f"{name}: max diff {float((a - b).abs().max())}"
+
+
 def test_wide_multihead_runs_one_pass_per_head_on_card(cuda):
     """4 heads of D 512 (above the packed kernels' width): one `attention_v3`
     pass per head, kernel 1 launched 4 times and kernel 8 not at all."""

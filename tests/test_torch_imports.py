@@ -27,7 +27,9 @@ def test_port_imports_no_jax():
               "train.evaluate", "train.losses", "utils.logging", "ops.spmm_kernel",
               "models.lightgcn", "ops.gat_kernel", "ops.knn_kernel", "graphs.knn",
               "graphs.ui_graph", "data.subset", "ops.elementwise", "utils.profiling",
-              "tools.smoke_gpu", "models.encoders"):
+              "tools.smoke_gpu", "models.encoders", "data.synthetic", "data.validate",
+              "data.stage", "utils.prng", "utils.experiments", "utils.artifacts",
+              "tools.manifest_validate", "tools.promotion_gate", "tools.anchor"):
         assert f"plotpointe_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, json, sys\n"
