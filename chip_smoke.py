@@ -13,7 +13,10 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
   build    nvcc builds of the kernels, all sources at once
   data     seeded interactions at the Amazon-Electronics cardinalities
            (192,403 users x 63,001 items x 1,689,116 interactions, lognormal
-           degree skew sigma 0.83 / 1.52) and 384-d item features
+           degree skew sigma 0.83 / 1.52) and 384-d item features; the main
+           graph built on the native host library (`native.backend()` must
+           be "native") and again through its lexsort path, the same bits,
+           with both host times
   check    each kernel vs its plain version on the card, at a small shape and
            at the main paths' shapes (tolerances below); kernels 1, 2, 3 and
            14 at widths above one column strip (D 1,024 on 40 nodes, D 544
@@ -103,6 +106,29 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            ablate` in-process over the seven variants at 1 epoch of 200,000
            samples: no variant may report an error; kernels 1, 2, 3, 7, 8
            and 9 must have launched
+  serve_telemetry
+           path 10, counters at 0 first, on path 2's export (63,001 x 128
+           f32): a micro-batching stdlib server loaded by
+           `ServingState.startup_from_env()` with durable telemetry (fsync a
+           record): 32 concurrent /recommend requests with user keys, one
+           /feedback per reply, an out-of-range request (400, one reject
+           line) and a bad feedback (400); every good reply 200 with a
+           request_id and the plain answer's scores; the queues reopened from
+           disk hold exactly those 32 requests and 32 feedbacks and drain to
+           a backlog of 0 with no dead letters; `cli drift` counts 32;
+           kernels 4, 5 and the select kernel must have launched. Then
+           `python -m plotpointe_tpu_torch.serving` in a subprocess
+           (environment-configured, SERVING_USE_DEVICE unset: the card; 8
+           requests held to the plain answer, its JSONL log 8 lines; killed
+           by its PID) and the wall of 8 sequential requests with telemetry
+           off, JSONL and durable
+  serve_bench
+           path 11, counters at 0 first: `tools/serve_bench.main` in-process
+           at JAX's defaults (498,196 x 128 seeded catalog, bf16 table, 64
+           clients, the kernel top-K), `--seconds 3` (JAX: 10): served QPS,
+           p50/p95 latency, mean batch and dispatch ms of the single,
+           micro-batched and loopback modes; every mode must serve requests
+           and kernels 4, 5 and the select kernel must have launched
   timing   CUDA-event times of each kernel, its plain version and, where one
            PyTorch call computes the same function, that call; the bound with
            its reckoning; `host_us_per_launch`, the host's time to issue one
@@ -218,7 +244,9 @@ PATH_KERNELS = {"train": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src"),
                 "legacy_v1_mh": ("onehot_reduce",),
                 "anchor": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src"),
                 "ablate": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "spmm_csr", "gat_fwd_mh",
-                           "gat_bwd_dst_mh")}
+                           "gat_bwd_dst_mh"),
+                "serve_telemetry": ("topk_chunkmax", "topk_rescore", "topk_select"),
+                "serve_bench": ("topk_chunkmax", "topk_rescore", "topk_select")}
 # the legacy phase's configurations: (path, hidden, heads); v2 takes 1 head
 # with D % 128 == 0, v1 the rest (64 is the reference's hidden-dim ablation)
 LEGACY = (("legacy_v2", 128, 1), ("legacy_v1", 64, 1), ("legacy_v1_mh", 128, 2))
@@ -680,7 +708,6 @@ def phase_data(args, rng, dev):
     import torch
 
     from plotpointe_tpu_torch.data.splits import build_node_maps, build_splits
-    from plotpointe_tpu_torch.graphs.csr import build_bipartite_graph
     from plotpointe_tpu_torch.models.gat import GATModel
     from plotpointe_tpu_torch.train.checkpoint import params_from_jax
 
@@ -689,7 +716,8 @@ def phase_data(args, rng, dev):
     s = build_splits(inter, *build_node_maps(inter))
     feats = rng.normal(size=(s.n_items, 384)).astype(np.float32)
     feats /= np.linalg.norm(feats, axis=1, keepdims=True)
-    graph = build_bipartite_graph(s.train_u, s.train_i, s.n_users, s.n_items, weight=s.train_w).to(dev)
+    graph, native_line = native_graph(s)
+    graph = graph.to(dev)
     # the check and timing phases' attention inputs: layer 0 of a random GAT
     config = {"model_family": "gat", "n_users": s.n_users, "n_items": s.n_items, "feat_dim": 384,
               "hidden_dim": 128, "n_layers": 1, "heads": 1, "attn_dropout": 0.1, "use_bias": False}
@@ -704,8 +732,39 @@ def phase_data(args, rng, dev):
           "n_items": s.n_items, "n_interactions": len(inter["user_id"]), "n_train": s.n_train,
           "graph_nodes": graph.n_nodes, "graph_edges": graph.n_edges,
           "max_in_degree": int((graph.row_ptr[1:] - graph.row_ptr[:-1]).max()),
-          "layers": args.layers, "hidden": 128, "feat_dim": 384, "catalog": [CATALOG, 128]})
+          "layers": args.layers, "hidden": 128, "feat_dim": 384, "catalog": [CATALOG, 128], **native_line})
     return inter, s, feats, graph, (h0, a_s, a_d)
+
+
+def native_graph(s):
+    """The main graph from the native host library (`native.backend()` must
+    be "native": g++ built it) and again through the lexsort path that the
+    library's absence takes (`native.build_csr_numpy`); both must be the
+    same bits. Returns the graph and its line's fields with both host times."""
+    from unittest import mock
+
+    from plotpointe_tpu_torch import native
+    from plotpointe_tpu_torch.graphs.csr import build_bipartite_graph
+
+    t0 = time.perf_counter()
+    backend = native.backend()  # builds the library on first use
+    build_s = time.perf_counter() - t0
+    if backend != "native":
+        raise AssertionError(f"native.backend() is {backend!r}: the host library did not build or load")
+    t0 = time.perf_counter()
+    graph = build_bipartite_graph(s.train_u, s.train_i, s.n_users, s.n_items, weight=s.train_w)
+    native_s = time.perf_counter() - t0
+    with mock.patch.object(native, "build_csr", native.build_csr_numpy):
+        t0 = time.perf_counter()
+        plain = build_bipartite_graph(s.train_u, s.train_i, s.n_users, s.n_items, weight=s.train_w)
+        lexsort_s = time.perf_counter() - t0
+    equal = {k: bool(np.array_equal(getattr(graph, k).numpy(), getattr(plain, k).numpy()))
+             for k in ("src", "dst", "weight", "row_ptr", "t_ptr", "t_dst", "t_eid")}
+    if not all(equal.values()):
+        raise AssertionError(f"build_graph with the native library differs from the lexsort path: {equal}")
+    return graph, {"native_backend": backend, "native_build_s": build_s,
+                   "build_graph_native_s": native_s, "build_graph_lexsort_s": lexsort_s,
+                   "build_graph_bit_equal": True}
 
 
 def check_attention(errs, rng, label, g, h, a_s, a_d, dev):
@@ -1158,7 +1217,6 @@ def serve_and_check(npy: str, histories, n_single: int, n_concurrent: int) -> di
     then `n_concurrent` concurrent ones to a micro-batching server; every
     reply must be 200 and its scores must match the plain CPU answer."""
     from plotpointe_tpu_torch.serving.httpd import serve
-    from plotpointe_tpu_torch.serving.runtime import RecommenderRuntime, ServingConfig
 
     replies = [None] * (n_single + n_concurrent)
     single_srv, _ = serve("127.0.0.1", 0, block=False)
@@ -1202,6 +1260,14 @@ def serve_and_check(npy: str, histories, n_single: int, n_concurrent: int) -> di
             srv.server_close()
             srv.state.close()
 
+    return stats | check_replies(npy, histories, replies)
+
+
+def check_replies(npy: str, histories, replies, k: int = 20) -> dict:
+    """Every reply 200, k items, none of its history, and its scores within
+    SERVE_RTOL of the plain CPU answer for the same history."""
+    from plotpointe_tpu_torch.serving.runtime import RecommenderRuntime, ServingConfig
+
     codes = [r[0] if r else None for r in replies]
     if any(c != 200 for c in codes):
         raise AssertionError(f"/recommend replies not all 200: {codes}")
@@ -1210,15 +1276,15 @@ def serve_and_check(npy: str, histories, n_single: int, n_concurrent: int) -> di
     plain_rt.startup()
     worst = 0.0
     for h, (_, body) in zip(histories, replies):
-        _, want = plain_rt.top_k_for_user_items(h, k=20)
+        _, want = plain_rt.top_k_for_user_items(h, k=k)
         got = np.sort(np.asarray(body["scores"], np.float64))
         want = np.sort(want.astype(np.float64))
-        if len(got) != 20 or set(body["indices"]) & set(h):
+        if len(got) != k or set(body["indices"]) & set(h):
             raise AssertionError(f"bad reply for history {h}: {body}")
         worst = max(worst, float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-12))))
     if worst > SERVE_RTOL:
         raise AssertionError(f"served scores differ from the plain answer by {worst} relative")
-    return stats | {"status_codes": sorted(set(codes)), "served_max_rel_err_vs_plain": worst}
+    return {"status_codes": sorted(set(codes)), "served_max_rel_err_vs_plain": worst}
 
 
 def histories_of(n_items: int, n: int):
@@ -2272,6 +2338,242 @@ def phase_ablate(work: Path, data, dev) -> dict:
     return launches
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def telemetry_walls(npy: str, work: Path, n: int = 8) -> dict:
+    """Host wall of `n` sequential /recommend requests (after one warm one)
+    to a stdlib server on one card runtime, with telemetry off, JSONL and
+    durable (an fsync a record): what an operator pays for each mode."""
+    from plotpointe_tpu_torch.serving.httpd import serve
+    from plotpointe_tpu_torch.serving.runtime import RecommenderRuntime, ServingConfig
+    from plotpointe_tpu_torch.serving.telemetry import ServingTelemetry
+
+    rt = RecommenderRuntime(ServingConfig(item_embeddings_uri=npy))
+    rt.startup()
+    hists = histories_of(rt.item_vecs.shape[0], n + 1)
+    walls = {}
+    for mode, durable in (("off", None), ("jsonl", False), ("durable_fsync", True)):
+        tel = None if durable is None else ServingTelemetry(root=str(work / f"tel_{mode}"), durable=durable)
+        srv, _ = serve("127.0.0.1", 0, runtime=rt, telemetry=tel, block=False)
+        url = f"http://127.0.0.1:{srv.server_address[1]}/recommend"
+        try:
+            post(url, {"item_ids": hists[n], "k": 20})
+            t0 = time.perf_counter()
+            codes = [post(url, {"item_ids": h, "k": 20})[0] for h in hists[:n]]
+            walls[mode] = time.perf_counter() - t0
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            srv.state.close()
+            if durable:
+                tel.requests.queue.close()
+                tel.feedback.queue.close()
+        if codes != [200] * n:
+            raise AssertionError(f"telemetry {mode}: replies {codes}")
+    return {f"wall_{n}_sequential_s": walls}
+
+
+def serve_env_subprocess(npy: str, work: Path, n: int = 8) -> dict:
+    """`python -m plotpointe_tpu_torch.serving` configured by the environment
+    (SERVING_USE_DEVICE unset: the card), `n` requests held to the plain
+    answer, its JSONL request log `n` lines; stopped by its PID."""
+    import os
+
+    port = free_port()
+    env = {k: v for k, v in os.environ.items() if k != "SERVING_USE_DEVICE"}
+    env.update(ITEM_EMBEDDINGS_URI=npy, TOPK="20", TELEMETRY_DIR=str(work / "tel_env"),
+               HOST="127.0.0.1", PORT=str(port))
+    err_log = work / "env_server.err"
+    t0 = time.perf_counter()
+    with open(err_log, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "plotpointe_tpu_torch.serving"],
+                                cwd=Path(__file__).resolve().parent, env=env, stdout=subprocess.PIPE,
+                                stderr=err, text=True)
+    try:
+        lines = []  # the startup line, printed once the table is on the card
+        reader = threading.Thread(target=lambda: lines.append(proc.stdout.readline()), daemon=True)
+        reader.start()
+        reader.join(timeout=300)
+        line = lines[0].strip() if lines else ""
+        start_s = time.perf_counter() - t0
+        if line != f"serving on 127.0.0.1:{port} loaded=True telemetry=True":
+            proc.kill()
+            proc.wait(timeout=60)
+            raise AssertionError(f"the env entry point printed {line!r}: {err_log.read_text()[-3000:]}")
+        url = f"http://127.0.0.1:{port}/recommend"
+        deadline = time.perf_counter() + 60
+        while True:  # the line comes just before the socket is bound
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=5).read()
+                break
+            except (urllib.error.URLError, ConnectionError):
+                if time.perf_counter() > deadline:
+                    raise
+                time.sleep(0.05)
+        hists = histories_of(np.load(npy, mmap_mode="r").shape[0], n)
+        t1 = time.perf_counter()
+        replies = [post(url, {"item_ids": h, "k": 20, "user_key": f"env{i}"}) for i, h in enumerate(hists)]
+        wall = time.perf_counter() - t1
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+        proc.stdout.close()
+    stats = check_replies(npy, hists, replies)
+    logged = (work / "tel_env" / "requests.jsonl").read_text().splitlines()
+    ids = sorted(json.loads(x)["request_id"] for x in logged)
+    if ids != sorted(b["request_id"] for _, b in replies):
+        raise AssertionError(f"the env entry point logged {len(logged)} requests, not the {n} it served")
+    return {"env_start_s": start_s, f"env_wall_{n}_sequential_s": wall, "env_logged_requests": len(logged),
+            **{f"env_{k}": v for k, v in stats.items()}}
+
+
+def phase_serve_telemetry(work: Path, dev) -> dict:
+    """Path 10: the rest of serving on path 2's trained export (63,001 x
+    128, f32). Counters at 0, then (a) in-process: a micro-batching stdlib
+    server whose runtime comes from `ServingState.startup_from_env()`, with
+    durable telemetry (an fsync a record): 32 concurrent /recommend requests
+    with user keys, one /feedback per reply, one out-of-range request (400,
+    one reject line) and one bad feedback (400); the replies held to the
+    plain answer, the queues reopened from disk holding exactly those 32
+    requests and 32 feedbacks, drained to a backlog of 0 with no dead
+    letters, `cli drift` counting 32; kernels 4, 5 and the select kernel
+    must have launched. (b) `python -m plotpointe_tpu_torch.serving` in a
+    subprocess. Then the wall of 8 sequential requests per telemetry mode."""
+    import os
+    from unittest import mock
+
+    import torch
+
+    from plotpointe_tpu_torch.ops import cuda_build
+    from plotpointe_tpu_torch.serving.eventqueue import DurableQueue
+    from plotpointe_tpu_torch.serving.httpd import serve
+    from plotpointe_tpu_torch.serving.telemetry import ServingTelemetry
+
+    npy, root, n = str(work / "main_items.npy"), work / "tel_durable", 32
+    n_items = np.load(npy, mmap_mode="r").shape[0]
+    hists = histories_of(n_items, n)
+    cuda_build.reset_counters()
+    t0 = time.perf_counter()
+    tel = ServingTelemetry(root=str(root), durable=True)
+    srv, _ = serve("127.0.0.1", 0, telemetry=tel, block=False, micro_batch=True, micro_batch_max=64,
+                   micro_batch_wait_ms=5.0)
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    replies = [None] * n
+    try:
+        with mock.patch.dict(os.environ, {"ITEM_EMBEDDINGS_URI": npy}):  # restored after
+            for k in ("ITEM_INDEX_MAP_URI", "TOPK", "PROJECT_ID", "GOOGLE_CLOUD_PROJECT"):
+                os.environ.pop(k, None)
+            if not srv.state.startup_from_env():
+                raise AssertionError("startup_from_env did not load the export")
+        if srv.state.runtime._table.device.type != torch.device(dev).type:
+            raise AssertionError(f"the environment's runtime is not on {dev}")
+        barrier = threading.Barrier(n)
+
+        def client(i):
+            barrier.wait()
+            replies[i] = post(f"{base}/recommend", {"item_ids": hists[i], "k": 20, "user_key": f"user{i}"})
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        sync()
+        batches = srv.state.batcher.stats
+        if any(r is None or r[0] != 200 for r in replies):
+            raise AssertionError(f"/recommend replies: {[r and r[0] for r in replies]}")
+        feedback = [post(f"{base}/feedback", {"request_id": b["request_id"], "item_id": b["indices"][0],
+                                              "event_type": "click", "user_key": f"user{i}"})
+                    for i, (_, b) in enumerate(replies)]
+        bad_req = post(f"{base}/recommend", {"item_ids": [n_items + 5], "k": 20})
+        rejects_after_bad_req = len(tel.rejects.read_all())
+        bad_fb = post(f"{base}/feedback", {"item_id": 1})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.state.close()
+        tel.requests.queue.close()
+        tel.feedback.queue.close()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    stats = check_replies(npy, hists, replies)
+    if any(code != 200 or body != {"status": "ok"} for code, body in feedback):
+        raise AssertionError(f"/feedback replies: {feedback}")
+    if bad_req[0] != 400 or rejects_after_bad_req != 1 or bad_fb[0] != 400 or len(tel.rejects.read_all()) != 2:
+        raise AssertionError(f"rejects: {bad_req}, {bad_fb}, {tel.rejects.read_all()}")
+    want = {b["request_id"]: (i, b) for i, (_, b) in enumerate(replies)}
+    queues = {}
+    for name in ("requests", "feedback"):  # reopened from disk, drained as a subscriber would
+        q = DurableQueue(root / name)
+        recs = q.read_all()
+        pulled = q.pull(10 * n)
+        q.ack([o for o, _ in pulled])
+        queues[name] = {"records": len(recs), "pulled": len(pulled), "backlog": q.backlog(),
+                        "dead_letters": len(q.dead_letters())}
+        q.close()
+        if sorted(r["request_id"] for r in recs) != sorted(want) or len(pulled) != n \
+                or queues[name]["backlog"] or queues[name]["dead_letters"]:
+            raise AssertionError(f"durable {name} queue: {queues[name]}")
+        for r in recs:
+            i, body = want[r["request_id"]]
+            logged = r["item_ids"] if name == "requests" else [r["item_id"]]
+            if logged != (body["indices"] if name == "requests" else body["indices"][:1]) \
+                    or r["user_key"] != f"user{i}" or (name == "requests" and r["scores"] != body["scores"]):
+                raise AssertionError(f"durable {name} record {r} differs from its reply {body}")
+    out, code = in_process_cli(["drift", "--telemetry-dir", str(root)])
+    drift = json.loads(out)
+    n_drift = sum(row["n_requests"] for row in drift)  # an hour may turn during the run
+    missing = [k for k in PATH_KERNELS["serve_telemetry"] if launches[k] == 0]
+    line = {"phase": "serve_telemetry", "requests": n, "wall_s": wall, **stats,
+            "batcher_requests_batches_max": (batches.n_requests, batches.n_batches, batches.max_batch),
+            "feedback_codes": sorted({c for c, _ in feedback}), "bad_request": bad_req[0],
+            "bad_feedback": bad_fb[0], "rejects": len(tel.rejects.read_all()), "queues": queues,
+            "drift": drift, "drift_exit_code": code, "launches": launches}
+    if code != 0 or n_drift != n or missing:
+        emit(line | {"ok": False})
+        raise AssertionError(f"serve_telemetry: drift exit {code}, n_requests {n_drift}; not launched: {missing}")
+    line |= serve_env_subprocess(npy, work)
+    line |= telemetry_walls(npy, work)
+    emit(line | {"ok": True})
+    return launches
+
+
+def phase_serve_bench(dev) -> dict:
+    """Path 11: `tools/serve_bench.main` in-process at JAX's defaults
+    (498,196 x 128 seeded catalog, bf16 table, 64 clients, in flight 4) with
+    the kernel top-K asked for (`--pallas`); `--seconds 3` (JAX: 10) is the
+    one cut. Counters at 0 first; every mode must serve requests and kernels
+    4, 5 and the select kernel must have launched."""
+    from plotpointe_tpu_torch.ops import cuda_build
+    from plotpointe_tpu_torch.tools import serve_bench
+
+    cuda_build.reset_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = serve_bench.main(["--clients", "64", "--seconds", "3", "--pallas", "--json",
+                                "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    launches = counts()
+    modes = {m: {k: res[m].get(k) for k in ("served_qps", "n_requests", "latency_p50_ms", "latency_p95_ms",
+                                            "mean_batch", "dispatch_ms")}
+             for m in ("single", "micro_batch", "loopback")}
+    missing = [k for k in PATH_KERNELS["serve_bench"] if launches[k] == 0]
+    idle = [m for m, r in modes.items() if not r["n_requests"]]
+    emit({"phase": "serve_bench", "items": res["items"], "d": res["d"], "clients": res["clients"],
+          "table_dtype": "bfloat16", "seconds": 3, "cut": "--seconds 3 (JAX default 10)",
+          "modes": modes, "speedup": res.get("speedup"), "wall_s": wall, "launches": launches,
+          "ok": not missing and not idle})
+    if missing or idle:
+        raise AssertionError(f"serve_bench: modes without requests {idle}; not launched: {missing}")
+    return launches
+
+
 def v2_out_tol(model, x_feats, graph, seeds, out_p) -> dict:
     """The legacy v2 output's band against its plain path. The last layer
     rounds its rows h to bf16, and a value whose f32 bits differ between
@@ -2600,6 +2902,9 @@ def run(args, work: Path, dev="cuda") -> int:
     by_path["anchor"], anchor_data = phase_anchor(work, dev)
     by_path["ablate"] = phase_ablate(work, anchor_data, dev)
     del anchor_data
+    # paths 10 and 11: telemetry, feedback and the env entry point on path 2's export; served QPS
+    by_path["serve_telemetry"] = phase_serve_telemetry(work, dev)
+    by_path["serve_bench"] = phase_serve_bench(dev)
 
     rows = phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev)
     time_train_step("gat", trainer, s, samples=trainer.cfg.samples_per_epoch)

@@ -5,9 +5,12 @@ Counterpart of `plotpointe_tpu/cli.py` for the ported commands:
           metrics JSON (GAT or LightGCN; --mesh is a later slice)
   export  checkpoint + interactions (+ item features for the GAT) ->
           item_embeddings.npy
-  serve   stdlib HTTP top-K server (--stdlib or $PLOTPOINTE_STDLIB_HTTP; the
-          FastAPI app is not ported); --item-embeddings, else
-          $ITEM_EMBEDDINGS_URI, is loaded at start
+  serve   top-K server: the stdlib HTTP server (--stdlib or
+          $PLOTPOINTE_STDLIB_HTTP; --item-embeddings, else $ITEM_EMBEDDINGS_URI,
+          is loaded at start), else the FastAPI app under uvicorn (the
+          `serving` extra); --telemetry-dir logs requests and feedback
+          (--telemetry-durable: through the durable queue)
+  drift   hourly drift aggregates of a telemetry directory
   build-ui      interactions -> ui_edges.npz + node_maps.json + ui_stats.json
   build-subset  full-catalog features + items + interactions ->
                 {name}_interacted.npy + interacted_items.json
@@ -82,8 +85,22 @@ def _cmd_export(args):
 
 
 def _cmd_serve(args):
+    telemetry = None
+    if args.telemetry_dir:
+        from plotpointe_tpu_torch.serving.telemetry import ServingTelemetry
+
+        telemetry = ServingTelemetry(root=args.telemetry_dir,
+                                     durable=True if args.telemetry_durable else None)
     if not (args.stdlib or os.environ.get("PLOTPOINTE_STDLIB_HTTP")):
-        sys.exit("only the stdlib HTTP server is ported: pass --stdlib or set PLOTPOINTE_STDLIB_HTTP")
+        from plotpointe_tpu_torch.serving.app import SERVING_EXTRA, create_app
+
+        app = create_app(telemetry)  # loads $ITEM_EMBEDDINGS_URI at start
+        try:
+            import uvicorn
+        except ImportError as e:
+            raise ImportError(SERVING_EXTRA) from e
+        uvicorn.run(app, host=args.host, port=args.port)
+        return
     from plotpointe_tpu_torch.serving.httpd import serve
     from plotpointe_tpu_torch.serving.runtime import RecommenderRuntime, ServingConfig
 
@@ -94,9 +111,16 @@ def _cmd_serve(args):
                                               device=args.device))
         rt.startup()
     print(json.dumps({"serving": f"http://{args.host}:{args.port}", "loaded": rt is not None,
-                      "micro_batch": args.micro_batch}), flush=True)
-    serve(args.host, args.port, runtime=rt, block=True, micro_batch=args.micro_batch,
-          micro_batch_max=args.micro_batch_max, micro_batch_wait_ms=args.micro_batch_wait_ms)
+                      "telemetry": bool(telemetry), "micro_batch": args.micro_batch}), flush=True)
+    serve(args.host, args.port, runtime=rt, telemetry=telemetry, block=True,
+          micro_batch=args.micro_batch, micro_batch_max=args.micro_batch_max,
+          micro_batch_wait_ms=args.micro_batch_wait_ms)
+
+
+def _cmd_drift(args):
+    from plotpointe_tpu_torch.serving.telemetry import ServingTelemetry
+
+    print(json.dumps(ServingTelemetry(root=args.telemetry_dir).aggregate_drift(), indent=2))
 
 
 def _cmd_build_ui(args):
@@ -295,11 +319,18 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--item-embeddings", default=None,
                    help="npy to load at start (default: $ITEM_EMBEDDINGS_URI)")
     s.add_argument("--topk", type=int, default=20)
+    s.add_argument("--telemetry-dir", default=None, help="log requests and feedback (JSONL)")
+    s.add_argument("--telemetry-durable", action="store_true",
+                   help="log through the at-least-once durable queue instead")
     s.add_argument("--micro-batch", action="store_true")
     s.add_argument("--micro-batch-max", type=int, default=64)
     s.add_argument("--micro-batch-wait-ms", type=float, default=3.0)
     s.add_argument("--device", default=None, help="default: cuda")
     s.set_defaults(fn=_cmd_serve)
+
+    b = sub.add_parser("drift", help="aggregate serving telemetry into drift stats")
+    b.add_argument("--telemetry-dir", required=True)
+    b.set_defaults(fn=_cmd_drift)
 
     b = sub.add_parser("build-ui", help="build U-I graph artifacts")
     b.add_argument("--staging-prefix", required=True,

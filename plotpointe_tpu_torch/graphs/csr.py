@@ -76,21 +76,23 @@ def _csr_ptr(keys: np.ndarray, n_nodes: int) -> np.ndarray:
 def build_graph(src: np.ndarray, dst: np.ndarray, n_nodes: int,
                 weight: np.ndarray | None = None) -> Graph:
     """Sort edges by (dst, src) and build the CSR row_ptr and the transpose
-    CSR, on the host."""
+    CSR, on the host. The (dst, src) order and row_ptr come from the native
+    counting sort (`plotpointe_tpu_torch.native`, numpy lexsort without
+    it); the transpose needs the sort's permutation, so it is a lexsort."""
+    from plotpointe_tpu_torch import native
+
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
-    w = np.ones(len(src), np.float32) if weight is None else np.asarray(weight, np.float32)
-    order = np.lexsort((src, dst))
-    src, dst = src[order], dst[order]
-    t_order = np.lexsort((dst, src))  # canonical ids grouped by source
+    src32, dst32, w, row_ptr = native.build_csr(src, dst, weight, n_nodes, len(src))
+    t_order = np.lexsort((dst32, src32))  # canonical ids grouped by source
     return Graph(
-        src=torch.from_numpy(src.astype(np.int32)),
-        dst=torch.from_numpy(dst.astype(np.int32)),
-        weight=torch.from_numpy(w[order]),
-        row_ptr=torch.from_numpy(_csr_ptr(dst, n_nodes)),
+        src=torch.from_numpy(src32),
+        dst=torch.from_numpy(dst32),
+        weight=torch.from_numpy(w),
+        row_ptr=torch.from_numpy(np.ascontiguousarray(row_ptr[:n_nodes + 1])),
         n_nodes=int(n_nodes),
-        t_ptr=torch.from_numpy(_csr_ptr(src, n_nodes)),
-        t_dst=torch.from_numpy(dst[t_order].astype(np.int32)),
+        t_ptr=torch.from_numpy(_csr_ptr(src32, n_nodes)),
+        t_dst=torch.from_numpy(dst32[t_order]),
         t_eid=torch.from_numpy(t_order.astype(np.int32)),
     )
 

@@ -81,8 +81,10 @@ def train_from_artifacts(cfg: TrainConfig, staging_prefix: str, embeddings_prefi
     cfg.run_id = cfg.run_id or f"{cfg.model_family}_d{cfg.hidden_dim}_{int(time.time())}"
     ckpt_uri = f"{models_prefix}/checkpoints/{cfg.run_id}.npz"
     resume_path = store.target(f"{models_prefix}/resume.pt") if resume else None
-    results = trainer.fit(checkpoint_path=str(store.target(ckpt_uri)),
+    ckpt_local = store.target(ckpt_uri)
+    results = trainer.fit(checkpoint_path=str(ckpt_local),
                           resume_path=None if resume_path is None else str(resume_path))
+    store.publish(ckpt_local, ckpt_uri)
     metrics = {k: results[k] for k in ("best_val_ndcg@20", "val", "test", "config", "notes",
                                        "history", "wall_time_s")}
     store.save_json(metrics, f"{models_prefix}/metrics_{cfg.run_id}.json")

@@ -45,7 +45,11 @@ class _Handler(BaseHTTPRequestHandler):
         except (ValueError, json.JSONDecodeError):
             self._send(400, {"detail": "invalid JSON body"})
             return
-        route = {"/startup": self._state.startup, "/recommend": self._state.recommend}.get(self.path)
+        route = {
+            "/startup": self._state.startup,
+            "/recommend": self._state.recommend,
+            "/feedback": self._state.feedback,
+        }.get(self.path)
         if route is None:
             self._send(404, {"detail": "not found"})
             return
@@ -60,12 +64,14 @@ class _Server(ThreadingHTTPServer):
 
 
 def serve(host: str = "0.0.0.0", port: int = 8080, runtime: Optional[RecommenderRuntime] = None,
-          block: bool = True, micro_batch: bool = False, micro_batch_max: int = 64,
-          micro_batch_wait_ms: float = 3.0, micro_batch_in_flight: int = 4):
+          telemetry=None, block: bool = True, micro_batch: bool = False,
+          micro_batch_max: int = 64, micro_batch_wait_ms: float = 3.0,
+          micro_batch_in_flight: int = 4):
     """Start the server. Returns (server, thread) when block=False; stop it
     with `server.shutdown(); server.server_close(); server.state.close()`."""
     httpd = _Server((host, port), _Handler)
-    httpd.state = ServingState(runtime=runtime, micro_batch=micro_batch,  # type: ignore[attr-defined]
+    httpd.state = ServingState(runtime=runtime, telemetry=telemetry,  # type: ignore[attr-defined]
+                               micro_batch=micro_batch,
                                micro_batch_max=micro_batch_max,
                                micro_batch_wait_ms=micro_batch_wait_ms,
                                micro_batch_in_flight=micro_batch_in_flight)

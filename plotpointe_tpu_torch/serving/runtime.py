@@ -34,6 +34,7 @@ class ServingConfig:
     item_embeddings_uri: str
     item_index_map_uri: Optional[str] = None
     topk: int = 20
+    project_id: Optional[str] = None  # the gs:// client's project (utils/artifacts.py)
     use_device: bool = True  # False -> pure numpy (no GPU)
     device: Optional[str] = None  # None -> cuda (raises without a GPU); "cpu" runs plain versions
     use_kernel_topk: Optional[bool] = None  # None = auto: the top-K kernels on CUDA
@@ -47,7 +48,7 @@ class RecommenderRuntime:
         if cfg.table_dtype not in _TABLE_DTYPES:
             raise ValueError(f"table_dtype must be one of {sorted(_TABLE_DTYPES)}")
         self.cfg = cfg
-        self.store = store or ArtifactStore()
+        self.store = store or ArtifactStore(project_id=cfg.project_id)
         self.item_vecs: Optional[np.ndarray] = None
         self._table: Optional[torch.Tensor] = None
         self.item_to_idx: Optional[dict] = None

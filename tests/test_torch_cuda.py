@@ -1259,3 +1259,48 @@ def test_bwd_dst_walk_raises_on_misaligned_rows(cuda):
             attention_bwd_dst_mh(rows.view(n, 2, d), vec[:, None].repeat(1, 2), vec[:, None].repeat(1, 2),
                                  ct, ct, vec[:, None].repeat(1, 2), g)
     assert {k: cuda_build.COUNTERS[k].count for k in before} == before
+
+
+def test_durable_telemetry_logs_what_the_card_served(cuda, tmp_path, monkeypatch):
+    """A CUDA runtime (the top-K kernels) behind the micro-batcher with
+    durable telemetry: the queue holds, for each of 4 concurrent requests,
+    the item ids and scores its reply carried, under its request_id."""
+    import threading
+
+    from plotpointe_tpu_torch.serving.endpoints import ServingState
+    from plotpointe_tpu_torch.serving.eventqueue import DurableQueue
+    from plotpointe_tpu_torch.serving.telemetry import ServingTelemetry
+
+    monkeypatch.setenv("PLOTPOINTE_QUEUE_NOSYNC", "1")
+    path = tmp_path / "emb.npy"
+    np.save(path, np.random.default_rng(0).normal(size=(5000, 64)).astype(np.float32))
+    tel = ServingTelemetry(root=str(tmp_path / "tel"), durable=True)
+    st = ServingState(telemetry=tel, micro_batch=True, micro_batch_wait_ms=50.0)
+    before = {k: cuda_build.COUNTERS[k].count for k in ("topk_chunkmax", "topk_rescore", "topk_select")}
+    try:
+        assert st.startup({"item_embeddings_uri": str(path)})[0] == 200
+        assert st.runtime._table.device.type == "cuda"
+        replies = [None] * 4
+        barrier = threading.Barrier(4)
+
+        def client(i):
+            barrier.wait()
+            replies[i] = st.recommend({"item_ids": [i, 10 + i, 100 + i], "k": 7, "user_key": f"u{i}"})
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        st.close()
+    assert all(code == 200 for code, _ in replies)
+    assert all(cuda_build.COUNTERS[k].count > v for k, v in before.items())
+    tel.requests.queue.close()
+    logged = {r["request_id"]: r for r in (d for _, d in DurableQueue(tmp_path / "tel" / "requests").pull(10))}
+    assert len(logged) == 4
+    for i, (_, body) in enumerate(replies):
+        rec = logged[body["request_id"]]
+        assert rec["item_ids"] == body["indices"] and rec["scores"] == body["scores"]
+        assert rec["user_key"] == f"u{i}" and len(rec["item_ids"]) == 7

@@ -29,7 +29,9 @@ def test_port_imports_no_jax():
               "graphs.ui_graph", "data.subset", "ops.elementwise", "utils.profiling",
               "tools.smoke_gpu", "models.encoders", "data.synthetic", "data.validate",
               "data.stage", "utils.prng", "utils.experiments", "utils.artifacts",
-              "tools.manifest_validate", "tools.promotion_gate", "tools.anchor"):
+              "tools.manifest_validate", "tools.promotion_gate", "tools.anchor",
+              "serving.eventqueue", "serving.telemetry", "serving.app", "tools.serve_bench",
+              "native"):
         assert f"plotpointe_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, json, sys\n"
@@ -51,3 +53,17 @@ def test_resolve_device_needs_cuda_unless_cpu_is_asked():
             resolve_device()
         with pytest.raises(RuntimeError):
             resolve_device("cuda")
+
+
+def test_env_entry_point_imports_no_jax():
+    """`serving/__main__.py` runs nothing on import (its `__main__` guard), so
+    importing it shows what it pulls in."""
+    code = (
+        "import importlib, json, sys\n"
+        "importlib.import_module('plotpointe_tpu_torch.serving.__main__')\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'plotpointe_tpu' or m.startswith('plotpointe_tpu.'))))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

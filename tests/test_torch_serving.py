@@ -3,6 +3,7 @@ runtime paths against the JAX runtime, micro-batching, the stdlib HTTP
 surface and the CLI. Mirrors tests/test_serving.py and tests/test_batching.py."""
 import json
 import threading
+import types
 import urllib.request
 
 import numpy as np
@@ -164,8 +165,25 @@ def test_artifact_store_formats_read_by_jax_store(tmp_path):
     assert store.exists(npy) and not store.exists(str(tmp_path / "none.npy"))
     with pytest.raises(FileNotFoundError):
         store.load_npy(str(tmp_path / "none.npy"))
-    with pytest.raises(NotImplementedError, match="gs://"):
-        store.load_npy("gs://bucket/emb.npy")
+    # gs:// goes through the storage client (a stub here: no network) into the cache
+    blobs = {}
+
+    class _Bucket:
+        def __init__(self, name):
+            self.name = name
+
+        def blob(self, path):
+            blob = types.SimpleNamespace(
+                download_to_filename=lambda local: blobs.setdefault((self.name, path), local),
+                exists=lambda: (self.name, path) in blobs)
+            return blob
+
+    gs = ArtifactStore(cache_dir=str(tmp_path / "cache"))
+    gs._gcs_client = types.SimpleNamespace(bucket=_Bucket)
+    (tmp_path / "cache" / "bucket").mkdir(parents=True)
+    np.save(tmp_path / "cache" / "bucket" / "emb.npy", arr)  # what the stub's download leaves
+    np.testing.assert_array_equal(gs.load_npy("gs://bucket/emb.npy"), arr)
+    assert blobs == {("bucket", "emb.npy"): str(tmp_path / "cache" / "bucket" / "emb.npy")}
 
 
 def test_bucket_size():
@@ -327,8 +345,14 @@ def test_cli_serve_reads_the_environment_like_jax(tmp_path, monkeypatch, flag):
 
 
 def test_cli_serve_without_stdlib_exits(monkeypatch):
+    """Without --stdlib, `serve` takes the FastAPI app as JAX's does
+    (plotpointe_tpu/cli.py:240-244); without fastapi it fails with an
+    ImportError that names the package's `serving` extra."""
+    import sys
+
     monkeypatch.delenv("PLOTPOINTE_STDLIB_HTTP", raising=False)
-    with pytest.raises(SystemExit, match="stdlib"):
+    monkeypatch.setitem(sys.modules, "fastapi", None)  # absent, whatever is installed
+    with pytest.raises(ImportError, match="`serving` extra"):
         cli.main(["serve", "--port", "0"])
 
 
@@ -371,3 +395,19 @@ def test_history_quirks_of_jax_pinned_to_the_numpy_answer(tmp_path):
     # quirk 2: JAX's Pallas branch keeps the row that id -1 wraps to
     pallas_i, _ = jpl_rt.top_k_for_user_items([-1], k=6)
     assert n - 1 in pallas_i
+
+
+def test_serve_bench_modes_on_the_cpu():
+    """`tools/serve_bench.main` at a tiny shape on the CPU (the kernels' plain
+    versions): every mode serves requests and reports JAX's keys."""
+    from plotpointe_tpu_torch.tools import serve_bench
+
+    out = serve_bench.main(["--items", "200", "--d", "16", "--clients", "4", "--seconds", "0.3",
+                            "--device", "cpu", "--pallas", "--json"])
+    assert out["device"] == "cpu" and out["items"] == 200 and out["speedup"] > 0
+    for mode in ("single", "micro_batch", "loopback"):
+        r = out[mode]
+        assert r["mode"] == mode and r["n_requests"] > 0 and r["served_qps"] > 0
+        assert 0 < r["latency_p50_ms"] <= r["latency_p95_ms"]
+    assert out["micro_batch"]["mean_batch"] >= 1 and out["loopback"]["mean_batch"] >= 1
+    assert out["loopback"]["dispatch_ms"] is not None
