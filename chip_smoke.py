@@ -129,6 +129,34 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            p50/p95 latency, mean batch and dispatch ms of the single,
            micro-batched and loopback modes; every mode must serve requests
            and kernels 4, 5 and the select kernel must have launched
+  embed    path 12, counters at 0 first, the embedding stages at full
+           width on a seeded 498,196-row catalog of the data phase's items:
+           the MiniLM tower (random-init weights saved through
+           `save_checkpoint`, a vocab.txt of the catalog's words) through
+           `embed_text_stage(weights=, vocab=)` over the first 16,384 rows
+           at batch 128, S 256, f32 with TF32 off, held to the same tower in
+           f32 on the CPU on 256 rows (1e-4), with the tower's time a batch
+           beside its FLOP bound; the CLIP ViT-B/32 tower in bf16 at batch
+           64 through `encode_image_files` over 1,024 seeded PNGs plus a
+           corrupt and a missing file (2 failures; without PIL, printed as
+           "decode": "absent", the tower on seeded pixel arrays), held to
+           the CPU f32 tower (bf16 within 1e-2, the card's f32 within 1e-4);
+           then the zero-egress default at the full catalog: the hash text
+           stage, the URL-hash image stage unchunked and in 4 chunks +
+           `merge_image_chunks` (equal bits), `fuse_stage` at
+           FusionConfig's defaults (losses finite and falling; one step's
+           loss and gradients on the card = the CPU's within GRAD_TOL;
+           `fuse_all_items` on the card = the CPU's within 1e-5); the walls
+           of compose, hash encode, fuse training and inference
+  pipeline path 13, counters at 0 first: `cli pipeline --in-process` at the
+           Amazon shape (192,403 x 63,001 x 1,689,116, 435,195 extra items,
+           hidden 128, 200,000 samples, 1,000 negatives, 2 epochs): it must
+           end "complete", leave every sentinel artifact and launch kernels
+           10, 1, 2 and 3; the same command with `--continue` must skip
+           every sentinel stage; then the subprocess mode `--parallel
+           --image-chunks 4` at JAX's defaults in a fresh workdir (every
+           lane on the card): exit 0, its img.npy equal to an unchunked
+           image stage's; each stage's wall
   timing   CUDA-event times of each kernel, its plain version and, where one
            PyTorch call computes the same function, that call; the bound with
            its reckoning; `host_us_per_launch`, the host's time to issue one
@@ -246,7 +274,9 @@ PATH_KERNELS = {"train": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src"),
                 "ablate": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "spmm_csr", "gat_fwd_mh",
                            "gat_bwd_dst_mh"),
                 "serve_telemetry": ("topk_chunkmax", "topk_rescore", "topk_select"),
-                "serve_bench": ("topk_chunkmax", "topk_rescore", "topk_select")}
+                "serve_bench": ("topk_chunkmax", "topk_rescore", "topk_select"),
+                "embed": (),  # plain PyTorch ops, as the JAX towers and fusion are plain XLA
+                "pipeline": ("knn_topk", "gat_fwd", "gat_bwd_dst", "gat_bwd_src")}
 # the legacy phase's configurations: (path, hidden, heads); v2 takes 1 head
 # with D % 128 == 0, v1 the rest (64 is the reference's hidden-dim ablation)
 LEGACY = (("legacy_v2", 128, 1), ("legacy_v1", 64, 1), ("legacy_v1_mh", 128, 2))
@@ -2574,6 +2604,433 @@ def phase_serve_bench(dev) -> dict:
     return launches
 
 
+# -- paths 12 and 13: the embedding stages and `cli pipeline` ----------------
+
+EMBED_TEXT_ROWS = 16_384  # catalog rows through the MiniLM tower (cut from 498,196 for time)
+EMBED_TEXT_CHECK_ROWS = 256  # rows held to the same tower in f32 on the CPU
+EMBED_IMAGES = 1_024  # seeded PNGs through the CLIP tower (bf16, batch 64)
+EMBED_IMAGE_CHECK_ROWS = 64  # rows held to the same tower in f32 on the CPU
+SPECIAL_TOKENS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]"]
+# unit rows: card f32 (TF32 off) against CPU f32, the same weights, sums in
+# another order through 6 (text) or 12 (image) blocks
+TOWER_F32_ATOL = 1e-4
+# card bf16 (every op's output rounded, layer norm and softmax included, as
+# JAX runs it) against CPU f32 at ViT-B/32 depth, largest entry difference of
+# unit rows: ~2.5 bf16 steps (2^-8); the CPU's own bf16 lands 1.9e-3 off
+TOWER_BF16_ATOL = 1e-2
+FUSE_ALL_ATOL = 1e-5  # fuse_all_items card vs CPU, the same parameters (f32, TF32 off)
+# `cli pipeline --in-process` at the Amazon shape (JAX's `synth` generator)
+PIPELINE = dict(users=192_403, items=63_001, interactions=1_689_116, extra_items=435_195,
+                hidden_dim=128, samples_per_epoch=200_000, eval_neg_k=1000, epochs=2)
+
+
+def minilm_flops_per_token(s: int, hidden=384, layers=6, ffn=1536) -> float:
+    """Multiply-adds x 2 of one token through the MiniLM tower at sequence
+    length s: the q/k/v, output and two FFN products and the two attention
+    products (23.6 MFLOP at s 256)."""
+    return layers * 2.0 * (hidden * 3 * hidden + hidden * hidden + 2 * hidden * ffn + 2 * s * hidden)
+
+
+def vit_flops_per_image(image=224, patch=32, hidden=768, layers=12, ffn=3072, out=512) -> float:
+    """FLOPs of one image through the CLIP ViT-B/32 tower (8.8 GFLOP)."""
+    t = (image // patch) ** 2 + 1
+    per_token = layers * 2.0 * (hidden * 3 * hidden + hidden * hidden + 2 * hidden * ffn + 2 * t * hidden)
+    return t * per_token + (t - 1) * 2.0 * 3 * patch * patch * hidden + 2.0 * hidden * out
+
+
+def embed_catalog(inter, seed: int) -> dict:
+    """The seeded 498,196-row catalog of the data phase's interactions
+    (asins `B{item:09d}`, titles from seeded item factors, 30% with an
+    image URL) as the port's column dict."""
+    from plotpointe_tpu_torch.data.synthetic import synthetic_catalog
+
+    asin = np.array([f"B{a:09d}" for a in range(int(inter["asin"].max()) + 1)], dtype=object)
+    named = {"asin": asin[inter["asin"]]}
+    n_inter = len(np.unique(inter["asin"]))
+    fac = np.random.default_rng(seed + 12).normal(size=(n_inter, 8)).astype(np.float32)
+    return synthetic_catalog(named, n_extra_items=CATALOG - n_inter, seed=seed, item_factors=fac)
+
+
+def write_vocab(path: Path, texts) -> int:
+    """vocab.txt: the special tokens, every single character and its `##`
+    piece, then the catalog's most frequent words, 30,522 lines at most (the
+    tower's vocabulary); words outside it split into pieces. Returns its
+    size."""
+    from collections import Counter
+
+    from plotpointe_tpu_torch.models.tokenizer import WordPieceTokenizer
+
+    basic = WordPieceTokenizer(SPECIAL_TOKENS)
+    words = Counter(w for t in texts for raw in basic._clean(t).split() for w in basic._split_word(raw))
+    chars = sorted({c for w in words for c in w})
+    vocab = SPECIAL_TOKENS + chars + [f"##{c}" for c in chars]
+    vocab += [w for w, _ in words.most_common() if w not in set(vocab)][: 30_522 - len(vocab)]
+    path.write_text("\n".join(vocab) + "\n", encoding="utf-8")
+    return len(vocab)
+
+
+def write_pngs(d: Path, n: int, seed: int) -> list:
+    """n seeded RGB PNGs of 48-320 px a side, one corrupt file and one
+    missing path; returns the n + 2 paths."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed + 13)
+    d.mkdir()
+    paths = []
+    for i in range(n):
+        h, w = rng.integers(48, 321, 2)
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(d / f"{i}.png")
+        paths.append(str(d / f"{i}.png"))
+    (d / "corrupt.png").write_bytes(b"not a png")
+    return paths + [str(d / "corrupt.png"), str(d / "missing.png")]
+
+
+def check_rows(label: str, emb: np.ndarray, n: int, d: int) -> None:
+    norms = np.linalg.norm(emb, axis=1)
+    if emb.shape != (n, d) or not np.isfinite(emb).all() or np.abs(norms - 1.0).max() > 1e-4:
+        raise AssertionError(f"{label}: shape {emb.shape} (want {(n, d)}), finite "
+                             f"{bool(np.isfinite(emb).all())}, norms {norms.min()}-{norms.max()}")
+
+
+def embed_text_tower(work: Path, items: dict, seed: int, dev) -> dict:
+    """The MiniLM tower at full width: random-init weights (torch.Generator
+    seeded `seed`) saved through `save_checkpoint`, a vocab.txt of the
+    catalog's words, `embed_text_stage(weights=, vocab=)` over the first
+    EMBED_TEXT_ROWS rows at batch 128 and S 256 on the card, then
+    EMBED_TEXT_CHECK_ROWS of them through the same tower in f32 on the CPU."""
+    import torch
+
+    from plotpointe_tpu_torch.models.embed_stages import (
+        compose_item_text, embed_text_stage, make_minilm_encoder)
+    from plotpointe_tpu_torch.models.encoders import TransformerTextEncoder
+    from plotpointe_tpu_torch.models.tokenizer import WordPieceTokenizer
+    from plotpointe_tpu_torch.train.checkpoint import params_to_jax, save_checkpoint
+
+    head = {k: v[:EMBED_TEXT_ROWS] for k, v in items.items()}
+    texts = compose_item_text(head)
+    vocab_n = write_vocab(work / "vocab.txt", texts)
+    tower = TransformerTextEncoder().init_params(torch.Generator().manual_seed(seed))
+    weights = save_checkpoint(work / "minilm_random.npz", params_to_jax(tower.state_dict()),
+                              {"family": "minilm", "init": f"torch.Generator({seed})"})
+    t0 = time.perf_counter()
+    emb, meta = embed_text_stage(head, str(work / "minilm"), weights=weights, vocab=str(work / "vocab.txt"),
+                                 device=dev)
+    sync()
+    stage_s = time.perf_counter() - t0
+    check_rows("embed minilm", emb, EMBED_TEXT_ROWS, 384)
+    ids, mask = WordPieceTokenizer(work / "vocab.txt").encode(texts[:128], max_len=256)
+
+    # the tower alone on one batch of 128 x 256 (CUDA events), against its FLOP bound
+    card = tower.to(dev).eval()
+    ids_d, mask_d = torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev)
+    with torch.no_grad():
+        batch_ms = time_ms(lambda: card(ids_d, mask_d), iters=5, warmup=1)
+    flop = 128 * 256 * minilm_flops_per_token(256)
+    s = spec()
+    pick = np.random.default_rng(seed + 14).choice(EMBED_TEXT_ROWS, EMBED_TEXT_CHECK_ROWS, replace=False)
+    pick.sort()
+    t0 = time.perf_counter()
+    want = make_minilm_encoder(weights, str(work / "vocab.txt"), device="cpu")([texts[i] for i in pick])
+    cpu_s = time.perf_counter() - t0
+    want /= np.linalg.norm(want, axis=1, keepdims=True) + 1e-12
+    err = float(np.abs(emb[pick] - want).max())
+    tokens = float(mask.sum()) / len(mask)
+    line = {"rows": EMBED_TEXT_ROWS, "batch": 128, "seq_len": 256, "precision": "float32 (TF32 off)",
+            "vocab_size": vocab_n, "valid_tokens_per_row_mean": tokens, "stage_s": stage_s,
+            "stage_items_per_s": EMBED_TEXT_ROWS / stage_s,
+            "meta_items_per_s": meta["throughput_items_per_sec"],
+            "tower_batch_ms": batch_ms, "tower_items_per_s": 128 / batch_ms * 1e3,
+            "flop_per_batch": flop, "bound_ms_f32": flop / (s["f32_tflops"] * 1e12) * 1e3,
+            "bound_ms_tf32": flop / (s["tf32_tflops"] * 1e12) * 1e3,
+            "cpu_check_rows": EMBED_TEXT_CHECK_ROWS, "cpu_check_s": cpu_s,
+            "max_abs_err_vs_cpu_f32": err, "tol": TOWER_F32_ATOL}
+    if err > TOWER_F32_ATOL:
+        raise AssertionError(f"embed: MiniLM rows on the card off the CPU's by {err}")
+    return line
+
+
+def embed_image_tower(work: Path, seed: int, dev) -> dict:
+    """The CLIP tower at ViT-B/32 width, bf16, batch 64: where PIL imports,
+    `encode_image_files` over EMBED_IMAGES seeded PNGs plus a corrupt and a
+    missing file (2 failures); without PIL (printed as "decode": "absent")
+    the tower alone on seeded pixel arrays. Then EMBED_IMAGE_CHECK_ROWS rows
+    against the tower in f32 on the CPU: bf16 within TOWER_BF16_ATOL, the
+    card in f32 within TOWER_F32_ATOL."""
+    import torch
+
+    from plotpointe_tpu_torch.models.encoders import ViTImageEncoder
+    from plotpointe_tpu_torch.models.image_io import encode_image_files, load_image_batch
+
+    try:
+        import PIL  # noqa: F401
+        decode = "PIL"
+    except ImportError:
+        decode = "absent"
+    cpu = ViTImageEncoder().init_params(torch.Generator().manual_seed(0)).eval()  # encode_image_files' init
+    line = {"decode": decode, "batch": 64, "precision": "bfloat16"}
+    if decode == "PIL":
+        uris = write_pngs(work / "pngs", EMBED_IMAGES, seed)
+        t0 = time.perf_counter()
+        emb, ok, fails = encode_image_files(uris, device=dev)
+        sync()
+        line |= {"files": len(uris), "encode_s": time.perf_counter() - t0, "failures": fails}
+        if fails != 2 or list(np.flatnonzero(~ok)) != [EMBED_IMAGES, EMBED_IMAGES + 1]:
+            raise AssertionError(f"embed: {fails} failures at {np.flatnonzero(~ok)}, want the last 2")
+        pixels, _ = load_image_batch(uris[:EMBED_IMAGE_CHECK_ROWS])
+        f32, _, _ = encode_image_files(uris[:EMBED_IMAGE_CHECK_ROWS], compute_dtype="float32", device=dev)
+    else:
+        pixels = np.random.default_rng(seed + 13).normal(
+            size=(EMBED_IMAGES, 224, 224, 3)).astype(np.float32)
+        card = ViTImageEncoder().init_params(torch.Generator().manual_seed(0)).to(dev, torch.bfloat16).eval()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            emb = np.concatenate([card(torch.as_tensor(pixels[s:s + 64]).to(dev, torch.bfloat16))
+                                  .float().cpu().numpy() for s in range(0, EMBED_IMAGES, 64)])
+        emb /= np.linalg.norm(emb, axis=1, keepdims=True) + 1e-12
+        line |= {"pixel_arrays": EMBED_IMAGES, "encode_s": time.perf_counter() - t0}
+        card32 = ViTImageEncoder().init_params(torch.Generator().manual_seed(0)).to(dev).eval()
+        with torch.no_grad():
+            f32 = card32(torch.as_tensor(pixels[:EMBED_IMAGE_CHECK_ROWS], device=dev)).cpu().numpy()
+        pixels = pixels[:EMBED_IMAGE_CHECK_ROWS]
+    check_rows("embed clip", emb, EMBED_IMAGES, 512)
+    with torch.no_grad():
+        want = cpu(torch.as_tensor(pixels)).numpy()
+    want /= np.linalg.norm(want, axis=1, keepdims=True) + 1e-12
+    bf16_err = float(np.abs(emb[:EMBED_IMAGE_CHECK_ROWS] - want).max())
+    f32_err = float(np.abs(f32 - want).max())
+
+    card = cpu.to(dev, torch.bfloat16)
+    x = torch.as_tensor(pixels[:64]).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        batch_ms = time_ms(lambda: card(x), iters=10, warmup=2)
+    flop = 64 * vit_flops_per_image()
+    line |= {"images_per_s": EMBED_IMAGES / line["encode_s"], "tower_batch_ms": batch_ms,
+             "tower_images_per_s": 64 / batch_ms * 1e3, "flop_per_batch": flop,
+             "bound_ms_bf16": flop / (spec()["bf16_tflops"] * 1e12) * 1e3,
+             "bf16_max_abs_err_vs_cpu_f32": bf16_err, "bf16_tol": TOWER_BF16_ATOL,
+             "f32_max_abs_err_vs_cpu_f32": f32_err, "f32_tol": TOWER_F32_ATOL}
+    if bf16_err > TOWER_BF16_ATOL or f32_err > TOWER_F32_ATOL:
+        raise AssertionError(f"embed: CLIP rows off the CPU's: bf16 {bf16_err}, f32 {f32_err}")
+    return line
+
+
+def embed_zero_egress(work: Path, items: dict, dev) -> dict:
+    """The zero-egress default at the full catalog: `embed_text_stage` with
+    the hash encoder, `embed_image_stage` on the URL-hash path unchunked and
+    in 4 chunks + `merge_image_chunks` (bit-equal), then `fuse_stage` at
+    FusionConfig's defaults on the card: losses finite and falling from epoch
+    1 to 5, one step's loss and gradients on the card against the CPU
+    (GRAD_TOL), `fuse_all_items` on the card against the CPU on the trained
+    parameters (FUSE_ALL_ATOL)."""
+    import torch
+
+    from plotpointe_tpu_torch.config import FusionConfig
+    from plotpointe_tpu_torch.models import fusion
+    from plotpointe_tpu_torch.models.embed_stages import (
+        compose_item_text, embed_image_stage, embed_text_stage, fuse_stage, image_rows, merge_image_chunks)
+    from plotpointe_tpu_torch.models.encoders import hash_text_encoder
+    from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
+
+    out = work / "zero_egress"
+    n = len(items["asin"])
+    t0 = time.perf_counter()
+    compose_item_text(items)
+    compose_s = time.perf_counter() - t0
+    hash_s, encode = [0.0], hash_text_encoder(dim=384)
+
+    def timed_hash(texts):
+        t = time.perf_counter()
+        r = encode(texts)
+        hash_s[0] += time.perf_counter() - t
+        return r
+
+    t0 = time.perf_counter()
+    txt, _ = embed_text_stage(items, str(out), encoder=timed_hash)
+    text_stage_s = time.perf_counter() - t0
+    check_rows("embed hash text", txt, n, 384)
+    t0 = time.perf_counter()
+    img, meta = embed_image_stage(items, str(out / "whole"))
+    image_stage_s = time.perf_counter() - t0
+    n_img = len(image_rows(items))
+    per = (n_img + 3) // 4
+    t0 = time.perf_counter()
+    for c in range(4):
+        embed_image_stage(items, str(out), chunk_start=c * per, chunk_end=(c + 1) * per, chunk_id=c)
+    merged, merged_items = merge_image_chunks(str(out), 4)
+    chunks_s = time.perf_counter() - t0
+    store = ArtifactStore()
+    whole_items = store.load_parquet(str(out / "whole" / "img_items.parquet"))
+    same = np.array_equal(merged, img) and list(merged_items["asin"]) == list(whole_items["asin"])
+    if not same or meta["n_images"] != n_img:
+        raise AssertionError(f"embed: 4 merged chunks differ from the unchunked image stage ({n_img} rows)")
+
+    walls, captured = {}, {}
+    plain_train, plain_fuse = fusion.train_fusion, fusion.fuse_all_items
+
+    def timed_train(*a, **kw):
+        t = time.perf_counter()
+        r = plain_train(*a, **kw)
+        sync()
+        walls["fuse_train_s"] = time.perf_counter() - t
+        captured["model"], captured["args"] = r[0], a
+        return r
+
+    def timed_fuse(*a, **kw):
+        t = time.perf_counter()
+        r = plain_fuse(*a, **kw)
+        walls["fuse_inference_s"] = time.perf_counter() - t
+        return r
+
+    fusion.train_fusion, fusion.fuse_all_items = timed_train, timed_fuse
+    try:
+        t0 = time.perf_counter()
+        fused, cfg_out = fuse_stage(str(out), items=items, device=dev)
+        fuse_s = time.perf_counter() - t0
+    finally:
+        fusion.train_fusion, fusion.fuse_all_items = plain_train, plain_fuse
+    cfg = FusionConfig()
+    check_rows("embed fused", fused, n, cfg.output_dim)
+    hist = [cfg_out["train_history"][f"epoch_{e}_loss"] for e in range(1, cfg.epochs + 1)]
+    if not (np.isfinite(hist).all() and hist[-1] < hist[0]):
+        raise AssertionError(f"embed: fusion losses {hist}")
+
+    # one step on the card against the CPU: the same init, rows and dropout mask
+    txt_all, img_aligned, img_row = captured["args"][:3]
+    has = np.flatnonzero(img_row >= 0)[: cfg.batch_size]
+    tb, ib = txt_all[has], img_aligned[img_row[has]]
+    keep = fusion.dropout_keep((len(has), cfg.hidden_dim), cfg.dropout, torch.Generator().manual_seed(1))
+    step = {}
+    for d in ("cpu", dev):
+        m = fusion.FusionModel(cfg, d).init_params(torch.Generator().manual_seed(cfg.seed))
+        loss, _, _ = fusion.fusion_loss(m, torch.as_tensor(tb, device=d), torch.as_tensor(ib, device=d),
+                                        keep.to(d))
+        loss.backward()
+        step[str(torch.device(d))] = (float(loss.detach()),
+                                      {k: p.grad.cpu() for k, p in m.named_parameters()})
+    (l_cpu, g_cpu), (l_dev, g_dev) = step["cpu"], step[str(torch.device(dev))]
+    grad_err = {k: float((g_dev[k] - g_cpu[k]).abs().max()) for k in g_cpu}
+    grad_ok = all(torch.allclose(g_dev[k], g_cpu[k], **GRAD_TOL) for k in g_cpu)
+    loss_ok = abs(l_dev - l_cpu) <= LOSS_RTOL * abs(l_cpu)
+
+    host = fusion.FusionModel(cfg, "cpu")
+    host.load_state_dict({k: v.cpu() for k, v in captured["model"].state_dict().items()})
+    t0 = time.perf_counter()
+    want = plain_fuse(host, txt_all, img_aligned, img_row)
+    fuse_cpu_s = time.perf_counter() - t0
+    fuse_err = float(np.abs(fused - want).max())
+    line = {"catalog_rows": n, "image_rows": n_img, "compose_s": compose_s, "hash_encode_s": hash_s[0],
+            "text_stage_s": text_stage_s, "image_stage_s": image_stage_s, "image_4_chunks_merge_s": chunks_s,
+            "chunks_equal_unchunked": same, "fuse_stage_s": fuse_s, **walls,
+            "fuse_inference_cpu_s": fuse_cpu_s,
+            "fusion_losses": hist, "first_step_loss": {"card": l_dev, "cpu": l_cpu},
+            "first_step_grad_max_abs_err": grad_err, "grad_tol": GRAD_TOL,
+            "fuse_all_max_abs_err_vs_cpu": fuse_err, "fuse_all_tol": FUSE_ALL_ATOL}
+    if not (grad_ok and loss_ok) or fuse_err > FUSE_ALL_ATOL:
+        raise AssertionError(f"embed: fusion on the card off the CPU: loss {l_dev} vs {l_cpu}, grads "
+                             f"{grad_err}, fuse_all {fuse_err}")
+    return line
+
+
+def phase_embed(work: Path, inter, seed: int, dev) -> dict:
+    """Path 12, counters at 0 first: the MiniLM tower (f32), the CLIP tower
+    (bf16) and the zero-egress default stages at the full catalog, each held
+    to the CPU. The path runs plain PyTorch ops (the JAX towers and fusion
+    are plain XLA ops), so no kernel of the port is expected to launch."""
+    from plotpointe_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    items = embed_catalog(inter, seed)
+    catalog_s = time.perf_counter() - t0
+    (work / "embed").mkdir()
+    cuda_build.reset_counters()
+    t0 = time.perf_counter()
+    text = embed_text_tower(work / "embed", items, seed, dev)
+    emit({"phase": "embed", "part": "minilm", **text})
+    image = embed_image_tower(work / "embed", seed, dev)
+    emit({"phase": "embed", "part": "clip", **image})
+    zero = embed_zero_egress(work / "embed", items, dev)
+    launches = counts()
+    emit({"phase": "embed", "part": "zero_egress", **zero})
+    emit({"phase": "embed", "catalog_s": catalog_s, "wall_s": time.perf_counter() - t0,
+          "launches": launches, "ok": True})
+    return launches
+
+
+def pipeline_args(workdir: Path, shape: dict, dev=None) -> list:
+    argv = ["pipeline", "--workdir", str(workdir)]
+    for k, v in shape.items():
+        argv += [f"--{k.replace('_', '-')}", str(v)]
+    return argv + (["--device", str(dev)] if dev is not None else [])
+
+
+def phase_pipeline(work: Path, dev) -> dict:
+    """Path 13: `cli pipeline --in-process` at the Amazon shape (PIPELINE),
+    counters at 0 first: it must end "complete", launch kernels 10, 1, 2
+    and 3 and leave every sentinel artifact; then the same command with
+    `--continue` must skip every sentinel stage. Then, in a fresh workdir,
+    the subprocess mode `--parallel --image-chunks 4` at JAX's defaults
+    (every lane on the card): exit 0, and its merged img.npy and
+    img_items.parquet equal to an unchunked image stage's."""
+    from plotpointe_tpu_torch import cli
+    from plotpointe_tpu_torch.models.embed_stages import embed_image_stage
+    from plotpointe_tpu_torch.ops import cuda_build
+    from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
+
+    wd = work / "pipeline"
+    argv = pipeline_args(wd, PIPELINE, dev) + ["--in-process"]
+    cuda_build.reset_counters()
+    t0 = time.perf_counter()
+    out, code = in_process_cli(argv)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    done = json.loads(out.strip().splitlines()[-1]) if code == 0 else {}
+    sentinels = {k: (wd / rel).exists() for k, rel in cli._STAGE_SENTINELS.items()
+                 if k != "merge_images"} | {"embed_image": (wd / "embeddings" / "img.npy").exists()}
+    missing = [k for k in PATH_KERNELS["pipeline"] if launches[k] == 0]
+    metrics = sorted(p.name for p in (wd / "models").glob("metrics_*.json"))
+    emit({"phase": "pipeline", "run": "in_process", "shape": PIPELINE, "exit_code": code, "wall_s": wall,
+          "result": done, "sentinels": sentinels, "metrics_files": metrics, "launches": launches,
+          "ok": code == 0 and done.get("pipeline") == "complete" and all(sentinels.values()) and not missing})
+    if code != 0 or done.get("pipeline") != "complete" or not all(sentinels.values()) or missing:
+        raise AssertionError(f"pipeline: exit {code}, sentinels {sentinels}, not launched {missing}: "
+                             f"{out[-2000:]}")
+
+    t0 = time.perf_counter()
+    out, code = in_process_cli(argv + ["--continue"])
+    again = json.loads(out.strip().splitlines()[-1]) if code == 0 else {}
+    want_skipped = set(sentinels)
+    skipped_ok = set(again.get("skipped", ())) == want_skipped
+    emit({"phase": "pipeline", "run": "continue", "exit_code": code, "wall_s": time.perf_counter() - t0,
+          "result": again, "ok": code == 0 and skipped_ok})
+    if code != 0 or not skipped_ok:
+        raise AssertionError(f"pipeline --continue: exit {code}, skipped {again.get('skipped')}, "
+                             f"want {sorted(want_skipped)}")
+
+    wd2 = work / "pipeline_parallel"
+    here = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "plotpointe_tpu_torch.cli", "pipeline",
+                           "--workdir", str(wd2), "--parallel", "--image-chunks", "4"],
+                          cwd=here, capture_output=True, text=True, timeout=900)
+    par_wall = time.perf_counter() - t0
+    par = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.returncode == 0 else {}
+    same = False
+    if proc.returncode == 0:
+        store = ArtifactStore()
+        whole, _ = embed_image_stage(store.load_items(str(wd2 / "staging")), str(work / "pipeline_unchunked"))
+        same = (np.array_equal(np.load(wd2 / "embeddings" / "img.npy"), whole)
+                and list(store.load_parquet(str(wd2 / "embeddings" / "img_items.parquet"))["asin"])
+                == list(store.load_parquet(str(work / "pipeline_unchunked" / "img_items.parquet"))["asin"]))
+    emit({"phase": "pipeline", "run": "parallel_subprocess", "image_chunks": 4, "exit_code": proc.returncode,
+          "wall_s": par_wall, "result": par, "img_equal_unchunked": same,
+          "ok": proc.returncode == 0 and same})
+    if proc.returncode != 0 or not same:
+        raise AssertionError(f"pipeline --parallel: exit {proc.returncode}, img equal {same}: "
+                             f"{proc.stderr[-3000:]}")
+    return launches
+
+
 def v2_out_tol(model, x_feats, graph, seeds, out_p) -> dict:
     """The legacy v2 output's band against its plain path. The last layer
     rounds its rows h to bf16, and a value whose f32 bits differ between
@@ -2905,6 +3362,9 @@ def run(args, work: Path, dev="cuda") -> int:
     # paths 10 and 11: telemetry, feedback and the env entry point on path 2's export; served QPS
     by_path["serve_telemetry"] = phase_serve_telemetry(work, dev)
     by_path["serve_bench"] = phase_serve_bench(dev)
+    # paths 12 and 13: the embedding stages at full width, then `cli pipeline`
+    by_path["embed"] = phase_embed(work, inter, args.seed, dev)
+    by_path["pipeline"] = phase_pipeline(work, dev)
 
     rows = phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev)
     time_train_step("gat", trainer, s, samples=trainer.cfg.samples_per_epoch)

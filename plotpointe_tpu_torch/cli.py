@@ -24,12 +24,22 @@ Counterpart of `plotpointe_tpu/cli.py` for the ported commands:
   validate-manifests  check manifest artifact prefixes; exit 0, or 2
   anchor    the quality anchor (tools/anchor.py); exit 3 on a gate fail
   ablate    the seven-variant single-variable sweep -> ablations_report.json
-train, export, serve, build-knn, smoke, anchor and ablate run on the GPU
-unless given `--device cpu`; the other commands run on the host (synth,
-stage and parquet I/O need pandas and pyarrow, the package's `data`
-extra). Tables are read from `{prefix}/interactions.npz` and
-`{prefix}/items.npz` (column arrays) when they exist, else from the parquet
-files.
+  embed-text      items -> txt.npy + txt_meta.json (hash encoder on the host,
+                  or the MiniLM tower with --weights and --vocab)
+  embed-image     items with image_url -> img{_chunkN}.npy + img_items + meta
+                  (URL hash on the host, or the CLIP tower on local files)
+  merge-images    image chunks -> img.npy + img_items.parquet
+  fuse            txt + img -> fused.npy + fusion_config.json (fusion MLP)
+  convert-weights local HF MiniLM / CLIP-vision checkpoint -> encoder npz
+  pipeline  synth -> validate -> embeddings -> fuse -> graphs -> train, in
+            one command (--in-process, --parallel, --continue)
+train, export, serve, build-knn, smoke, anchor, ablate, embed-text,
+embed-image, fuse and pipeline run on the GPU unless given `--device cpu`
+(embed-text's hash encoder and embed-image's URL hash run on the host);
+the other commands run on the host (synth, stage, image artifacts and
+parquet I/O need pandas and pyarrow, the package's `data` extra). Tables
+are read from `{prefix}/interactions.npz` and `{prefix}/items.npz` (column
+arrays) when they exist, else from the parquet files.
 """
 from __future__ import annotations
 
@@ -266,6 +276,218 @@ def _cmd_ablate(args):
         sys.exit(f"ablation variants failed: {failed}")
 
 
+def _cmd_embed_text(args):
+    from plotpointe_tpu_torch.models.embed_stages import embed_text_stage
+    from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
+
+    store = ArtifactStore()
+    _, meta = embed_text_stage(store.load_items(args.staging_prefix), args.output_prefix, store=store,
+                               batch_size=args.batch_size, weights=args.weights, vocab=args.vocab,
+                               device=args.device)
+    print(json.dumps(meta, indent=2))
+
+
+def _cmd_embed_image(args):
+    from plotpointe_tpu_torch.models.embed_stages import embed_image_stage
+    from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
+
+    store = ArtifactStore()
+    _, meta = embed_image_stage(
+        store.load_items(args.staging_prefix), args.output_prefix, store=store,
+        chunk_start=args.chunk_start, chunk_end=args.chunk_end, chunk_id=args.chunk_id,
+        max_items=args.max_items, seed=args.seed, pixels=args.pixels or None,
+        allow_remote=args.allow_remote, weights=args.weights, device=args.device)
+    print(json.dumps(meta, indent=2))
+
+
+def _cmd_convert_weights(args):
+    from plotpointe_tpu_torch.tools.convert_weights import convert
+
+    cfg = convert(args.family, args.src, args.out, max_len=args.max_len)
+    print(json.dumps({"out": args.out, **cfg}))
+
+
+def _cmd_merge_images(args):
+    from plotpointe_tpu_torch.models.embed_stages import merge_image_chunks
+    from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
+
+    emb, _ = merge_image_chunks(args.output_prefix, args.n_chunks, store=ArtifactStore())
+    print(json.dumps({"n_images": int(emb.shape[0]), "dims": int(emb.shape[1])}))
+
+
+def _cmd_fuse(args):
+    from plotpointe_tpu_torch.config import FusionConfig
+    from plotpointe_tpu_torch.models.embed_stages import fuse_stage
+    from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
+
+    store = ArtifactStore()
+    fused, cfg_out = fuse_stage(
+        args.embeddings_prefix, out_prefix=args.output_prefix,
+        cfg=FusionConfig.from_env(epochs=args.epochs, batch_size=args.batch_size), store=store,
+        items=store.load_items(args.staging_prefix), device=args.device)
+    print(json.dumps({"shape": list(fused.shape), "n_with_images": cfg_out["n_with_images"]}))
+
+
+def _pipeline_steps(args):
+    """The stage list shared by the serial and parallel modes (the JAX
+    package's), each step that takes `--device` given the pipeline's."""
+    d = args.workdir
+    dev = ["--device", args.device] if args.device else []
+    embed_image = [
+        ["embed-image", "--staging-prefix", f"{d}/staging", "--output-prefix", f"{d}/embeddings", *dev]
+    ]
+    merge = []
+    if args.parallel and args.image_chunks > 1:
+        # ceil-split over the item table; embed-image clamps chunk_end itself
+        per = (args.items + args.extra_items + args.image_chunks - 1) // args.image_chunks
+        embed_image = [
+            ["embed-image", "--staging-prefix", f"{d}/staging", "--output-prefix", f"{d}/embeddings",
+             "--chunk-start", str(c * per), "--chunk-end", str((c + 1) * per), "--chunk-id", str(c), *dev]
+            for c in range(args.image_chunks)
+        ]
+        merge = [["merge-images", "--output-prefix", f"{d}/embeddings",
+                  "--n-chunks", str(args.image_chunks)]]
+    return {
+        "synth": ["synth", "--out", f"{d}/staging", "--users", str(args.users), "--items", str(args.items),
+                  "--interactions", str(args.interactions), "--extra-items", str(args.extra_items)],
+        "validate": ["validate", "--prefix", f"{d}/staging"],
+        "embed_text": ["embed-text", "--staging-prefix", f"{d}/staging", "--output-prefix",
+                       f"{d}/embeddings", *dev],
+        "embed_image": embed_image,
+        "merge_images": merge,
+        "fuse": ["fuse", "--staging-prefix", f"{d}/staging", "--embeddings-prefix", f"{d}/embeddings",
+                 "--epochs", "2", "--batch-size", "256", *dev],
+        "build_ui": ["build-ui", "--staging-prefix", f"{d}/staging", "--output-prefix", f"{d}/graphs"],
+        "subset_fused": ["build-subset", "--staging-prefix", f"{d}/staging", "--features",
+                         f"{d}/embeddings/fused.npy", "--output-prefix", f"{d}/embeddings",
+                         "--feature-name", "fused"],
+        "subset_txt": ["build-subset", "--staging-prefix", f"{d}/staging", "--features",
+                       f"{d}/embeddings/txt.npy", "--output-prefix", f"{d}/embeddings",
+                       "--feature-name", "txt"],
+        "build_knn": ["build-knn", "--features", f"{d}/embeddings/fused_interacted.npy",
+                      "--output-prefix", f"{d}/graphs", *dev],
+        "train": ["train", "--staging-prefix", f"{d}/staging", "--embeddings-prefix", f"{d}/embeddings",
+                  "--models-prefix", f"{d}/models", "--item-features", "fused",
+                  "--epochs", str(args.epochs), "--samples-per-epoch", str(args.samples_per_epoch),
+                  "--eval-neg-k", str(args.eval_neg_k), "--hidden-dim", str(args.hidden_dim),
+                  "--attn-impl", args.attn_impl, *dev],
+    }
+
+
+_STAGE_SENTINELS = {
+    # stage name -> output artifact proving completion (relative to workdir)
+    "synth": "staging/interactions.parquet",
+    "embed_text": "embeddings/txt.npy",
+    "merge_images": "embeddings/img.npy",
+    "fuse": "embeddings/fused.npy",
+    "build_ui": "graphs/ui_edges.npz",
+    "subset_fused": "embeddings/fused_interacted.npy",
+    "subset_txt": "embeddings/txt_interacted.npy",
+    "build_knn": "graphs/ii_edges_fused.npz",
+}
+
+
+def _stage_done(args, name: str, step=None) -> bool:
+    """--continue: a stage is skipped when its output artifact exists
+    (validate and train always rerun)."""
+    if not args.cont:
+        return False
+    if name == "embed_image" and step is not None:
+        # chunked: the chunk file; unchunked: img.npy
+        sfx = ""
+        if "--chunk-id" in step:
+            sfx = f"_chunk{step[step.index('--chunk-id') + 1]}"
+        return os.path.exists(f"{args.workdir}/embeddings/img{sfx}.npy")
+    rel = _STAGE_SENTINELS.get(name)
+    return rel is not None and os.path.exists(f"{args.workdir}/{rel}")
+
+
+def _cmd_pipeline(args):
+    """The whole pipeline in one command. --in-process runs the stages as
+    function calls in this interpreter instead of `python -m
+    plotpointe_tpu_torch.cli` subprocesses. --parallel overlaps the
+    independent stages as concurrent subprocesses (text || the image chunks,
+    then U-I || (subset fused -> kNN) || subset txt); the card admits several
+    processes, so every lane keeps the pipeline's device. --continue skips
+    stages whose output artifacts exist. The last line is JSON: the JAX
+    package's keys plus each stage's wall (`stage_wall_s`)."""
+    import subprocess
+    import threading
+    import time
+
+    base = [sys.executable, "-m", "plotpointe_tpu_torch.cli"]
+    S = _pipeline_steps(args)
+    t_start = time.time()
+    skipped, walls = [], {}  # walls: stage (image chunk) -> seconds
+    lock = threading.Lock()
+
+    def run(name, step):
+        if _stage_done(args, name, step):
+            with lock:
+                skipped.append(name)
+            print(f"[pipeline] skip (artifact exists): {name}", flush=True)
+            return
+        t0 = time.time()
+        print(f"[pipeline] {' '.join(step)}", flush=True)
+        if args.in_process:
+            try:
+                main(step)
+            except SystemExit as e:  # validate et al. exit by design
+                if e.code not in (0, None):
+                    raise
+        else:
+            subprocess.run(base + step, check=True)
+        key = name + (f"_chunk{step[step.index('--chunk-id') + 1]}" if "--chunk-id" in step else "")
+        with lock:
+            walls[key] = time.time() - t0
+
+    if args.parallel:
+        if args.in_process:
+            raise SystemExit("--parallel requires subprocess mode (drop --in-process)")
+
+        def concurrent(lanes):
+            errs = []
+
+            def lane(steps):
+                try:
+                    for name, step in steps:
+                        run(name, step)
+                except BaseException as e:  # noqa: BLE001 - re-raised below, after every lane ends
+                    errs.append(e)
+
+            ts = [threading.Thread(target=lane, args=(ln,)) for ln in lanes]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+            if errs:
+                raise errs[0]
+
+        run("synth", S["synth"])
+        run("validate", S["validate"])
+        concurrent([[("embed_text", S["embed_text"])]] + [[("embed_image", c)] for c in S["embed_image"]])
+        for m in S["merge_images"]:
+            run("merge_images", m)
+        run("fuse", S["fuse"])
+        concurrent([
+            [("build_ui", S["build_ui"])],
+            [("subset_fused", S["subset_fused"]), ("build_knn", S["build_knn"])],
+            [("subset_txt", S["subset_txt"])],
+        ])
+        run("train", S["train"])
+    else:
+        steps = [("synth", S["synth"]), ("validate", S["validate"]), ("embed_text", S["embed_text"])]
+        steps += [("embed_image", c) for c in S["embed_image"]]
+        steps += [("merge_images", m) for m in S["merge_images"]]
+        steps += [("fuse", S["fuse"]), ("build_ui", S["build_ui"]), ("subset_fused", S["subset_fused"]),
+                  ("subset_txt", S["subset_txt"]), ("build_knn", S["build_knn"]), ("train", S["train"])]
+        for name, step in steps:
+            run(name, step)
+    print(json.dumps({"pipeline": "complete", "workdir": args.workdir, "parallel": bool(args.parallel),
+                      "skipped": skipped, "wall_s": round(time.time() - t_start, 2),
+                      "stage_wall_s": walls}))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="plotpointe_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -424,6 +646,80 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--only", default=None, help="comma-separated variant names")
     b.add_argument("--device", default=None, help="default: cuda")
     b.set_defaults(fn=_cmd_ablate)
+
+    b = sub.add_parser("embed-text", help="text embeddings (txt.npy)")
+    b.add_argument("--staging-prefix", required=True,
+                   help="holds items.npz (column arrays) or items.parquet")
+    b.add_argument("--output-prefix", required=True)
+    b.add_argument("--batch-size", type=int, default=128)
+    b.add_argument("--weights", default=None, help="converted MiniLM npz (convert-weights)")
+    b.add_argument("--vocab", default=None, help="WordPiece vocab.txt for the real-weight path")
+    b.add_argument("--device", default=None, help="the MiniLM tower's device (default: cuda)")
+    b.set_defaults(fn=_cmd_embed_text)
+
+    b = sub.add_parser("embed-image", help="image embeddings (img.npy), chunk-shardable")
+    b.add_argument("--staging-prefix", required=True,
+                   help="holds items.npz (column arrays) or items.parquet")
+    b.add_argument("--output-prefix", required=True)
+    b.add_argument("--chunk-start", type=int, default=None)
+    b.add_argument("--chunk-end", type=int, default=None)
+    b.add_argument("--chunk-id", type=int, default=None)
+    b.add_argument("--max-items", type=int, default=None)
+    b.add_argument("--seed", type=int, default=42)
+    b.add_argument("--allow-remote", action="store_true",
+                   help="download http(s) image_urls (timeout+retry); off by default (zero-egress)")
+    b.add_argument("--pixels", action="store_true",
+                   help="decode local image files (CLIP preprocessing + ViT encode)")
+    b.add_argument("--weights", default=None, help="converted CLIP-vision npz")
+    b.add_argument("--device", default=None, help="the CLIP tower's device (default: cuda)")
+    b.set_defaults(fn=_cmd_embed_image)
+
+    b = sub.add_parser("convert-weights", help="HF checkpoint dir -> encoder npz (offline)")
+    b.add_argument("--family", choices=["minilm", "clip-vision"], required=True)
+    b.add_argument("--src", required=True, help="local HF model directory")
+    b.add_argument("--out", required=True)
+    b.add_argument("--max-len", type=int, default=256)
+    b.set_defaults(fn=_cmd_convert_weights)
+
+    b = sub.add_parser("merge-images", help="merge image embedding chunks")
+    b.add_argument("--output-prefix", required=True)
+    b.add_argument("--n-chunks", type=int, required=True)
+    b.set_defaults(fn=_cmd_merge_images)
+
+    b = sub.add_parser("fuse", help="train fusion MLP, emit fused.npy")
+    b.add_argument("--staging-prefix", required=True,
+                   help="holds items.npz (column arrays) or items.parquet")
+    b.add_argument("--embeddings-prefix", required=True)
+    b.add_argument("--output-prefix", default=None)
+    b.add_argument("--epochs", type=int, default=5)
+    b.add_argument("--batch-size", type=int, default=1024)
+    b.add_argument("--device", default=None, help="default: cuda")
+    b.set_defaults(fn=_cmd_fuse)
+
+    b = sub.add_parser("pipeline", help="run the full synth->train pipeline in one command")
+    b.add_argument("--workdir", required=True)
+    b.add_argument("--users", type=int, default=2000)
+    b.add_argument("--items", type=int, default=1200)
+    b.add_argument("--interactions", type=int, default=50_000)
+    b.add_argument("--extra-items", type=int, default=300)
+    b.add_argument("--epochs", type=int, default=8)
+    b.add_argument("--samples-per-epoch", type=int, default=50_000)
+    b.add_argument("--eval-neg-k", type=int, default=500)
+    b.add_argument("--hidden-dim", type=int, default=64)
+    b.add_argument("--attn-impl", choices=["auto", "xla", "pallas"], default="auto",
+                   help="attention row type: pallas (and auto on CUDA) bf16 rows, xla f32 rows")
+    b.add_argument("--in-process", action="store_true",
+                   help="run stages as function calls instead of subprocesses")
+    b.add_argument("--parallel", action="store_true",
+                   help="overlap independent stages (text || chunked image embeddings, "
+                        "graph builds) as concurrent subprocesses")
+    b.add_argument("--image-chunks", type=int, default=4,
+                   help="image-embedding shards under --parallel")
+    b.add_argument("--continue", dest="cont", action="store_true",
+                   help="skip stages whose output artifacts already exist")
+    b.add_argument("--device", default=None,
+                   help="passed to every stage that takes it (default: cuda)")
+    b.set_defaults(fn=_cmd_pipeline)
     return p
 
 

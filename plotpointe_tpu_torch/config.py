@@ -3,7 +3,8 @@ overrides) and the feature-manifest registry.
 
 Counterpart of `plotpointe_tpu/config.py`: `TrainConfig` (same fields, same
 defaults, same `from_env` / `to_dict` / `from_dict`), so a checkpoint's
-embedded `train_config` reads in both packages; `KnnConfig`; and
+embedded `train_config` reads in both packages; `FusionConfig` (the fusion
+MLP's, `from_env` with the `FUSION_` prefix); `KnnConfig`; and
 `FeatureManifest`, `load_registry`, `load_manifest` (the same manifest JSON
 schema and the same errors).
 
@@ -93,6 +94,29 @@ class TrainConfig:
     def from_dict(cls, d: Dict[str, Any]) -> "TrainConfig":
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclass
+class FusionConfig:
+    """Fusion-MLP config (the JAX package's `FusionConfig`)."""
+
+    text_dim: int = 384
+    img_dim: int = 512
+    output_dim: int = 128
+    hidden_dim: int = 256
+    dropout: float = 0.1
+    temperature: float = 0.07
+    epochs: int = 5
+    batch_size: int = 1024
+    lr: float = 1e-3
+    seed: int = 42
+
+    @classmethod
+    def from_env(cls, **kwargs) -> "FusionConfig":
+        return _env_override(cls(**kwargs), prefix="FUSION_")
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
 
 
 @dataclass

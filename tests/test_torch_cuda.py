@@ -11,7 +11,9 @@ candidates (10, 11), the read-stream probe (6), the smoke's affine pass
 1, 8, 3, 2 and 9 (rows of 10,000 and 3,000 entries and a star's, rows
 ending at a piece boundary, 1 to 8 heads, D 96 on idle tail lanes, strided
 head rows, column strips in kernels 1, 3 and 2, equal bits on a second
-call, misaligned rows raising).
+call, misaligned rows raising); and, in plain PyTorch ops, the MiniLM and
+CLIP towers (f32 with TF32 off, and bf16) and one fusion step's gradients
+against the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. This file imports
 no JAX, so it also runs where JAX is absent:
@@ -1304,3 +1306,66 @@ def test_durable_telemetry_logs_what_the_card_served(cuda, tmp_path, monkeypatch
         rec = logged[body["request_id"]]
         assert rec["item_ids"] == body["indices"] and rec["scores"] == body["scores"]
         assert rec["user_key"] == f"u{i}" and len(rec["item_ids"]) == 7
+
+
+# -- the embedding towers and the fusion step (plain PyTorch ops on the card) --
+
+TOWER_F32 = dict(rtol=1e-4, atol=1e-5)  # f32 (TF32 off), sums in another order
+# bf16 on the card (every op's output rounded) against f32 on the CPU: unit
+# rows within ~one bf16 step (2^-8) per entry at these depths
+TOWER_BF16 = dict(rtol=0.0, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOWER_F32), (torch.bfloat16, TOWER_BF16)])
+def test_text_tower_on_the_card_matches_the_cpu(cuda, dtype, tol):
+    from plotpointe_tpu_torch.models.encoders import TransformerTextEncoder
+
+    cpu = TransformerTextEncoder(vocab_size=500, hidden=32, n_layers=2, heads=4, ffn=64, max_len=32)
+    cpu.init_params(torch.Generator().manual_seed(0)).eval()
+    card = TransformerTextEncoder(vocab_size=500, hidden=32, n_layers=2, heads=4, ffn=64, max_len=32)
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(cuda, dtype).eval()
+    ids, mask = cpu.tokenize([" ".join(f"w{i * j}" for j in range(i)) for i in range(48)])  # row 0 empty
+    with torch.no_grad():
+        want = cpu(torch.as_tensor(ids), torch.as_tensor(mask))
+        got = card(torch.as_tensor(ids, device=cuda), torch.as_tensor(mask, device=cuda).to(dtype))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float().cpu(), want, **tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOWER_F32), (torch.bfloat16, TOWER_BF16)])
+def test_vit_tower_on_the_card_matches_the_cpu(cuda, dtype, tol):
+    from plotpointe_tpu_torch.models.encoders import ViTImageEncoder
+
+    dims = dict(image_size=64, patch=32, hidden=64, n_layers=2, heads=4, ffn=128, out_dim=32)
+    cpu = ViTImageEncoder(**dims).init_params(torch.Generator().manual_seed(0)).eval()
+    card = ViTImageEncoder(**dims)
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(cuda, dtype).eval()
+    imgs = torch.as_tensor(np.random.default_rng(0).normal(size=(40, 64, 64, 3)).astype(np.float32))
+    with torch.no_grad():
+        want, got = cpu(imgs), card(imgs.to(cuda, dtype))
+    torch.testing.assert_close(got.float().cpu(), want, **tol)
+
+
+def test_fusion_step_gradients_on_the_card_match_the_cpu(cuda):
+    """One training step's loss and gradients (one dropout mask, drawn on a
+    CPU generator, on both) within the f32 gradient band."""
+    from plotpointe_tpu_torch.config import FusionConfig
+    from plotpointe_tpu_torch.models.fusion import FusionModel, dropout_keep, fusion_loss
+
+    cfg = FusionConfig()
+    rng = np.random.default_rng(0)
+    txt = torch.as_tensor(rng.normal(size=(1024, 384)).astype(np.float32))
+    img = torch.as_tensor(rng.normal(size=(1024, 512)).astype(np.float32))
+    keep = dropout_keep((1024, cfg.hidden_dim), cfg.dropout, torch.Generator().manual_seed(1))
+    models = {}
+    for dev in ("cpu", cuda):
+        m = FusionModel(cfg, dev).init_params(torch.Generator().manual_seed(cfg.seed))
+        loss, _, _ = fusion_loss(m, txt.to(dev), img.to(dev), keep.to(dev))
+        loss.backward()
+        models[str(dev)] = (float(loss.detach()), {k: p.grad.cpu() for k, p in m.named_parameters()})
+    (l_cpu, g_cpu), (l_card, g_card) = models["cpu"], models["cuda"]
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    for k in g_cpu:
+        torch.testing.assert_close(g_card[k], g_cpu[k], rtol=5e-4, atol=1e-4, msg=k)

@@ -31,7 +31,8 @@ def test_port_imports_no_jax():
               "data.stage", "utils.prng", "utils.experiments", "utils.artifacts",
               "tools.manifest_validate", "tools.promotion_gate", "tools.anchor",
               "serving.eventqueue", "serving.telemetry", "serving.app", "tools.serve_bench",
-              "native"):
+              "native", "models.tokenizer", "models.image_io", "models.fusion",
+              "models.embed_stages", "tools.convert_weights"):
         assert f"plotpointe_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, json, sys\n"
