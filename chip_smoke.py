@@ -157,6 +157,30 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            --image-chunks 4` at JAX's defaults in a fresh workdir (every
            lane on the card): exit 0, its img.npy equal to an unchunked
            image stage's; each stage's wall
+  sharded  path 14, sharded training: (a) the main graph cut into 2 and 4
+           destination ranges (`parallel/spmd.shard_graph_by_edges`); on
+           each local graph kernels 1, 2, 3 (bf16 rows, the dropout mask
+           over canonical ids from e_lo), 8 and 9 at 2 heads and 7 at D 64
+           (both directions) vs their plain versions, then the shards'
+           owned rows combined vs the unsharded kernels' output; (b) this
+           process as a world of one NCCL rank, counters at 0 before each
+           sharded run: `train_from_artifacts` with --mesh data:1 and
+           without on the same seed for the GAT (2 epochs of one
+           200,000-triple step, dropout 0.1), the 2-head GAT (1 epoch) and
+           LightGCN (1 epoch): losses, test metrics and exported item rows
+           held to the unsharded run's (loss rtol 5e-4, LightGCN 5e-3;
+           metrics atol 2e-3; rows rtol 5e-3 / atol 5e-5); kernels 1, 2,
+           3, 7, 8 and 9 must have launched; the sharded GAT step by phase
+           and profiled beside the unsharded one's; one step's collectives
+           from the recorder, held to `tools/scaling_audit`'s at n = 1;
+           (c) `tools/multihost_smoke` as 2 processes on this card over
+           gloo (one step, then --fit) and as 1: equal losses in both
+           processes, within 5e-4 of the one process's, staging through
+           host tensors, and the 2-rank step's recorded collectives held to
+           the audit's at n = 2 (the tool's shape); (d)
+           `dryrun_multichip(1)`; (e) the audit at 1, 2, 4 and 8 shards of
+           the main graph and the efficiency predicted at 8 H100s from
+           (b)'s step and NVLink's 450 GB/s spec, labelled a prediction
   timing   CUDA-event times of each kernel, its plain version and, where one
            PyTorch call computes the same function, that call; the bound with
            its reckoning; `host_us_per_launch`, the host's time to issue one
@@ -276,7 +300,9 @@ PATH_KERNELS = {"train": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src"),
                 "serve_telemetry": ("topk_chunkmax", "topk_rescore", "topk_select"),
                 "serve_bench": ("topk_chunkmax", "topk_rescore", "topk_select"),
                 "embed": (),  # plain PyTorch ops, as the JAX towers and fusion are plain XLA
-                "pipeline": ("knn_topk", "gat_fwd", "gat_bwd_dst", "gat_bwd_src")}
+                "pipeline": ("knn_topk", "gat_fwd", "gat_bwd_dst", "gat_bwd_src"),
+                "sharded": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "gat_fwd_mh", "gat_bwd_dst_mh",
+                            "spmm_csr")}
 # the legacy phase's configurations: (path, hidden, heads); v2 takes 1 head
 # with D % 128 == 0, v1 the rest (64 is the reference's hidden-dim ablation)
 LEGACY = (("legacy_v2", 128, 1), ("legacy_v1", 64, 1), ("legacy_v1_mh", 128, 2))
@@ -1814,6 +1840,7 @@ def time_train_step(label: str, tr, s, **extra) -> None:
           "eval_pass_s": eval_s, "eval_users": len(s.val_u), "eval_neg_k": tr.cfg.eval_neg_k,
           "val_ndcg@20": val["ndcg@20"]})
     profile_train_step(label, tr, sum(step.values()))
+    return sum(step.values())
 
 
 def profile_train_step(label: str, tr, step_s: float) -> None:
@@ -3031,6 +3058,275 @@ def phase_pipeline(work: Path, dev) -> dict:
     return launches
 
 
+# -- path 14: sharded training ---------------------------------------------------
+
+SHARD_COUNTS = (2, 4)  # local graphs of the main graph checked kernel by kernel
+SHARDED_LOSS_RTOL = {"gat": 5e-4, "gat_2_heads": 5e-4, "lightgcn": 5e-3}  # bf16 rows (the bands of
+# tests/test_sharded_trainer.py: fused 5e-4, LightGCN fused 5e-3)
+SHARDED_METRICS_ATOL = 2e-3
+SHARDED_EXPORT = dict(rtol=5e-3, atol=5e-5)
+SMOKE_STEP_RTOL = 5e-4  # the 2-process step's loss vs one process's, the same global batch
+NVLINK_LABEL = "prediction (NVLink spec), not measured"
+
+
+def check_local_graphs(errs, rng, graph, h0, a_s, a_d, dev) -> dict:
+    """Path 14 (a): the main graph cut into 2 and 4 destination ranges; on
+    each rank's local graph kernels 1, 2 and 3 (bf16 rows, the dropout mask
+    over canonical ids from e_lo), 8 and 9 at 2 heads and 7 at D 64 (both
+    directions) against their plain versions on the same local graph; then
+    the owned rows of every shard combined against the unsharded kernel's
+    output. Returns the owned-row differences."""
+    import torch
+
+    from plotpointe_tpu_torch.graphs.csr import symmetric_normalized_weights
+    from plotpointe_tpu_torch.ops.gat_fused import (
+        attention_bwd_dst, attention_bwd_dst_mh, attention_bwd_dst_mh_plain, attention_bwd_dst_plain,
+        attention_bwd_src, attention_bwd_src_plain, attention_fwd, attention_fwd_mh,
+        attention_fwd_mh_plain, attention_fwd_plain, dropout_mask, dropout_mask_mh, node_terms_mh_plain,
+        node_terms_plain)
+    from plotpointe_tpu_torch.ops.spmm_kernel import spmm_csr, spmm_csr_plain
+    from plotpointe_tpu_torch.parallel.spmd import local_graph, shard_graph_by_edges
+
+    n, bf16 = graph.n_nodes, torch.bfloat16
+    ct = torch.as_tensor(rng.normal(size=(n, 128)).astype(np.float32), device=dev)
+    h2 = torch.stack([h0[:, 0], torch.roll(h0[:, 0], 17, -1)], 1).contiguous()
+    s2, d2 = torch.cat([a_s, torch.roll(a_s, 17, -1)]), torch.cat([a_d, torch.roll(a_d, 17, -1)])
+    ct2 = torch.as_tensor(rng.normal(size=(n, 2, 128)).astype(np.float32), device=dev)
+    x64 = torch.as_tensor(rng.normal(size=(n, 64)).astype(np.float32), device=dev)
+    vals = torch.as_tensor(symmetric_normalized_weights(graph), device=dev)
+    out = {}
+    with torch.no_grad():
+        full = attention_fwd(h0, a_s, a_d, graph, dropout_mask(graph, 0.1, 7, dev), bf16)
+        full_mh = attention_fwd_mh(h2, s2, d2, graph, dropout_mask_mh(graph, 0.1, 7, 2, dev), bf16)
+        full_y = spmm_csr(x64, vals, graph.row_ptr, graph.src, bf16)
+        rows, gs, gd = node_terms_plain(h0[:, 0], a_s, a_d, bf16)
+        rows2, gs2, gd2 = node_terms_mh_plain(h2, s2, d2, bf16)
+        for n_sh in SHARD_COUNTS:
+            layout = shard_graph_by_edges(graph, n_sh)
+            owned = {"gat_fwd": [], "gat_fwd den": [], "gat_fwd_mh": [], "spmm_csr": []}
+            for k in range(n_sh):
+                loc = local_graph(graph, layout, k)
+                lg, lo, hi, e_lo = loc.graph, loc.lo, loc.hi, loc.e_lo
+                what = f"main {n_sh}-way shard {k} N={n} E_local={lg.n_edges} e_lo={e_lo}"
+                mask = dropout_mask(lg, 0.1, 7, dev, e_lo)
+                got = attention_fwd(h0, a_s, a_d, lg, mask, bf16)
+                want = attention_fwd_plain(h0, a_s, a_d, lg, mask, bf16)
+                errs.check("gat_fwd", what + " rows=bfloat16 mask=True out", got[0], want[0], ATTN_TOL)
+                errs.check("gat_fwd", what + " rows=bfloat16 mask=True den", got[1], want[1], ATTN_TOL)
+                owned["gat_fwd"].append(got[0][lo:hi])
+                owned["gat_fwd den"].append(got[1][lo:hi])
+                args = (rows, gs, gd, ct, want[0][:, 0], want[1], lg, mask)
+                got1, want1 = attention_bwd_dst(*args), attention_bwd_dst_plain(*args)
+                for part, x, y in zip(("de_sum", "godot", "da_src"), got1, want1):
+                    errs.check("gat_bwd_dst", f"{what} rows=bfloat16 mask=True {part}", x, y, GRAD_TOL)
+                args2 = (rows, ct.to(bf16), a_s, gs, gd, want[1], want1[1], lg, mask)
+                errs.check("gat_bwd_src", what + " rows=bfloat16 mask=True dh (local transpose)",
+                           attention_bwd_src(*args2), attention_bwd_src_plain(*args2), GRAD_TOL)
+                mask2 = dropout_mask_mh(lg, 0.1, 7, 2, dev, e_lo)
+                got = attention_fwd_mh(h2, s2, d2, lg, mask2, bf16)
+                want = attention_fwd_mh_plain(h2, s2, d2, lg, mask2, bf16)
+                errs.check("gat_fwd_mh", what + " H=2 rows=bfloat16 mask=True out", got[0], want[0], ATTN_TOL)
+                owned["gat_fwd_mh"].append(got[0][lo:hi])
+                args = (rows2, gs2, gd2, ct2, want[0], want[1], lg, mask2)
+                for part, x, y in zip(("de_sum", "godot", "da_src"), attention_bwd_dst_mh(*args),
+                                      attention_bwd_dst_mh_plain(*args)):
+                    errs.check("gat_bwd_dst_mh", f"{what} H=2 rows=bfloat16 mask=True {part}", x, y, GRAD_TOL)
+                v_l = vals[e_lo:e_lo + lg.n_edges]
+                y = spmm_csr(x64, v_l, lg.row_ptr, lg.src, bf16)
+                errs.check("spmm_csr", what + " D=64 rows=bfloat16 dst", y,
+                           spmm_csr_plain(x64, v_l, lg.row_ptr, lg.src, bf16), ATTN_TOL)
+                owned["spmm_csr"].append(y[lo:hi])
+                vt = v_l[lg.t_eid.long()].contiguous()
+                errs.check("spmm_csr", what + " D=64 rows=bfloat16 local transpose",
+                           spmm_csr(x64, vt, lg.t_ptr, lg.t_dst, bf16),
+                           spmm_csr_plain(x64, vt, lg.t_ptr, lg.t_dst, bf16), ATTN_TOL)
+                del lg, loc, got, want, got1, want1, args, args2
+            for name, want_full in (("gat_fwd", full[0]), ("gat_fwd den", full[1]),
+                                    ("gat_fwd_mh", full_mh[0]), ("spmm_csr", full_y)):
+                comb = torch.cat(owned[name])
+                diff = float((comb - want_full).abs().max())
+                out[f"{name} {n_sh}-way"] = {"max_abs_diff": diff, "equal_bits": bool(torch.equal(comb, want_full))}
+                errs.check(name.split()[0], f"main {n_sh}-way owned rows combined vs unsharded {name}",
+                           comb, want_full, ATTN_TOL)
+            del owned
+            torch.cuda.empty_cache()
+    sync()
+    emit({"phase": "sharded", "part": "a", "what": "kernels on local graphs", "owned_rows_vs_unsharded": out,
+          "shard_counts": SHARD_COUNTS, "max_abs_err": dict(errs.max)})
+    return out
+
+
+def sharded_and_single(label: str, cfg, work: Path, dev):
+    """`train_from_artifacts` with cfg.mesh_shape "data:1" (this process is
+    the world of one) and without, on the same seed, counters at 0 before the
+    sharded run: its losses, test metrics and exported item rows held to the
+    unsharded run's. Returns (sharded trainer, unsharded trainer, launches)."""
+    import dataclasses
+
+    from plotpointe_tpu_torch.ops import cuda_build
+    from plotpointe_tpu_torch.pipeline import train_from_artifacts
+
+    runs = {}
+    for mesh in ("data:1", None):
+        c = dataclasses.replace(cfg, mesh_shape=mesh, run_id=None)
+        cuda_build.reset_counters()
+        t0 = time.perf_counter()
+        res = train_from_artifacts(c, str(work / "staging"), str(work / "embeddings"),
+                                   str(work / f"models_{label}_{mesh or 'single'}"), device=dev)
+        sync()
+        runs[mesh] = res, counts(), time.perf_counter() - t0
+    (sh, launches, sh_wall), (un, _, un_wall) = runs["data:1"], runs[None]
+    rtol = SHARDED_LOSS_RTOL[label]
+    loss_ok = all(abs(a["loss"] - b["loss"]) <= rtol * abs(b["loss"])
+                  for a, b in zip(sh["history"], un["history"]))
+    metrics_ok = all(abs(sh["test"][k] - v) <= SHARDED_METRICS_ATOL for k, v in un["test"].items())
+    items_sh, items_un = sh["trainer"].export_item_embeddings(), un["trainer"].export_item_embeddings()
+    export_err = float(np.abs(items_sh - items_un).max())
+    export_ok = bool(np.allclose(items_sh, items_un, **SHARDED_EXPORT) and np.isfinite(items_sh).all())
+    emit({"phase": "sharded", "part": "b", "model": label, "mesh": "data:1",
+          "backend": sh["trainer"].mesh.backend, "losses": [h["loss"] for h in sh["history"]],
+          "losses_unsharded": [h["loss"] for h in un["history"]], "loss_rtol": rtol,
+          "test": sh["test"], "test_unsharded": un["test"], "export_max_abs_err": export_err,
+          "wall_s": sh_wall, "wall_unsharded_s": un_wall, "launches": launches,
+          "ok": loss_ok and metrics_ok and export_ok})
+    if not (loss_ok and metrics_ok and export_ok):
+        raise AssertionError(f"sharded {label} at world 1 disagrees with the unsharded run: losses "
+                             f"{loss_ok}, metrics {metrics_ok}, export {export_err}")
+    return sh["trainer"], un["trainer"], launches
+
+
+def smoke_processes(argv_of, n: int, timeout: int = 300) -> list:
+    """`tools/multihost_smoke` in n processes at once; their JSON lines."""
+    from plotpointe_tpu_torch.parallel.multihost import free_port
+
+    here = Path(__file__).resolve().parent
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, "-m", "plotpointe_tpu_torch.tools.multihost_smoke",
+                               "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(n),
+                               "--process-id", str(k), *argv_of], cwd=here, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for k in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise AssertionError(f"multihost_smoke {argv_of} exited {p.returncode}: {err[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def phase_sharded(errs, rng, work: Path, s, graph, h0, a_s, a_d, dev) -> dict:
+    """Path 14, sharded training. (a) `check_local_graphs`. (b) in a world of
+    one NCCL rank (this process): `train_from_artifacts` with --mesh data:1
+    and without, for the GAT (2 epochs of one 200,000-triple step, dropout
+    0.1, bf16 rows, 1,000-negative eval), the 2-head GAT (1 epoch) and
+    LightGCN (one epoch of the mini-batch protocol), each sharded run held to
+    its unsharded twin; the sharded GAT step's wall and device busy beside
+    the unsharded step's; the step's collectives from the recorder, held to
+    the audit's at n = 1. (c) `tools/multihost_smoke` as 2 processes on this
+    card over gloo (one step, then --fit) and as 1 process: both ranks' loss
+    equal, within SMOKE_STEP_RTOL of the one process's, and the 2-rank
+    step's recorded collectives held to the audit's at n = 2 (at the tool's
+    shape). (d) `dryrun_multichip(1)`. (e) the audit at 1, 2, 4 and 8 shards
+    of the main graph and the predicted efficiency at 8 H100s from (b)'s
+    step and NVLink's 450 GB/s spec. Returns the launches of (b)."""
+    import torch
+    import torch.distributed as dist
+
+    from plotpointe_tpu_torch.config import TrainConfig
+    from plotpointe_tpu_torch.data.splits import build_node_maps, build_splits
+    from plotpointe_tpu_torch.data.synthetic import synthetic_interactions
+    from plotpointe_tpu_torch.parallel.collectives import record_collectives
+    from plotpointe_tpu_torch.parallel.mesh import make_mesh
+    from plotpointe_tpu_torch.tools import scaling_audit as sa
+    from plotpointe_tpu_torch.tools.multichip_dryrun import dryrun_multichip
+    from plotpointe_tpu_torch.tools.multihost_smoke import one_step_problem
+
+    t_path = time.perf_counter()
+    local = check_local_graphs(errs, rng, graph, h0, a_s, a_d, dev)
+    t_a = time.perf_counter() - t_path
+
+    # (b) the world of one: NCCL, this process, every collective a self-copy
+    mesh = make_mesh({"data": 1}, device=dev)
+    gat = dict(hidden_dim=128, layers=2, attn_dropout=0.1, samples_per_epoch=200_000,
+               eval_neg_k=1000, attn_impl="auto", seed=0)
+    by_model = {}
+    sh_gat, un_gat, by_model["gat"] = sharded_and_single("gat", TrainConfig(epochs=2, **gat), work, dev)
+    _, _, by_model["gat_2_heads"] = sharded_and_single(
+        "gat_2_heads", TrainConfig(epochs=1, heads=MH_HEADS, **gat), work, dev)
+    _, _, by_model["lightgcn"] = sharded_and_single(
+        "lightgcn", TrainConfig(model_family="lightgcn", epochs=1, eval_neg_k=1000, seed=0, **LIGHTGCN),
+        work, dev)
+    launches = {k: sum(m[k] for m in by_model.values()) for k in by_model["gat"]}
+    missing = [k for k in PATH_KERNELS["sharded"] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"sharded: kernels not launched on the sharded path: {missing}")
+    step_s = time_train_step("sharded_gat_world1", sh_gat, s, mesh="data:1", backend=mesh.backend)
+    un_step_s = time_train_step("unsharded_gat_same_config", un_gat, s)
+    u, i, j, seeds = sh_gat._sample()
+    with record_collectives() as colls:
+        loss = sh_gat._loss(u, i, j, seeds)
+        sh_gat.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    sync()
+    audit1 = sa.audit_collectives(1, sh_gat.graph, s.n_users, hidden=128, layers=2, heads=1, feat_dim=384)
+    same1 = sa.same_collectives(colls, audit1["collectives"])
+    emit({"phase": "sharded", "part": "b", "what": "GAT step at world 1 vs unsharded",
+          "step_s": step_s, "unsharded_step_s": un_step_s, "collective_calls": len(colls),
+          "collective_bytes": sum(c["bytes"] for c in colls), "collectives": colls,
+          "audit_equals_recorder_n1": same1, "launches": launches, "ok": same1})
+    if not same1:
+        raise AssertionError(f"audit at n=1 {audit1['collectives']} != recorder {colls}")
+
+    # (c) two processes on this one card over gloo, at the tool's own shape
+    step2 = smoke_processes(["--device", "cuda", "--backend", "gloo"], 2)
+    fit2 = smoke_processes(["--device", "cuda", "--backend", "gloo", "--fit"], 2)
+    (one,) = smoke_processes(["--device", "cuda", "--backend", "gloo"], 1)
+    inter = synthetic_interactions(n_users=96, n_items=64, n_interactions=1500, seed=5)
+    tiny_splits = build_splits(inter, *build_node_maps(inter))
+    tiny = one_step_problem(tiny_splits, 2, "cpu")[0]
+    audit2 = sa.audit_collectives(2, tiny, tiny_splits.n_users, hidden=16, layers=2, heads=1,
+                                  feat_dim=16)
+    same2 = sa.same_collectives(step2[0]["collectives"], audit2["collectives"])
+    ok_c = (step2[0]["loss"] == step2[1]["loss"] and fit2[0]["loss"] == fit2[1]["loss"]
+            and abs(step2[0]["loss"] - one["loss"]) <= SMOKE_STEP_RTOL * abs(one["loss"])
+            and all(r["backend"] == "gloo" and r["staged"] for r in step2 + fit2) and same2)
+    emit({"phase": "sharded", "part": "c", "what": "2 processes on one card over gloo (correctness, "
+          "not speed)", "step": [{k: r[k] for k in ("loss", "grad_user_norm", "backend", "device",
+                                                   "staged", "step_s")} for r in step2],
+          "one_process_loss": one["loss"], "fit": [{k: r[k] for k in ("loss", "best_val_ndcg20",
+                                                                      "test_ndcg20", "fit_s")} for r in fit2],
+          "audit_equals_recorder_n2": same2, "ok": ok_c})
+    if not ok_c:
+        raise AssertionError(f"2-process smoke: {step2} {fit2} one {one} audit {same2}")
+
+    # (d) the dry run in this world of one
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(1, dev)
+    emit({"phase": "sharded", "part": "d", "dryrun_multichip": dry, "wall_s": time.perf_counter() - t0,
+          "ok": dry["ok"]})
+
+    # (e) the audit at the main graph's shape and the NVLink prediction
+    audits = [sa.audit_collectives(n, sh_gat.graph, s.n_users, hidden=128, layers=2, heads=1,
+                                   feat_dim=384) for n in (1, 2, 4, 8)]
+    pred = sa.predict_efficiency(audits, step_s)
+    emit({"phase": "sharded", "part": "e", "what": "scaling audit, Amazon shape",
+          "audits": [{k: a[k] for k in ("n_shards", "collective_count", "collective_ops",
+                                        "payload_bytes_per_device", "wire_bytes_per_chip", "max_rows")}
+                     for a in audits],
+          "step_time_1card_s": step_s, "link": "H100 SXM NVLink 4, 450 GB/s per direction (NVIDIA spec)",
+          "predicted": pred, "label": NVLINK_LABEL})
+    dist.destroy_process_group()
+    emit({"phase": "sharded", "wall_s": time.perf_counter() - t_path, "part_a_s": t_a,
+          "owned_rows_equal_bits": {k: v["equal_bits"] for k, v in local.items()}})
+    return launches
+
+
 def v2_out_tol(model, x_feats, graph, seeds, out_p) -> dict:
     """The legacy v2 output's band against its plain path. The last layer
     rounds its rows h to bf16, and a value whose f32 bits differ between
@@ -3365,6 +3661,8 @@ def run(args, work: Path, dev="cuda") -> int:
     # paths 12 and 13: the embedding stages at full width, then `cli pipeline`
     by_path["embed"] = phase_embed(work, inter, args.seed, dev)
     by_path["pipeline"] = phase_pipeline(work, dev)
+    # path 14: sharded training (local-graph kernels, the world of one, 2 processes, audit)
+    by_path["sharded"] = phase_sharded(errs, rng, work, s, graph, h0, a_s, a_d, dev)
 
     rows = phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev)
     time_train_step("gat", trainer, s, samples=trainer.cfg.samples_per_epoch)

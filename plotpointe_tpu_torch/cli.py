@@ -2,7 +2,8 @@
 
 Counterpart of `plotpointe_tpu/cli.py` for the ported commands:
   train   interactions (+ item features for the GAT) -> best checkpoint +
-          metrics JSON (GAT or LightGCN; --mesh is a later slice)
+          metrics JSON (GAT or LightGCN; --mesh SPEC trains over a mesh of
+          ranks, one per GPU, spawned here, with ShardedTrainer)
   export  checkpoint + interactions (+ item features for the GAT) ->
           item_embeddings.npy
   serve   top-K server: the stdlib HTTP server (--stdlib or
@@ -519,7 +520,10 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--structured-logs", action="store_true")
     t.add_argument("--resume", action="store_true",
                    help="save resume state each epoch and continue from it if present")
-    t.add_argument("--mesh", default=None, metavar="SPEC", help="sharded training (not ported yet)")
+    t.add_argument("--mesh", default=None, metavar="SPEC",
+                   help='train over a mesh of ranks, e.g. "data:8" (ShardedTrainer: one rank per '
+                        'GPU, or gloo ranks with --device cpu; the ranks are spawned here unless '
+                        'this process is one of them)')
     t.add_argument("--device", default=None, help="default: cuda")
     t.set_defaults(fn=_cmd_train)
 

@@ -76,7 +76,7 @@ class TrainConfig:
     spmm_impl: str = "auto"  # {auto, xla, pallas}: LightGCN's propagation row type, see above
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
-    mesh_shape: Optional[str] = None  # sharded training is not ported yet
+    mesh_shape: Optional[str] = None  # e.g. "data:4,model:2"; None = one device (ShardedTrainer otherwise)
     # io
     artifacts_prefix: str = "tmp/artifacts"
     models_prefix: str = "tmp/models"

@@ -478,12 +478,13 @@ def attention_v3(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, grap
 
 
 def dropout_mask_mh(graph: Graph, rate: float, seed: Optional[int], heads: int,
-                    device) -> Optional[torch.Tensor]:
-    """[heads, E] hash masks, head k over canonical ids + k * 2**27, or None
-    without dropout."""
+                    device, id_offset: int = 0) -> Optional[torch.Tensor]:
+    """[heads, E] hash masks, head k over canonical ids + `id_offset` + k *
+    2**27, or None without dropout. A graph that holds the edges from
+    canonical id e_lo on (a shard's local graph) passes id_offset = e_lo."""
     if rate <= 0.0 or seed is None:
         return None
-    ids = torch.arange(graph.n_edges, device=device)
+    ids = torch.arange(graph.n_edges, device=device) + id_offset
     return torch.stack([hash_mask(seed, ids + k * HEAD_ID_STRIDE, rate) for k in range(heads)])
 
 
@@ -658,35 +659,38 @@ class AttentionV3MH(torch.autograd.Function):
     The masks are rebuilt in the backward from the seed."""
 
     @staticmethod
-    def forward(ctx, h, a_src, a_dst, graph, dropout_rate, seed, hs_dtype):
+    def forward(ctx, h, a_src, a_dst, graph, dropout_rate, seed, hs_dtype, id_offset):
         plain = reference_active()
         heads = h.shape[1]
-        mask = dropout_mask_mh(graph, dropout_rate, seed, heads, h.device)
+        mask = dropout_mask_mh(graph, dropout_rate, seed, heads, h.device, id_offset)
         _check_mh(h, a_src, a_dst, graph, mask, hs_dtype)
         h = h.contiguous()
         out, den, rows, gs, gd = _fwd(h, a_src, a_dst, graph, mask, hs_dtype, MH_LAUNCHES, plain)
         ctx.save_for_backward(h, a_src, a_dst, out, den, rows, gs, gd)
         ctx.graph, ctx.dropout_rate, ctx.seed, ctx.plain = graph, dropout_rate, seed, plain
+        ctx.id_offset = id_offset
         return out
 
     @staticmethod
     def backward(ctx, g):
         h, a_src, a_dst, out, den, rows, gs, gd = ctx.saved_tensors
-        mask = dropout_mask_mh(ctx.graph, ctx.dropout_rate, ctx.seed, h.shape[1], h.device)
+        mask = dropout_mask_mh(ctx.graph, ctx.dropout_rate, ctx.seed, h.shape[1], h.device,
+                               ctx.id_offset)
         dh, da_src, da_dst = _backward_mh(h, a_src, a_dst, ctx.graph, g.contiguous(), out, den,
                                           rows, gs, gd, mask, ctx.plain)
-        return dh, da_src, da_dst, None, None, None, None
+        return dh, da_src, da_dst, None, None, None, None, None
 
 
 def attention_v3_mh(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,
                     dropout_rate: float = 0.0, seed: Optional[int] = None,
-                    hs_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                    hs_dtype: torch.dtype = torch.bfloat16, id_offset: int = 0) -> torch.Tensor:
     """Differentiable head-packed attention, h [N, H, D] -> [N, H, D] (2 <=
     H <= 8, D a power of two in [32, 512], H * D <= 1024). With dropout_rate
     > 0 and a uint32 `seed`, head k drops with the hash mask over canonical
-    ids + k * 2**27 (the JAX package's seed is `jax.random.bits(rng, (),
-    uint32)`)."""
-    return AttentionV3MH.apply(h, a_src, a_dst, graph, float(dropout_rate), seed, hs_dtype)
+    ids + `id_offset` + k * 2**27 (the JAX package's seed is
+    `jax.random.bits(rng, (), uint32)`)."""
+    return AttentionV3MH.apply(h, a_src, a_dst, graph, float(dropout_rate), seed, hs_dtype,
+                               int(id_offset))
 
 
 # ---------------------------------------------------------------------------

@@ -82,14 +82,18 @@ def _pad_width(h, a_src, a_dst, width):
 
 def segment_softmax_attention_kernel(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
                                      graph: Graph, dropout_rate: float = 0.0, seed: Seed = None,
-                                     hs_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                                     hs_dtype: torch.dtype = torch.bfloat16,
+                                     id_offset: int = 0) -> torch.Tensor:
     """h [N, H, D], a_src/a_dst [H, D] -> [N, H, D]. hs_dtype: the type the
     kernels round source rows to (the legacy contracts fix their own: v2
     bf16, v1 f32). dropout_rate and a uint32 seed (one per head above 8
-    heads) draw the hash masks over canonical edge ids, or on a tiled graph
-    the Bernoulli mask."""
+    heads) draw the hash masks over canonical edge ids + `id_offset` (a
+    shard's local graph passes the canonical id of its first edge), or on a
+    tiled graph the Bernoulli mask."""
     heads, d = h.shape[1], h.shape[2]
     if graph.tiling is not None:
+        if id_offset:
+            raise ValueError("a tiled graph draws the Bernoulli mask: it takes no id offset")
         mask = legacy_mask(graph, heads, dropout_rate, seed, h.device)
         if heads == 1 and d % 128 == 0:
             return attention_v2(h, a_src, a_dst, graph, mask)
@@ -101,21 +105,21 @@ def segment_softmax_attention_kernel(h: torch.Tensor, a_src: torch.Tensor, a_dst
                 raise ValueError(f"{heads} heads (> {MAX_PACKED_HEADS}) take one dropout seed per head")
             seeds = list(seed)
         return torch.cat([segment_softmax_attention_kernel(
-            h[:, k:k + 1], a_src[k:k + 1], a_dst[k:k + 1], graph, dropout_rate, seeds[k], hs_dtype)
-            for k in range(heads)], dim=1)
+            h[:, k:k + 1], a_src[k:k + 1], a_dst[k:k + 1], graph, dropout_rate, seeds[k], hs_dtype,
+            id_offset) for k in range(heads)], dim=1)
     packed = max(32, 1 << (d - 1).bit_length())
     if heads == 1 or heads * packed > MAX_PACKED_WIDTH:
         width = -(-d // 32) * 32
         hp, sp, dp = _pad_width(h, a_src, a_dst, width)
         outs = [attention_v3(hp[:, k:k + 1], sp[k:k + 1], dp[k:k + 1], graph,
                              dropout_rate=dropout_rate, seed=seed, hs_dtype=hs_dtype,
-                             id_offset=k * HEAD_ID_STRIDE) for k in range(heads)]
+                             id_offset=id_offset + k * HEAD_ID_STRIDE) for k in range(heads)]
         out = torch.cat(outs, dim=1) if heads > 1 else outs[0]
     else:
         width = packed
         hp, sp, dp = _pad_width(h, a_src, a_dst, width)
         out = attention_v3_mh(hp, sp, dp, graph, dropout_rate=dropout_rate, seed=seed,
-                              hs_dtype=hs_dtype)
+                              hs_dtype=hs_dtype, id_offset=id_offset)
     return out[..., :d] if width != d else out
 
 

@@ -26,18 +26,15 @@ from plotpointe_tpu_torch.train.trainer import Trainer
 from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
 
 
-def _check_ported(cfg: TrainConfig) -> None:
+def _check_family(cfg: TrainConfig) -> None:
     if cfg.model_family not in ("gat", "lightgcn"):
         raise ValueError(f"unknown model_family {cfg.model_family}")
-    if cfg.mesh_shape:
-        raise NotImplementedError(
-            "sharded training (--mesh) is the multi-GPU slice of the port, not ported yet")
 
 
 def make_model(cfg: TrainConfig, n_users: int, n_items: int, feat_dim: int, device=None):
     """The model of `cfg`, with the row type its `attn_impl` (GAT) or
     `spmm_impl` (LightGCN) means on `device`."""
-    _check_ported(cfg)
+    _check_family(cfg)
     if cfg.model_family == "lightgcn":
         return LightGCNModel(n_users=n_users, n_items=n_items, embed_dim=cfg.embed_dim,
                              n_prop_layers=cfg.n_prop_layers,
@@ -64,8 +61,22 @@ def train_from_artifacts(cfg: TrainConfig, staging_prefix: str, embeddings_prefi
     """Interactions + features -> `{models}/checkpoints/{run_id}.npz` (best by
     val, JAX format) and `{models}/metrics_{run_id}.json`. With `resume`,
     `{models}/resume.pt` is read if present and rewritten every epoch.
-    Returns the trainer's results plus `checkpoint_uri` and `trainer`."""
-    _check_ported(cfg)
+    Returns the trainer's results plus `checkpoint_uri` and `trainer`.
+
+    With `cfg.mesh_shape` the run is a `ShardedTrainer` over that mesh:
+    under a running process group (or a torchrun / PLOTPOINTE_* launch)
+    this process is one rank; otherwise a mesh of one rank starts its own
+    group and a larger one spawns its ranks here (`multihost.spawn`) and
+    returns rank 0's results, without `trainer`. Rank 0 writes the files."""
+    _check_family(cfg)
+    if cfg.mesh_shape:
+        ranks = _ranks_to_spawn(cfg.mesh_shape)
+        if ranks:
+            from plotpointe_tpu_torch.parallel.multihost import spawn
+
+            cfg.run_id = cfg.run_id or f"{cfg.model_family}_d{cfg.hidden_dim}_{int(time.time())}"
+            return spawn(_train_rank, ranks, (cfg, staging_prefix, embeddings_prefix, models_prefix,
+                                              store, resume, device), device=device)[0]
     dev = resolve_device(device)
     store = store or ArtifactStore()
     interactions = store.load_interactions(staging_prefix)
@@ -76,18 +87,59 @@ def train_from_artifacts(cfg: TrainConfig, staging_prefix: str, embeddings_prefi
     feats = _features(store, cfg, embeddings_prefix, splits.n_items) if cfg.model_family == "gat" else None
     model = make_model(cfg, splits.n_users, splits.n_items, 0 if feats is None else feats.shape[1],
                        device=dev)
-    trainer = Trainer(model, cfg, graph, splits, item_feats=feats, device=dev)
+    if cfg.mesh_shape:
+        from plotpointe_tpu_torch.parallel.mesh import make_mesh
+        from plotpointe_tpu_torch.train.sharded import ShardedTrainer
 
-    cfg.run_id = cfg.run_id or f"{cfg.model_family}_d{cfg.hidden_dim}_{int(time.time())}"
+        trainer = ShardedTrainer(model, cfg, graph, splits, item_feats=feats,
+                                 mesh=make_mesh(cfg.mesh_shape, device=device))
+        cfg.run_id = _same_on_every_rank(cfg.run_id or f"{cfg.model_family}_d{cfg.hidden_dim}_"
+                                         f"{int(time.time())}")
+    else:
+        trainer = Trainer(model, cfg, graph, splits, item_feats=feats, device=dev)
+        cfg.run_id = cfg.run_id or f"{cfg.model_family}_d{cfg.hidden_dim}_{int(time.time())}"
     ckpt_uri = f"{models_prefix}/checkpoints/{cfg.run_id}.npz"
     resume_path = store.target(f"{models_prefix}/resume.pt") if resume else None
     ckpt_local = store.target(ckpt_uri)
     results = trainer.fit(checkpoint_path=str(ckpt_local),
                           resume_path=None if resume_path is None else str(resume_path))
-    store.publish(ckpt_local, ckpt_uri)
     metrics = {k: results[k] for k in ("best_val_ndcg@20", "val", "test", "config", "notes",
                                        "history", "wall_time_s")}
-    store.save_json(metrics, f"{models_prefix}/metrics_{cfg.run_id}.json")
+    if trainer.writes:
+        store.publish(ckpt_local, ckpt_uri)
+        store.save_json(metrics, f"{models_prefix}/metrics_{cfg.run_id}.json")
     results["checkpoint_uri"] = ckpt_uri
     results["trainer"] = trainer
+    return results
+
+
+def _ranks_to_spawn(mesh_shape: str) -> int:
+    """How many ranks `train_from_artifacts` must spawn for `mesh_shape`:
+    none under a running or launched process group, or for one rank."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from plotpointe_tpu_torch.parallel.mesh import parse_mesh_shape
+    from plotpointe_tpu_torch.parallel.multihost import maybe_initialize_distributed
+
+    if dist.is_initialized() or maybe_initialize_distributed():
+        return 0
+    total = int(np.prod(list(parse_mesh_shape(mesh_shape).values())))
+    return total if total > 1 else 0
+
+
+def _same_on_every_rank(value):
+    """Rank 0's `value` on every rank."""
+    import torch.distributed as dist
+
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _train_rank(cfg, staging_prefix, embeddings_prefix, models_prefix, store, resume, device):
+    """One spawned rank of `train_from_artifacts` (its results, without the trainer)."""
+    results = train_from_artifacts(cfg, staging_prefix, embeddings_prefix, models_prefix, store,
+                                   resume, device)
+    results.pop("trainer")
     return results

@@ -100,6 +100,7 @@ class Trainer:
         self.user_pos_padded = torch.as_tensor(pos_table, device=dev)
         self.user_deg = torch.as_tensor(deg, device=dev)
         self.train_users = torch.as_tensor(np.flatnonzero(deg > 0).astype(np.int32), device=dev)
+        self.n_samples = cfg.samples_per_epoch  # triples a GAT step draws
         self._spmm_op = None  # LightGCN's propagation operator: edge values aligned once
         if family == "lightgcn":
             self._spmm_op = model.operator(self.graph)
@@ -118,7 +119,7 @@ class Trainer:
         """(u, i, j) triples and the uint32 dropout seeds: one per layer, or
         [layers][heads] above 8 heads (one attention pass per head)."""
         u, i, j = sample_bpr_triples(self.generator, self.train_users, self.user_pos_padded,
-                                     self.user_deg, self.n_items, self.cfg.samples_per_epoch)
+                                     self.user_deg, self.n_items, self.n_samples)
         seeds = None
         if self.model.attn_dropout > 0:
             m = self.model
@@ -218,10 +219,32 @@ class Trainer:
                             chunk=self.cfg.eval_chunk)
 
     # -- fit -------------------------------------------------------------------
+    # hooks a subclass that places the parameters otherwise (the sharded
+    # trainer) overrides; `writes` says whether this process writes files
+
+    writes = True
+
+    def _init_params(self) -> None:
+        self.model.init_params(self._reseed(STREAM_INIT, 0))
+
+    def _trained_params(self):
+        return self.model.parameters()
+
+    def _full_state(self) -> Dict[str, torch.Tensor]:
+        """A copy of the model's parameters, whole."""
+        return _clone_state(self.model)
+
+    def _load_params(self, state: Dict[str, torch.Tensor]) -> None:
+        self.model.load_state_dict(state)
 
     def _opt_state(self) -> Dict[str, Any]:
         return {"optimizer": self.optimizer.state_dict(),
                 "scheduler": None if self.scheduler is None else self.scheduler.state_dict()}
+
+    def _load_opt_state(self, opt_state: Dict[str, Any]) -> None:
+        self.optimizer.load_state_dict(opt_state["optimizer"])
+        if self.scheduler is not None:
+            self.scheduler.load_state_dict(opt_state["scheduler"])
 
     def fit(self, checkpoint_path: Optional[str] = None,
             resume_path: Optional[str] = None) -> Dict[str, Any]:
@@ -229,21 +252,19 @@ class Trainer:
         `resume_path` exists; it is rewritten after every epoch). Afterwards
         the model holds the best parameters."""
         cfg = self.cfg
-        self.model.init_params(self._reseed(STREAM_INIT, 0))
-        self.optimizer, self.scheduler = make_optimizer(self.model.parameters(), cfg.lr, cfg.l2,
+        self._init_params()
+        self.optimizer, self.scheduler = make_optimizer(self._trained_params(), cfg.lr, cfg.l2,
                                                         cfg.optimizer, cfg.warmup_steps)
-        best_val, best_state, start_epoch = -1.0, _clone_state(self.model), 1
+        best_val, best_state, start_epoch = -1.0, self._full_state(), 1
         if resume_path is not None and Path(resume_path).exists():
             params, opt_state, best_state, meta = load_resume_state(resume_path, self.device)
-            self.model.load_state_dict(params)
-            self.optimizer.load_state_dict(opt_state["optimizer"])
-            if self.scheduler is not None:
-                self.scheduler.load_state_dict(opt_state["scheduler"])
+            self._load_params(params)
+            self._load_opt_state(opt_state)
             start_epoch = int(meta["epoch"]) + 1
             best_val = float(meta["best_val_ndcg20"])
 
         run_id = cfg.run_id or f"{cfg.model_family}_d{cfg.hidden_dim}_{int(time.time())}"
-        if cfg.structured_logs:
+        if cfg.structured_logs and self.writes:
             log_event("run_start", run_id=run_id, model_family=cfg.model_family, config=cfg.to_dict(),
                       resumed_from_epoch=start_epoch - 1 if start_epoch > 1 else None)
         history = []
@@ -260,21 +281,23 @@ class Trainer:
             history.append({"epoch": epoch, "loss": loss, "step_time_s": step_time,
                             "eval_time_s": eval_time,
                             **{f"val_{k}": v for k, v in val_metrics.items()}})
-            if cfg.structured_logs:
+            if cfg.structured_logs and self.writes:
                 log_event("epoch_end", run_id=run_id, epoch=epoch, loss=loss, val=val_metrics)
             ndcg20 = val_metrics.get("ndcg@20", 0.0)
             if ndcg20 > best_val:
-                best_val, best_state = ndcg20, _clone_state(self.model)
-                if checkpoint_path:
+                best_val, best_state = ndcg20, self._full_state()
+                if checkpoint_path and self.writes:
                     save_checkpoint(checkpoint_path, params_to_jax(best_state),
                                     self.model.config_dict() | {"train_config": cfg.to_dict()})
             if resume_path is not None:
-                save_resume_state(resume_path, self.model.state_dict(), self._opt_state(), best_state,
-                                  {"epoch": epoch, "best_val_ndcg20": float(best_val)})
+                params, opt_state = self._full_state(), self._opt_state()
+                if self.writes:
+                    save_resume_state(resume_path, params, opt_state, best_state,
+                                      {"epoch": epoch, "best_val_ndcg20": float(best_val)})
 
         if best_val < 0:  # no val split and no epoch run: best = last
-            best_state = _clone_state(self.model)
-        self.model.load_state_dict(best_state)
+            best_state = self._full_state()
+        self._load_params(best_state)
         test_metrics = self.evaluate(self.splits.test_u, self.splits.test_i, TEST_EVAL_INDEX)
         wall = time.perf_counter() - t_start
         results = {
@@ -287,7 +310,7 @@ class Trainer:
             "run_id": run_id,
             "notes": f"one-backward-per-epoch, {cfg.samples_per_epoch} sampled triples, loss={cfg.loss}",
         }
-        if cfg.structured_logs:
+        if cfg.structured_logs and self.writes:
             log_event("run_complete", run_id=run_id, best_val_ndcg20=results["best_val_ndcg@20"],
                       test=test_metrics)
         return results

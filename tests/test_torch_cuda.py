@@ -11,9 +11,12 @@ candidates (10, 11), the read-stream probe (6), the smoke's affine pass
 1, 8, 3, 2 and 9 (rows of 10,000 and 3,000 entries and a star's, rows
 ending at a piece boundary, 1 to 8 heads, D 96 on idle tail lanes, strided
 head rows, column strips in kernels 1, 3 and 2, equal bits on a second
-call, misaligned rows raising); and, in plain PyTorch ops, the MiniLM and
+call, misaligned rows raising); in plain PyTorch ops, the MiniLM and
 CLIP towers (f32 with TF32 off, and bf16) and one fusion step's gradients
-against the CPU.
+against the CPU; and sharded training (`-k sharded`): kernels 1, 2, 3, 8,
+9 and 7 on shards' local graphs against their plain versions and their
+owned rows against the unsharded output, and one spawned NCCL rank's fused
+step against the unsharded model's autograd.
 
 Every test here needs an NVIDIA GPU and skips without one. This file imports
 no JAX, so it also runs where JAX is absent:
@@ -1369,3 +1372,101 @@ def test_fusion_step_gradients_on_the_card_match_the_cpu(cuda):
     assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
     for k in g_cpu:
         torch.testing.assert_close(g_card[k], g_cpu[k], rtol=5e-4, atol=1e-4, msg=k)
+
+
+# -- sharded training: local graphs and the world of one ----------------------------
+
+
+@pytest.mark.parametrize("n_shards", [2, 3])
+def test_sharded_local_graph_kernels_match_plain(cuda, n_shards):
+    """Kernels 1, 2, 3 (bf16 rows, the mask over canonical ids from e_lo),
+    8 and 9 at 2 heads and 7 (both directions) on each shard's local graph
+    against their plain versions; the owned rows of the shards' forwards
+    combined against the unsharded kernels' outputs."""
+    from plotpointe_tpu_torch.graphs.csr import symmetric_normalized_weights
+    from plotpointe_tpu_torch.ops.gat_fused import (
+        attention_bwd_dst_mh, attention_bwd_dst_mh_plain, attention_fwd_mh, attention_fwd_mh_plain,
+        dropout_mask, dropout_mask_mh, node_terms_mh_plain)
+    from plotpointe_tpu_torch.ops.spmm_kernel import spmm_csr, spmm_csr_plain
+    from plotpointe_tpu_torch.parallel.spmd import local_graph, shard_graph_by_edges
+
+    rng = np.random.default_rng(n_shards)
+    g = _graph(rng).to(cuda)
+    n, d, bf16 = g.n_nodes, 64, torch.bfloat16
+    t = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32), device=cuda)  # noqa: E731
+    h, a_s, a_d, ct = t(n, 1, d), 0.1 * t(1, d), 0.1 * t(1, d), t(n, d)
+    h2, s2, d2, ct2 = t(n, 2, d), 0.1 * t(2, d), 0.1 * t(2, d), t(n, 2, d)
+    x, vals = t(n, d), torch.as_tensor(symmetric_normalized_weights(g), device=cuda)
+    full = attention_fwd(h, a_s, a_d, g, dropout_mask(g, 0.1, 7, cuda), bf16)
+    full_mh = attention_fwd_mh(h2, s2, d2, g, dropout_mask_mh(g, 0.1, 7, 2, cuda), bf16)
+    full_y = spmm_csr(x, vals, g.row_ptr, g.src, bf16)
+    rows, gs, gd = node_terms_plain(h[:, 0], a_s, a_d, bf16)
+    rows2, gs2, gd2 = node_terms_mh_plain(h2, s2, d2, bf16)
+    layout = shard_graph_by_edges(g, n_shards)
+    owned = [[], [], []]
+    for k in range(n_shards):
+        loc = local_graph(g, layout, k)
+        lg, lo, hi = loc.graph, loc.lo, loc.hi
+        mask = dropout_mask(lg, 0.1, 7, cuda, loc.e_lo)
+        assert torch.equal(mask, dropout_mask(g, 0.1, 7, cuda)[loc.e_lo:loc.e_lo + lg.n_edges])
+        got, want = attention_fwd(h, a_s, a_d, lg, mask, bf16), attention_fwd_plain(h, a_s, a_d, lg, mask, bf16)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
+        args = (rows, gs, gd, ct, want[0][:, 0], want[1], lg, mask)
+        w1 = attention_bwd_dst_plain(*args)
+        for a, b in zip(attention_bwd_dst(*args), w1):
+            torch.testing.assert_close(a, b, rtol=5e-4, atol=1e-4)
+        args2 = (rows, ct.to(bf16), a_s, gs, gd, want[1], w1[1], lg, mask)
+        torch.testing.assert_close(attention_bwd_src(*args2), attention_bwd_src_plain(*args2),
+                                   rtol=5e-4, atol=1e-4)
+        mask2 = dropout_mask_mh(lg, 0.1, 7, 2, cuda, loc.e_lo)
+        got2 = attention_fwd_mh(h2, s2, d2, lg, mask2, bf16)
+        want2 = attention_fwd_mh_plain(h2, s2, d2, lg, mask2, bf16)
+        torch.testing.assert_close(got2[0], want2[0], rtol=1e-4, atol=1e-5)
+        args = (rows2, gs2, gd2, ct2, want2[0], want2[1], lg, mask2)
+        for a, b in zip(attention_bwd_dst_mh(*args), attention_bwd_dst_mh_plain(*args)):
+            torch.testing.assert_close(a, b, rtol=5e-4, atol=1e-4)
+        v_l = vals[loc.e_lo:loc.e_lo + lg.n_edges]
+        y = spmm_csr(x, v_l, lg.row_ptr, lg.src, bf16)
+        torch.testing.assert_close(y, spmm_csr_plain(x, v_l, lg.row_ptr, lg.src, bf16), rtol=1e-4, atol=1e-5)
+        vt = v_l[lg.t_eid.long()].contiguous()
+        torch.testing.assert_close(spmm_csr(x, vt, lg.t_ptr, lg.t_dst, bf16),
+                                   spmm_csr_plain(x, vt, lg.t_ptr, lg.t_dst, bf16), rtol=1e-4, atol=1e-5)
+        for o, full_out in zip(owned, (got[0], got2[0], y)):
+            o.append(full_out[lo:hi])
+    for o, want in zip(owned, (full[0], full_mh[0], full_y)):
+        torch.testing.assert_close(torch.cat(o), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.multihost
+def test_sharded_world1_nccl_step_matches_unsharded(cuda):
+    """One spawned rank on NCCL: the fused step (kernels 1-3, bf16 rows,
+    dropout over canonical ids, exact overlays) against the unsharded
+    model's forward, loss and autograd on the same card."""
+    from plotpointe_tpu_torch.models.gat import GATModel
+    from plotpointe_tpu_torch.parallel.cases import run_cases
+    from plotpointe_tpu_torch.parallel.multihost import spawn
+    from plotpointe_tpu_torch.train.checkpoint import params_to_jax
+    from plotpointe_tpu_torch.train.losses import bpr_loss
+
+    rng = np.random.default_rng(1)
+    g = _graph(rng)
+    nu, ni, f = 200, 100, 16
+    model = GATModel(nu, ni, f, hidden_dim=64, n_layers=2, attn_dropout=0.2, hs_dtype=torch.bfloat16)
+    model.init_params(torch.Generator().manual_seed(0))
+    feats = rng.normal(size=(ni, f)).astype(np.float32)
+    u, i, j = (rng.integers(0, m, 256).astype(np.int32) for m in (nu, ni, ni))
+    seeds = [11, 22]
+    case = dict(kind="gat_step", src=g.src.numpy(), dst=g.dst.numpy(), n_nodes=nu + ni,
+                builder="make_sharded_gat_step_fused", model=model.config_dict(),
+                params=params_to_jax(model.state_dict()), item_feats=feats, u=u, i=i, j=j,
+                hs_dtype="bfloat16", overlay_dtype=None, dropout_rate=0.2, seeds=seeds)
+    ((got,),) = spawn(run_cases, 1, ([case], None, "cuda"), device="cuda", timeout_s=300)
+    assert [c["op"] for c in got["collectives"]].count("all_gather") == 3
+    model.to(cuda)
+    z = model(torch.as_tensor(feats, device=cuda), g.to(cuda), train=True, seeds=seeds)
+    ut, it, jt = (torch.as_tensor(a, device=cuda).long() for a in (u, i, j))
+    loss = bpr_loss((z[ut] * z[nu + it]).sum(-1), (z[ut] * z[nu + jt]).sum(-1))
+    loss.backward()
+    np.testing.assert_allclose(got["loss"], float(loss.detach()), rtol=1e-5)
+    for k, p in model.named_parameters():
+        np.testing.assert_allclose(got["grads"][k], p.grad.cpu().numpy(), rtol=5e-4, atol=1e-4, err_msg=k)

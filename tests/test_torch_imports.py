@@ -32,7 +32,10 @@ def test_port_imports_no_jax():
               "tools.manifest_validate", "tools.promotion_gate", "tools.anchor",
               "serving.eventqueue", "serving.telemetry", "serving.app", "tools.serve_bench",
               "native", "models.tokenizer", "models.image_io", "models.fusion",
-              "models.embed_stages", "tools.convert_weights"):
+              "models.embed_stages", "tools.convert_weights", "parallel", "parallel.mesh",
+              "parallel.multihost", "parallel.collectives", "parallel.sharded_table",
+              "parallel.spmd", "parallel.cases", "train.sharded", "tools.multihost_smoke",
+              "tools.scaling_audit", "tools.multichip_dryrun"):
         assert f"plotpointe_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, json, sys\n"

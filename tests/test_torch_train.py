@@ -363,5 +363,13 @@ def test_cli_train_on_cpu(setup, tmp_path, capsys):
     assert "ndcg@20" in json.loads(capsys.readouterr().out)["test"]
     (lg_ckpt,) = (lg_models / "checkpoints").glob("*.npz")
     assert jax_load_config(lg_ckpt)["model_family"] == "lightgcn"
-    with pytest.raises(NotImplementedError, match="slice"):
-        cli.main(base + ["--mesh", "data:2"])
+    # --mesh trains over 2 spawned gloo ranks and writes the same artifacts
+    # (the numbers against this run: tests/test_torch_sharded_trainer.py)
+    mesh_models = tmp_path / "mesh_models"
+    cli.main(base[:-6] + ["--models-prefix", str(mesh_models), "--item-features", "txt",
+                          "--device", "cpu", "--mesh", "data:2", "--epochs", "1",
+                          "--samples-per-epoch", "500", "--eval-neg-k", "50", "--hidden-dim", "32"])
+    assert "ndcg@20" in json.loads(capsys.readouterr().out)["test"]
+    (mesh_ckpt,) = (mesh_models / "checkpoints").glob("*.npz")
+    assert jax_load_config(mesh_ckpt)["train_config"]["mesh_shape"] == "data:2"
+    assert len(list(mesh_models.glob("metrics_*.json"))) == 1
