@@ -181,8 +181,29 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            `dryrun_multichip(1)`; (e) the audit at 1, 2, 4 and 8 shards of
            the main graph and the efficiency predicted at 8 H100s from
            (b)'s step and NVLink's 450 GB/s spec, labelled a prediction
+  deploy   path 15, the deployment tools: (a) `cli provision` on
+           deploy_torch/infra.yaml into a fresh root (the first apply as
+           `python -m plotpointe_tpu_torch.cli` in a subprocess, the rest
+           through `cli.main`): apply creates every resource (4 materialised,
+           the gpu_vm and the service account recorded with their gcloud
+           lines), a second apply is all noops, each provisioned queue takes
+           one record in the port's DurableQueue and gives it back, render
+           prints the gpu_vm's `gcloud compute instances create` line, and
+           destroy leaves an empty state and no materialised directory; (b)
+           `cli jobs list` shows the 8 H100 specs, then `tools.jobs.run_job`
+           runs the graph-build spec and the GAT training spec (EPOCHS 2) on
+           path 13's `--parallel` artifacts (2,000 x 1,200 x 50,000): each
+           returns 0 and leaves its artifacts (ui_edges, the kNN npz held as
+           path 5 holds it, one checkpoint, resume.pt, metrics with finite
+           losses), counters at 0 first; the jobs' child processes append
+           their launch counts to a log (PLOTPOINTE_LAUNCH_LOG), which must
+           show kernel 10, then kernels 1, 2 and 3; then the training spec
+           with CUDA_VISIBLE_DEVICES empty and no restarts must exit non-zero
+           with "CUDA is not available"; each wall
+  walls    the host seconds of each group of phases above and the total
   timing   CUDA-event times of each kernel, its plain version and, where one
-           PyTorch call computes the same function, that call; the bound with
+           PyTorch call computes the same function, that call (for the
+           gather fence, `torch.sum` of the same [8, 128] corner); the bound with
            its reckoning; `host_us_per_launch`, the host's time to issue one
            call of the kernel 12, 4 and 7 wrappers beside
            `torch.addcmul`, and one whole `topk_mips` call at B 1 and 8;
@@ -231,6 +252,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -302,7 +324,9 @@ PATH_KERNELS = {"train": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src"),
                 "embed": (),  # plain PyTorch ops, as the JAX towers and fusion are plain XLA
                 "pipeline": ("knn_topk", "gat_fwd", "gat_bwd_dst", "gat_bwd_src"),
                 "sharded": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "gat_fwd_mh", "gat_bwd_dst_mh",
-                            "spmm_csr")}
+                            "spmm_csr"),
+                # launched by the job specs' child processes, read from their launch logs
+                "deploy": ("knn_topk", "gat_fwd", "gat_bwd_dst", "gat_bwd_src")}
 # the legacy phase's configurations: (path, hidden, heads); v2 takes 1 head
 # with D % 128 == 0, v1 the rest (64 is the reference's hidden-dim ablation)
 LEGACY = (("legacy_v2", 128, 1), ("legacy_v1", 64, 1), ("legacy_v1_mh", 128, 2))
@@ -3327,6 +3351,231 @@ def phase_sharded(errs, rng, work: Path, s, graph, h0, a_s, a_d, dev) -> dict:
     return launches
 
 
+# -- path 15: the deployment tools ---------------------------------------------------
+
+DEPLOY_JOBS = {"graph_build": ("build_graphs_h100.yaml", ("knn_topk",)),
+               "train_gat": ("train_gat_h100.yaml", ("gat_fwd", "gat_bwd_dst", "gat_bwd_src"))}
+DEPLOY_EPOCHS = 2  # the training job's EPOCHS (the spec's default is 20)
+H100_LINE = "--accelerator=type=nvidia-h100-80gb,count=1"
+
+
+@contextlib.contextmanager
+def environ(**kv):
+    """os.environ with `kv` set inside the block (children inherit it)."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def fds_to(path: Path):
+    """This process's file descriptors 1 and 2, and so its children's output,
+    appended to `path` inside the block."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    saved = [os.dup(1), os.dup(2)]
+    with open(path, "ab") as f:
+        os.dup2(f.fileno(), 1)
+        os.dup2(f.fileno(), 2)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        for fd, keep in zip((1, 2), saved):
+            os.dup2(keep, fd)
+            os.close(keep)
+
+
+def last_json(out: str) -> dict:
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def provision_round(work: Path) -> dict:
+    """Path 15 (a): `cli provision` on deploy_torch/infra.yaml into a fresh
+    root, the first apply as `python -m plotpointe_tpu_torch.cli` in a
+    subprocess, the rest through `cli.main` in this process (a process
+    start costs 7-10 s on the card's host): apply creates every resource, a
+    second apply is all noops, each provisioned queue takes one record and
+    gives it back, `render` prints the gpu_vm's `gcloud compute instances
+    create` line, and destroy leaves an empty state and no materialised
+    directory."""
+    import yaml
+
+    from plotpointe_tpu_torch.serving.eventqueue import DurableQueue
+
+    here = Path(__file__).resolve().parent
+    spec_path = here / "deploy_torch" / "infra.yaml"
+    n = len(yaml.safe_load(spec_path.read_text())["resources"])
+    root = work / "infra"
+    walls = {}
+
+    def prov(cmd, label):
+        argv = ["provision", cmd, "--spec", str(spec_path), "--root", str(root)]
+        t0 = time.perf_counter()
+        if label == "subprocess":
+            proc = subprocess.run([sys.executable, "-m", "plotpointe_tpu_torch.cli", *argv], cwd=here,
+                                  capture_output=True, text=True, timeout=120)
+            out, code = proc.stdout, proc.returncode
+        else:
+            out, code = in_process_cli(argv)
+        if code != 0:
+            raise AssertionError(f"cli provision {cmd} exited {code}: {out[-2000:]}")
+        walls[f"{cmd}_{label}"] = time.perf_counter() - t0
+        return out
+
+    first = last_json(prov("apply", "subprocess"))["apply"]
+    state = json.loads((root / "state.json").read_text())["resources"]
+    local = {rid: r["path"] for rid, r in state.items() if "path" in r}
+    external = {rid: r["command"] for rid, r in state.items() if r.get("external")}
+    materialised = len(local) == 4 and all(Path(p).is_dir() for p in local.values())
+    again = last_json(prov("apply", "in_process"))["apply"]
+    queues = {}
+    for rid, path in local.items():
+        if rid.startswith("event_queue."):
+            q = DurableQueue(path)
+            q.publish({"probe": rid})
+            ((off, rec),) = q.pull()
+            q.ack([off])
+            queues[rid] = rec == {"probe": rid} and q.backlog() == 0
+            q.close()
+    vm_lines = [ln for ln in prov("render", "in_process").splitlines()
+                if ln.startswith("gcloud compute instances create ")]
+    gone = last_json(prov("destroy", "in_process"))["apply"]
+    after = json.loads((root / "state.json").read_text())["resources"]
+    left = [p for p in local.values() if Path(p).exists()]
+    checks = {
+        "apply_created_all": first == {"create": n, "replace": 0, "delete": 0, "noop": 0},
+        "state_has_all": len(state) == n and set(local) | set(external) == set(state),
+        "materialised": materialised,
+        "external_recorded": any(rid.startswith("gpu_vm.") and H100_LINE in c for rid, c in external.items()),
+        "reapply_all_noop": again == {"create": 0, "replace": 0, "delete": 0, "noop": n},
+        "queues_round_trip": len(queues) == 2 and all(queues.values()),
+        "render_gpu_vm_line": len(vm_lines) == 1 and H100_LINE in vm_lines[0]
+                              and vm_lines[0].endswith("--provisioning-model=SPOT"),
+        "destroy_empty": gone["delete"] == n and after == {} and not left,
+    }
+    emit({"phase": "deploy", "part": "a", "what": "cli provision apply, re-apply, queues, render, destroy",
+          "resources": n, "apply": first, "reapply": again, "destroy": gone, "gpu_vm_line": vm_lines,
+          "checks": checks, "walls_s": walls, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"deploy (a): {checks}")
+    return walls
+
+
+def run_spec(spec: dict, overrides: dict, log: Path, **env) -> tuple[int, float]:
+    """`tools.jobs.run_job` on a spec dict with `env` in the children's
+    environment and every output line appended to `log`: (rc, wall)."""
+    from plotpointe_tpu_torch.tools.jobs import run_job
+
+    here = Path(__file__).resolve().parent
+    pythonpath = os.pathsep.join(filter(None, [str(here), os.environ.get("PYTHONPATH")]))
+    t0 = time.perf_counter()
+    with environ(PYTHONPATH=pythonpath, **env), fds_to(log):
+        rc = run_job(spec, overrides)
+    return rc, time.perf_counter() - t0
+
+
+def phase_deploy(work: Path, dev) -> dict:
+    """Path 15, the deployment tools. (a) `provision_round`. (b) `cli jobs
+    list` (in this process) shows the 8 port specs; then `run_job` runs the graph-build spec
+    and the GAT training spec with ARTIFACTS at path 13's `--parallel`
+    workdir (its staging and embeddings) and EPOCHS 2: each returns 0 and
+    leaves its artifacts (kNN npz, checkpoint, metrics with finite losses),
+    and the launch logs of its child processes show kernel 10, then
+    kernels 1, 2 and 3, launched on the card; the training spec again with
+    CUDA_VISIBLE_DEVICES empty and no restarts must exit non-zero naming
+    CUDA. Returns the launches: this process's, counters at 0 first, plus
+    its children's."""
+    import yaml
+
+    from plotpointe_tpu_torch.ops import cuda_build
+    from plotpointe_tpu_torch.tools.jobs import load_job
+
+    here = Path(__file__).resolve().parent
+    t_path = time.perf_counter()
+    emit({"phase": "deploy", "yaml": yaml.__version__})
+    walls = {"provision": provision_round(work)}
+
+    t0 = time.perf_counter()
+    out, code = in_process_cli(["jobs", "list", "--dir", str(here / "deploy_torch" / "jobs")])
+    rows = json.loads(out) if code == 0 else []
+    walls["jobs_list"] = time.perf_counter() - t0
+    listed = len(rows) == 8 and all(r["accelerator"] == "nvidia-h100-80gb" for r in rows)
+
+    src = work / "pipeline_parallel"
+    arts, hidden = work / "deploy_artifacts", work / "deploy_cuda_hidden"
+    for d in (arts, hidden):
+        d.mkdir()
+        for sub in ("staging", "embeddings"):
+            (d / sub).symlink_to(src / sub, target_is_directory=True)
+    launch_log, log = work / "deploy_launches.jsonl", work / "deploy_jobs.log"
+    overrides = {"ARTIFACTS": str(arts), "EPOCHS": str(DEPLOY_EPOCHS)}
+    cuda_build.reset_counters()
+    jobs = {}
+    for label, (fname, kernels) in DEPLOY_JOBS.items():
+        start = len(launch_log.read_text().splitlines()) if launch_log.exists() else 0
+        rc, wall = run_spec(load_job(here / "deploy_torch" / "jobs" / fname), overrides, log,
+                            PLOTPOINTE_LAUNCH_LOG=str(launch_log))
+        children = [json.loads(ln) for ln in launch_log.read_text().splitlines()[start:]]
+        by_child = {k: sum(c["launches"][k] for c in children) for k in cuda_build.COUNTERS}
+        jobs[label] = {"rc": rc, "wall_s": wall, "child_processes": len(children),
+                       "launches": {k: v for k, v in by_child.items() if v},
+                       "kernels_launched": all(by_child[k] > 0 for k in kernels)}
+    launches = counts()
+    for label in jobs:
+        for k, v in jobs[label]["launches"].items():
+            launches[k] += v
+    missing = [k for k in PATH_KERNELS["deploy"] if launches[k] == 0]
+
+    n_items = np.load(arts / "embeddings" / "txt_interacted.npy", mmap_mode="r").shape[0]
+    knn = check_knn_artifacts(arts / "graphs", "txt", n_items) if jobs["graph_build"]["rc"] == 0 else None
+    metrics = sorted((arts / "models").glob("metrics_*.json"))
+    ckpts = sorted((arts / "models" / "checkpoints").glob("*.npz"))
+    losses = [h["loss"] for h in json.loads(metrics[0].read_text())["history"]] if metrics else []
+    checks = {
+        "jobs_list_8_h100": listed,
+        "graph_build_rc0": jobs["graph_build"]["rc"] == 0,
+        "ui_artifacts": all((arts / "graphs" / f).exists() for f in ("ui_edges.npz", "node_maps.json",
+                                                                    "ui_stats.json")),
+        "knn_artifacts": knn is not None,
+        "train_rc0": jobs["train_gat"]["rc"] == 0,
+        "checkpoint_and_metrics": len(ckpts) == 1 and len(metrics) == 1
+                                  and (arts / "models" / "resume.pt").exists(),
+        "losses_finite": len(losses) == DEPLOY_EPOCHS and bool(np.isfinite(losses).all()),
+        "kernels_in_children": all(j["kernels_launched"] for j in jobs.values()) and not missing,
+    }
+    emit({"phase": "deploy", "part": "b", "what": "jobs list, run_job of the graph-build and GAT training "
+          "specs on path 13's --parallel artifacts", "artifacts_of": str(src.name), "overrides": {
+              "EPOCHS": DEPLOY_EPOCHS}, "jobs": jobs, "knn": knn, "losses": losses, "launches": launches,
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"deploy (b): {checks} {jobs}: {log.read_text()[-3000:]}")
+
+    # the training command cannot drift onto the CPU: no card, no run
+    spec = dict(load_job(here / "deploy_torch" / "jobs" / "train_gat_h100.yaml"), restart_on_preemption=False)
+    hidden_log = work / "deploy_cuda_hidden.log"
+    rc, wall = run_spec(spec, {"ARTIFACTS": str(hidden), "EPOCHS": "1"}, hidden_log, CUDA_VISIBLE_DEVICES="")
+    text = hidden_log.read_text()
+    refused = rc != 0 and "CUDA is not available" in text
+    walls["jobs"] = {label: j["wall_s"] for label, j in jobs.items()}
+    walls["train_cuda_hidden"] = wall
+    emit({"phase": "deploy", "part": "b", "what": "training spec with CUDA_VISIBLE_DEVICES= and no restarts",
+          "rc": rc, "wall_s": wall, "names_cuda": "CUDA is not available" in text,
+          "wrote_nothing": not (hidden / "models").exists(), "ok": refused})
+    if not refused:
+        raise AssertionError(f"deploy: the training job ran without a card (rc {rc}): {text[-2000:]}")
+    emit({"phase": "deploy", "wall_s": time.perf_counter() - t_path, "walls_s": walls})
+    return launches
+
+
 def v2_out_tol(model, x_feats, graph, seeds, out_p) -> dict:
     """The legacy v2 output's band against its plain path. The last layer
     rounds its rows h to bf16, and a value whose f32 bits differ between
@@ -3520,7 +3769,8 @@ def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev):
         b_ms, b_by = bound(fb, 8 * 128, "float32")
         line = {"phase": "timing", "kernel": "gather_fence", "shape": f"[{n}, {d}] bfloat16",
                 "ms": time_ms(lambda: gather_fence(x)), "plain_ms": time_ms(lambda: gather_fence_plain(x), 5),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "bound_bytes": fb}
+                "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": fb,
+                "library_ms": time_ms(lambda: torch.sum(x[:8, :d], dtype=torch.float32))}
         emit(line)
         rows["gather_fence"] = line
         for dt in (torch.float32, torch.bfloat16):
@@ -3605,15 +3855,25 @@ def run(args, work: Path, dev="cuda") -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    walls, t_run = {}, [time.perf_counter()]
+
+    def mark(label: str) -> None:  # the host seconds since the last mark, for the walls line
+        now = time.perf_counter()
+        walls[label] = now - t_run[-1]
+        t_run.append(now)
+
     name = phase_device()
     phase_build()
+    mark("device_build")
     rng = np.random.default_rng(args.seed)
     inter, s, feats, graph, (h0, a_s, a_d) = phase_data(args, rng, dev)
     catalog = torch.as_tensor(rng.normal(size=(CATALOG, 128)).astype(np.float32), device=dev)
+    mark("data")
 
     errs = Errors()
     phase_check(errs, rng, graph, h0, a_s, a_d, catalog, dev)
     write_artifacts(work, inter, feats)
+    mark("check")
     by_path = {}
     gat = dict(hidden_dim=128, layers=args.layers, attn_dropout=0.1, epochs=args.epochs,
                samples_per_epoch=200_000, eval_neg_k=1000, attn_impl="auto", seed=args.seed)
@@ -3644,25 +3904,37 @@ def run(args, work: Path, dev="cuda") -> int:
     phase_step_parity("train_mh", mh_trainer)
     by_path["mh_export"] = phase_serve("export_mh", work, mh_ckpt, inter, feats, s.n_items, 128,
                                        0, 0, dev, PATH_KERNELS["mh_export"])
+    mark("paths_1_4")
     # path 5: the graph-build stage, then kNN's fast mode
     by_path["graph_build"], by_path["graph_build_fast"], knn_feats, build_knn_s = phase_graph_build(
         errs, work, inter, s, args.seed, dev)
+    mark("graph_build")
     # path 6: the smoke check and the measured peaks
     by_path["tooling"], peaks = phase_tooling(errs, dev)
     # path 7: the legacy attention contracts on a tiled graph
     by_path.update(phase_legacy(errs, rng, s, feats, graph, args.layers, dev))
+    mark("tooling_legacy")
     # paths 8 and 9: the quality anchor at full shape, then the ablation sweep on its data
     by_path["anchor"], anchor_data = phase_anchor(work, dev)
+    mark("anchor")
     by_path["ablate"] = phase_ablate(work, anchor_data, dev)
     del anchor_data
+    mark("ablate")
     # paths 10 and 11: telemetry, feedback and the env entry point on path 2's export; served QPS
     by_path["serve_telemetry"] = phase_serve_telemetry(work, dev)
     by_path["serve_bench"] = phase_serve_bench(dev)
+    mark("serve_telemetry_bench")
     # paths 12 and 13: the embedding stages at full width, then `cli pipeline`
     by_path["embed"] = phase_embed(work, inter, args.seed, dev)
+    mark("embed")
     by_path["pipeline"] = phase_pipeline(work, dev)
+    mark("pipeline")
     # path 14: sharded training (local-graph kernels, the world of one, 2 processes, audit)
     by_path["sharded"] = phase_sharded(errs, rng, work, s, graph, h0, a_s, a_d, dev)
+    mark("sharded")
+    # path 15: provision and the job specs (kernels 10, 1, 2, 3 in the jobs' child processes)
+    by_path["deploy"] = phase_deploy(work, dev)
+    mark("deploy")
 
     rows = phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev)
     time_train_step("gat", trainer, s, samples=trainer.cfg.samples_per_epoch)
@@ -3672,6 +3944,8 @@ def run(args, work: Path, dev="cuda") -> int:
     time_train_step("gat_2_heads", mh_trainer, s, samples=mh_trainer.cfg.samples_per_epoch)
     time_knn(rows, knn_feats, build_knn_s)
     time_tooling_and_legacy(rows, graph, h0, a_s, a_d, dev)
+    mark("timing")
+    emit({"phase": "walls", "walls_s": walls, "total_s": t_run[-1] - t_run[0]})
 
     kernels = []
     for kname, (src_path, replaces) in SOURCES.items():

@@ -34,6 +34,12 @@ Counterpart of `plotpointe_tpu/cli.py` for the ported commands:
   convert-weights local HF MiniLM / CLIP-vision checkpoint -> encoder npz
   pipeline  synth -> validate -> embeddings -> fuse -> graphs -> train, in
             one command (--in-process, --parallel, --continue)
+  provision declarative infra plan/apply/destroy/render (tools/provision.py,
+            deploy_torch/infra.yaml)
+  jobs      per-stage job specs: list/run/race (tools/jobs.py,
+            deploy_torch/jobs/*.yaml); like the JAX package's `cli jobs`, it
+            exits 0 whatever the job returns (`python -m
+            plotpointe_tpu_torch.tools.jobs` exits with the job's code)
 train, export, serve, build-knn, smoke, anchor, ablate, embed-text,
 embed-image, fuse and pipeline run on the GPU unless given `--device cpu`
 (embed-text's hash encoder and embed-image's URL hash run on the host);
@@ -489,6 +495,19 @@ def _cmd_pipeline(args):
                       "stage_wall_s": walls}))
 
 
+def _cmd_provision(args):
+    from plotpointe_tpu_torch.tools.provision import main
+
+    main(args.rest)
+
+
+def _cmd_jobs(args):
+    # the tool's return code is dropped, as `cli jobs` drops it in the JAX package
+    from plotpointe_tpu_torch.tools.jobs import main
+
+    main(args.rest)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="plotpointe_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -724,6 +743,16 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--device", default=None,
                    help="passed to every stage that takes it (default: cuda)")
     b.set_defaults(fn=_cmd_pipeline)
+
+    b = sub.add_parser("provision", add_help=False,
+                       help="declarative infra plan/apply/destroy (deploy_torch/infra.yaml)")
+    b.add_argument("rest", nargs=argparse.REMAINDER)
+    b.set_defaults(fn=_cmd_provision)
+
+    b = sub.add_parser("jobs", add_help=False,
+                       help="per-stage job specs: list/run (deploy_torch/jobs/*.yaml)")
+    b.add_argument("rest", nargs=argparse.REMAINDER)
+    b.set_defaults(fn=_cmd_jobs)
     return p
 
 

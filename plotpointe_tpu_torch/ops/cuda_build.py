@@ -17,15 +17,23 @@ The launch path is on every wrapper's hot path (LightGCN calls kernel 7 six
 times a step), so once a library is loaded `launch` takes no lock, enters
 `torch.cuda.device` only for a tensor off the current device, and reads the
 stream as a raw pointer without building a `torch.cuda.Stream`.
+
+With `PLOTPOINTE_LAUNCH_LOG=<file>` set, a process appends its counts to
+that file as one JSON line when it exits (`{"pid", "argv", "launches"}`),
+so a caller can read what a child process launched (`chip_smoke.py`'s
+job runs).
 """
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import itertools
+import json
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -101,6 +109,16 @@ COUNTERS = {name: LaunchCounter() for name in KERNELS + SHARED}
 def reset_counters() -> None:
     for c in COUNTERS.values():
         c.reset()
+
+
+def _log_launches(path: str) -> None:
+    with open(path, "a") as f:
+        f.write(json.dumps({"pid": os.getpid(), "argv": sys.argv,
+                            "launches": {k: c.count for k, c in COUNTERS.items()}}) + "\n")
+
+
+if os.environ.get("PLOTPOINTE_LAUNCH_LOG"):
+    atexit.register(_log_launches, os.environ["PLOTPOINTE_LAUNCH_LOG"])
 
 
 def _nvcc() -> str:

@@ -66,6 +66,20 @@ def attention_weights(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
     return alpha if mask is None else alpha * mask
 
 
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """out[k] = sum of data[t] over t with segment_ids[t] == k, out
+    [num_segments, ...]; ids outside [0, num_segments) are dropped, as
+    `jax.ops.segment_sum` drops them. Summed in a fixed order
+    (`index_sum_rows`): the same bits on every run, on the card too."""
+    keep = (segment_ids >= 0) & (segment_ids < num_segments)
+    return index_sum_rows(data[keep], segment_ids[keep], num_segments)
+
+
+def weighted_degree(graph: Graph, values: torch.Tensor) -> torch.Tensor:
+    """Sum of incoming edge values per node: [E] -> [N]."""
+    return segment_sum(values, graph.dst, graph.n_nodes)
+
+
 def spmm(graph: Graph, values: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y[d] = sum over edges s -> d of values_e * x[s]; x [N, F] -> [N, F], f32
     sums. `values` [E] in canonical (dst, src) order."""
@@ -77,10 +91,12 @@ def index_sum_rows(rows: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tenso
     """out[k] = sum of rows[t] over t with idx[t] == k, out [n, ...], summed
     in a fixed order: a stable sort by index, then one segment sum per
     index. Differentiable."""
+    out = torch.zeros((n,) + tuple(rows.shape[1:]), dtype=rows.dtype, device=rows.device)
+    if idx.numel() == 0:
+        return out
     order = torch.argsort(idx, stable=True)
     uniq, counts = torch.unique_consecutive(idx[order], return_counts=True)
     sums = torch.segment_reduce(rows[order], "sum", lengths=counts, axis=0)
-    out = torch.zeros((n,) + tuple(rows.shape[1:]), dtype=rows.dtype, device=rows.device)
     out[uniq.long()] = sums  # distinct indices: no accumulation
     return out
 

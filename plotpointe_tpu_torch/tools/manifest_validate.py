@@ -1,9 +1,11 @@
 """Manifest validator: check that every manifest's artifact prefixes exist.
 
-Counterpart of `plotpointe_tpu/tools/manifest_validate.py` for local
-prefixes (plain paths or `file://`; the port's ArtifactStore has no gs://
-half). Prints one report per manifest and exits 0 when every prefix exists,
-2 otherwise (`cli validate-manifests`).
+Counterpart of `plotpointe_tpu/tools/manifest_validate.py`. A prefix
+exists when a local path (plain or `file://`) exists, or when a gs://
+prefix holds at least one object (one listed blob, as the JAX tool asks;
+an object named exactly the prefix is not needed). Prints one report per
+manifest and exits 0 when every prefix exists, 2 otherwise (`cli
+validate-manifests`).
 
     python -m plotpointe_tpu_torch.tools.manifest_validate [--registry R] [--manifest-id ID]
 """
@@ -16,13 +18,21 @@ from plotpointe_tpu_torch.config import FeatureManifest, load_manifest, load_reg
 from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
 
 
+def prefix_exists(store: ArtifactStore, prefix: str) -> bool:
+    """True when a gs:// prefix lists at least one blob, or a local path exists."""
+    if str(prefix).startswith("gs://"):
+        bucket, blob = store._split(prefix)
+        return any(True for _ in store._client().list_blobs(bucket, prefix=blob, max_results=1))
+    return store.exists(prefix)
+
+
 def validate_manifest(manifest: FeatureManifest, store: ArtifactStore | None = None) -> dict:
     """{"id", "paths": {key: {"prefix", "exists"}}, "ok"} over REQUIRED_PATHS."""
     store = store or ArtifactStore()
     results = {}
     for key in FeatureManifest.REQUIRED_PATHS:
         prefix = manifest.paths[key]
-        results[key] = {"prefix": prefix, "exists": store.exists(prefix)}
+        results[key] = {"prefix": prefix, "exists": prefix_exists(store, prefix)}
     return {"id": manifest.id, "paths": results, "ok": all(r["exists"] for r in results.values())}
 
 

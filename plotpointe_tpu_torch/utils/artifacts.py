@@ -149,3 +149,23 @@ class ArtifactStore:
         if self.exists(npz):
             return self.load_npz(npz)
         return self.load_parquet(f"{prefix}/{name}.parquet")
+
+
+# The canonical artifact names: the file contracts between stages.
+CONTRACTS = {
+    "interactions": "interactions.parquet",
+    "items": "items.parquet",
+    "txt": "txt.npy",
+    "txt_meta": "txt_meta.json",
+    "img": "img.npy",
+    "img_items": "img_items.parquet",
+    "fused": "fused.npy",
+    "fusion_config": "fusion_config.json",
+    "txt_interacted": "txt_interacted.npy",
+    "fused_interacted": "fused_interacted.npy",
+    "interacted_items": "interacted_items.json",
+    "ui_edges": "ui_edges.npz",
+    "node_maps": "node_maps.json",
+    "ui_stats": "ui_stats.json",
+    "item_embeddings": "exports/item_embeddings.npy",
+}

@@ -13,7 +13,8 @@ ending at a piece boundary, 1 to 8 heads, D 96 on idle tail lanes, strided
 head rows, column strips in kernels 1, 3 and 2, equal bits on a second
 call, misaligned rows raising); in plain PyTorch ops, the MiniLM and
 CLIP towers (f32 with TF32 off, and bf16) and one fusion step's gradients
-against the CPU; and sharded training (`-k sharded`): kernels 1, 2, 3, 8,
+against the CPU; `ops.segment_sum`'s equal bits on a second call; and
+sharded training (`-k sharded`): kernels 1, 2, 3, 8,
 9 and 7 on shards' local graphs against their plain versions and their
 owned rows against the unsharded output, and one spawned NCCL rank's fused
 step against the unsharded model's autograd.
@@ -859,6 +860,30 @@ def test_legacy_dispatch_on_card_matches_reference_versions(cuda, heads, d):
     torch.testing.assert_close(res[0][0], res[1][0], rtol=1e-4, atol=1e-5)
     for a, b in zip(res[0][1], res[1][1]):
         torch.testing.assert_close(a, b, **GRAD_TOL)
+
+
+def test_segment_sum_gives_the_same_bits_twice(cuda):
+    """`ops.segment_sum` on the card: a hot segment of 20,000 rows among
+    ~50,000 spread ones, ids out of range dropped; the sums and the
+    gradient are the same bits on a second call (a fixed order of sums, no
+    float atomics), and equal the CPU's within f32 summation error."""
+    from plotpointe_tpu_torch.ops import segment_sum
+
+    rng = np.random.default_rng(16)
+    e, n = 70_000, 4_000
+    ids = np.where(rng.random(e) < 0.3, 17, rng.integers(-3, n + 3, e))
+    data = rng.normal(size=(e, 64)).astype(np.float32)
+    ct = torch.as_tensor(rng.normal(size=(n, 64)).astype(np.float32), device=cuda)
+    runs = []
+    for _ in range(2):
+        x = torch.as_tensor(data, device=cuda).requires_grad_()
+        out = segment_sum(x, torch.as_tensor(ids, device=cuda), n)
+        (out * ct).sum().backward()
+        torch.cuda.synchronize()
+        runs.append((out.detach(), x.grad))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    want = segment_sum(torch.as_tensor(data), torch.as_tensor(ids), n)
+    torch.testing.assert_close(runs[0][0].cpu(), want, rtol=1e-5, atol=1e-3)
 
 
 def test_legacy_v1_two_heads_gives_the_same_bits_twice(cuda):

@@ -1,5 +1,8 @@
 """The port stands alone: no module of it imports JAX or the JAX package, and
-its entry points refuse to drift onto the CPU."""
+its entry points refuse to drift onto the CPU. Its subpackages export the
+names the JAX package's do, apart from those with no counterpart by design."""
+import ast
+import importlib
 import json
 import pkgutil
 import subprocess
@@ -35,7 +38,7 @@ def test_port_imports_no_jax():
               "models.embed_stages", "tools.convert_weights", "parallel", "parallel.mesh",
               "parallel.multihost", "parallel.collectives", "parallel.sharded_table",
               "parallel.spmd", "parallel.cases", "train.sharded", "tools.multihost_smoke",
-              "tools.scaling_audit", "tools.multichip_dryrun"):
+              "tools.scaling_audit", "tools.multichip_dryrun", "tools.provision", "tools.jobs"):
         assert f"plotpointe_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, json, sys\n"
@@ -71,3 +74,42 @@ def test_env_entry_point_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+# JAX names with no counterpart by design (ROADMAP.md, "Deliberate differences"):
+# an optax pytree, and the top-K entry points, whose port is `ops.topk_mips`
+NO_COUNTERPART = {"train": {"TrainState"}, "ops": {"topk_mips_pallas", "topk_mips_xla"}}
+SUBPACKAGES = ("data", "models", "ops", "serving", "train", "utils", "graphs", "parallel")
+
+
+def _jax_all(sub: str) -> list:
+    """`__all__` of `plotpointe_tpu/<sub>/__init__.py`, read without importing JAX."""
+    tree = ast.parse((ROOT / "plotpointe_tpu" / sub / "__init__.py").read_text())
+    (node,) = [n for n in tree.body if isinstance(n, ast.Assign) and n.targets[0].id == "__all__"]
+    return ast.literal_eval(node.value)
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_subpackages_export_the_jax_names(sub):
+    want = [n for n in _jax_all(sub) if n not in NO_COUNTERPART.get(sub, set())]
+    mod = importlib.import_module(f"plotpointe_tpu_torch.{sub}")
+    for name in want:
+        assert getattr(mod, name) is not None, name
+    assert set(want) <= set(mod.__all__)
+    assert set(mod.__all__) - set(want) <= ({"topk_mips"} if sub == "ops" else set())
+    for name in NO_COUNTERPART.get(sub, ()):
+        assert name in _jax_all(sub) and not hasattr(mod, name)
+
+
+def test_module_names_of_item_10():
+    from plotpointe_tpu_torch.ops import gat_fused, segment
+    from plotpointe_tpu_torch.tools.manifest_validate import prefix_exists
+    from plotpointe_tpu_torch.train import Trainer
+    from plotpointe_tpu_torch.utils.artifacts import CONTRACTS
+
+    assert gat_fused.EPS == segment.EPS == 1e-9
+    assert callable(segment.segment_sum) and callable(segment.weighted_degree)
+    assert callable(prefix_exists) and Trainer.__name__ == "Trainer"
+    jax_contracts = ast.literal_eval(
+        ast.parse((ROOT / "plotpointe_tpu/utils/artifacts.py").read_text()).body[-1].value)
+    assert CONTRACTS == jax_contracts

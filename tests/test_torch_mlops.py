@@ -11,6 +11,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -19,16 +20,19 @@ import torch
 
 from plotpointe_tpu.config import FeatureManifest as JaxManifest
 from plotpointe_tpu.data import synthetic as jax_syn
+from plotpointe_tpu.tools.manifest_validate import validate_manifest as jax_validate_manifest
 from plotpointe_tpu.tools.promotion_gate import GateSpec as JaxGateSpec
+from plotpointe_tpu.utils.artifacts import ArtifactStore as JaxStore
 from plotpointe_tpu.utils.experiments import ExperimentTracker as JaxTracker
 from plotpointe_tpu_torch import cli
 from plotpointe_tpu_torch.config import FeatureManifest, load_manifest, load_registry
 from plotpointe_tpu_torch.data.splits import first_occurrence_unique
 from plotpointe_tpu_torch.data.synthetic import synthetic_features, synthetic_interactions
 from plotpointe_tpu_torch.tools import anchor
-from plotpointe_tpu_torch.tools.manifest_validate import validate_manifest
+from plotpointe_tpu_torch.tools.manifest_validate import prefix_exists, validate_manifest
 from plotpointe_tpu_torch.tools.promotion_gate import GateSpec, evaluate
 from plotpointe_tpu_torch.utils.experiments import ExperimentTracker
+from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
 from plotpointe_tpu_torch.utils.logging import timed
 from plotpointe_tpu_torch.utils.prng import host_rng, key_seq, set_seeds
 
@@ -121,6 +125,57 @@ def test_manifest_validator(tmp_path):
     assert not rep["ok"]
     assert rep["paths"]["graphs_prefix"]["exists"] is False
     assert rep["paths"]["staging_prefix"]["exists"] is True
+
+
+class _ListingStorage:
+    """A google.cloud.storage.Client stand-in over a set of (bucket, blob)
+    names: `list_blobs` lists by prefix, `blob(name).exists()` asks for one
+    exact name, as GCS does."""
+
+    def __init__(self, names):
+        self.names = set(names)
+
+    def list_blobs(self, bucket, prefix="", max_results=None):
+        hits = sorted(n for b, n in self.names if b == bucket and n.startswith(prefix))
+        return iter([types.SimpleNamespace(name=n) for n in hits[:max_results]])
+
+    def bucket(self, bucket):
+        return types.SimpleNamespace(blob=lambda name: types.SimpleNamespace(
+            exists=lambda: (bucket, name) in self.names))
+
+
+GCS_BLOBS = {("bkt", "features/v1/txt.npy"), ("bkt", "features/v1/img.npy"), ("bkt", "models/ckpt.npz"),
+             ("other", "graphs/ui_edges.npz")}
+
+
+@pytest.mark.parametrize("case", ["gs_objects_under", "gs_empty", "gs_exact_object", "local"])
+def test_manifest_reports_equal_jax_on_gs_and_local_prefixes(tmp_path, case):
+    """Fault C1: a gs:// prefix exists when an object lies under it (one
+    listed blob), not only when an object is named exactly the prefix."""
+    (tmp_path / "here").mkdir()
+    paths = {
+        "gs_objects_under": ("gs://bkt/features/v1", "gs://bkt/features", "gs://other/graphs/"),
+        "gs_empty": ("gs://bkt/features/v2", "gs://empty/x", "gs://bkt/features/v1"),
+        "gs_exact_object": ("gs://bkt/models/ckpt.npz", "gs://bkt/models", "gs://other/graphs/ui_edges.npz"),
+        "local": (str(tmp_path / "here"), f"file://{tmp_path / 'here'}", str(tmp_path / "missing")),
+    }[case]
+    reports = []
+    for store_cls, manifest_cls, validate in ((ArtifactStore, FeatureManifest, validate_manifest),
+                                              (JaxStore, JaxManifest, jax_validate_manifest)):
+        store = store_cls(cache_dir=str(tmp_path / "cache"))
+        store._gcs_client = _ListingStorage(GCS_BLOBS)
+        m = manifest_cls(id="c1", dataset="d", paths=dict(zip(
+            ("staging_prefix", "embeddings_prefix", "graphs_prefix"), paths)))
+        reports.append(validate(m, store))
+    assert reports[0] == reports[1]
+    want = {"gs_objects_under": [True, True, True], "gs_empty": [False, False, True],
+            "gs_exact_object": [True, True, True], "local": [True, True, False]}[case]
+    assert [reports[0]["paths"][k]["exists"] for k in ("staging_prefix", "embeddings_prefix",
+                                                       "graphs_prefix")] == want
+    if case == "gs_objects_under":  # ArtifactStore.exists still asks for one exact object, as JAX's does
+        store = ArtifactStore()
+        store._gcs_client = _ListingStorage(GCS_BLOBS)
+        assert prefix_exists(store, "gs://bkt/features/v1") and not store.exists("gs://bkt/features/v1")
 
 
 def test_manifest_registry_and_errors_match_jax(tmp_path):
