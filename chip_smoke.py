@@ -89,10 +89,11 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            control (the plain path again with the last layer's weights one
            f32 ulp up) shows how far such flips alone move the output; each
            kernel must have launched
-  anchor   path 8, the quality anchor: the anchor's data alone first (the
-           generator's host seconds, peak host memory), then, counters at
-           0, `cli anchor --scale full` in-process with the gate's defaults
-           and the port's baseline file (`tools/anchor_baseline.json`):
+  anchor   path 8, the quality anchor: counters at 0, `cli anchor --scale
+           full` in-process with the gate's defaults and the port's
+           baseline file (`tools/anchor_baseline.json`), its own call of the
+           generator timed (host seconds, peak host memory) and its data
+           kept for path 9 (no second run of the generator):
            the chance, popularity, inverse-popularity and factor-oracle
            baselines, the untrained GAT, the reference protocol (20 epochs
            of one 200,000-sample Adam step, bf16 rows) and the 32-step
@@ -142,15 +143,18 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            "decode": "absent", the tower on seeded pixel arrays), held to
            the CPU f32 tower (bf16 within 1e-2, the card's f32 within 1e-4);
            then the zero-egress default at the full catalog: the hash text
-           stage, the URL-hash image stage unchunked and in 4 chunks +
-           `merge_image_chunks` (equal bits), `fuse_stage` at
+           stage, the URL-hash image stage unchunked, and in 4 chunks +
+           `merge_image_chunks` over its first 20,000 rows (equal bits; cut
+           from all 149,669), `fuse_stage` at
            FusionConfig's defaults (losses finite and falling; one step's
            loss and gradients on the card = the CPU's within GRAD_TOL;
            `fuse_all_items` on the card = the CPU's within 1e-5); the walls
            of compose, hash encode, fuse training and inference
-  pipeline path 13, counters at 0 first: `cli pipeline --in-process` at the
-           Amazon shape (192,403 x 63,001 x 1,689,116, 435,195 extra items,
-           hidden 128, 200,000 samples, 1,000 negatives, 2 epochs): it must
+  pipeline path 13, counters at 0 first: `cli pipeline --in-process` at a
+           tenth of the Amazon shape (19,240 x 6,300 x 168,912, 43,520 extra
+           items; cut from 192,403 x 63,001 x 1,689,116 and 435,195, whose
+           stages paths 1-5, 8 and 12 run; hidden 128, 200,000 samples,
+           1,000 negatives, 2 epochs): it must
            end "complete", leave every sentinel artifact and launch kernels
            10, 1, 2 and 3; the same command with `--continue` must skip
            every sentinel stage; then the subprocess mode `--parallel
@@ -2297,25 +2301,27 @@ def peak_host_gb() -> float:
 
 
 def phase_anchor(work: Path, dev) -> tuple[dict, tuple]:
-    """Path 8: the quality anchor. First the anchor's data alone, as the
-    gate's config generates it (the generator's host seconds and peak host
-    memory), kept for the ablate path. Then, counters at 0, `cli anchor
-    --scale full` in-process with the gate's defaults, the port's baseline
-    file as `--gate-baseline` and the beyond-parity leg (adam; the gate
-    skips the adamw leg): it must print PASS, launch kernels 1, 2 and 3, and
-    match the archived JAX run (`ARCHIVED_ANCHOR`): the dataset block and
-    generator config field for field, the baselines' NDCG@20 within
-    ANCHOR_BASELINE_TOL. Returns (launches, (interactions, item factors,
-    generator config))."""
+    """Path 8: the quality anchor. Counters at 0, `cli anchor --scale full`
+    in-process with the gate's defaults, the port's baseline file as
+    `--gate-baseline` and the beyond-parity leg (adam; the gate skips the
+    adamw leg): it must print PASS, launch kernels 1, 2 and 3, and match the
+    archived JAX run (`ARCHIVED_ANCHOR`): the dataset block and generator
+    config field for field, the baselines' NDCG@20 within
+    ANCHOR_BASELINE_TOL. The anchor's own call of the generator is timed
+    (host seconds, peak host memory) and its data kept for the ablate
+    path. Returns (launches, (interactions, item factors, generator
+    config))."""
     from plotpointe_tpu_torch.ops import cuda_build
     from plotpointe_tpu_torch.tools import anchor
 
-    cfg = json.loads(anchor.BASELINE.read_text())["generator_config"]
-    rss_before = peak_host_gb()
-    t0 = time.perf_counter()
-    inter, (_, i_fac) = anchor.anchor_data(cfg)
-    gen_s = time.perf_counter() - t0
-    gen_peak = peak_host_gb()
+    gen, plain_data = [], anchor.anchor_data
+
+    def timed_data(cfg):
+        rss = peak_host_gb()
+        t = time.perf_counter()
+        r = plain_data(cfg)
+        gen.append((r[0], r[1][1], cfg, time.perf_counter() - t, rss, peak_host_gb()))
+        return r
 
     # the wall of each scored leg: the anchor's own evals, in its order
     # (the trainer's val and test evals call their own import of sampled_eval)
@@ -2332,12 +2338,12 @@ def phase_anchor(work: Path, dev) -> tuple[dict, tuple]:
 
     cuda_build.reset_counters()
     t0 = time.perf_counter()
-    evaluate.sampled_eval = timed_eval
+    evaluate.sampled_eval, anchor.anchor_data = timed_eval, timed_data
     try:
         out, code = in_process_cli(["anchor", "--scale", "full", "--out", str(work / "anchor"),
                                     "--gate-baseline", str(anchor.BASELINE), "--device", str(dev)])
     finally:
-        evaluate.sampled_eval = plain_eval
+        evaluate.sampled_eval, anchor.anchor_data = plain_eval, plain_data
     sync()
     wall = time.perf_counter() - t0
     launches = counts()
@@ -2353,6 +2359,10 @@ def phase_anchor(work: Path, dev) -> tuple[dict, tuple]:
     same_data = res["dataset"] == archived["dataset"]
     same_cfg = res["generator_config"] == archived["generator_config"]
     missing = [k for k in PATH_KERNELS["anchor"] if launches[k] == 0]
+    if len(gen) != 1:
+        raise AssertionError(f"anchor: the generator ran {len(gen)} times in `cli anchor` (exit {code}), "
+                             f"want 1: {out[-2000:]}")
+    inter, i_fac, cfg, gen_s, rss_before, gen_peak = gen[0]
     passed = code == 0 and gate is not None and gate["anchor_gate"] == "PASS"
     ok = (passed and same_data and same_cfg and max(baseline_err.values()) <= ANCHOR_BASELINE_TOL
           and not missing)
@@ -2670,8 +2680,13 @@ TOWER_F32_ATOL = 1e-4
 # unit rows: ~2.5 bf16 steps (2^-8); the CPU's own bf16 lands 1.9e-3 off
 TOWER_BF16_ATOL = 1e-2
 FUSE_ALL_ATOL = 1e-5  # fuse_all_items card vs CPU, the same parameters (f32, TF32 off)
-# `cli pipeline --in-process` at the Amazon shape (JAX's `synth` generator)
-PIPELINE = dict(users=192_403, items=63_001, interactions=1_689_116, extra_items=435_195,
+# URL-hash rows the 4-chunk image stage re-embeds against the unchunked one (cut from all
+# 149,669 for time: path 13's `--parallel` run makes the same check on its own catalog)
+IMAGE_CHUNK_CHECK_ROWS = 20_000
+# `cli pipeline --in-process` at a tenth of the Amazon shape (JAX's `synth` generator; cut
+# from 192,403 x 63,001 x 1,689,116 + 435,195 for time: paths 1-5, 8 and 12 run its stages'
+# functions at the full shape)
+PIPELINE = dict(users=19_240, items=6_300, interactions=168_912, extra_items=43_520,
                 hidden_dim=128, samples_per_epoch=200_000, eval_neg_k=1000, epochs=2)
 
 
@@ -2867,8 +2882,9 @@ def embed_image_tower(work: Path, seed: int, dev) -> dict:
 
 def embed_zero_egress(work: Path, items: dict, dev) -> dict:
     """The zero-egress default at the full catalog: `embed_text_stage` with
-    the hash encoder, `embed_image_stage` on the URL-hash path unchunked and
-    in 4 chunks + `merge_image_chunks` (bit-equal), then `fuse_stage` at
+    the hash encoder, `embed_image_stage` on the URL-hash path unchunked,
+    and again in 4 chunks + `merge_image_chunks` over its first
+    IMAGE_CHUNK_CHECK_ROWS rows (bit-equal to those), then `fuse_stage` at
     FusionConfig's defaults on the card: losses finite and falling from epoch
     1 to 5, one step's loss and gradients on the card against the CPU
     (GRAD_TOL), `fuse_all_items` on the card against the CPU on the trained
@@ -2900,20 +2916,24 @@ def embed_zero_egress(work: Path, items: dict, dev) -> dict:
     text_stage_s = time.perf_counter() - t0
     check_rows("embed hash text", txt, n, 384)
     t0 = time.perf_counter()
-    img, meta = embed_image_stage(items, str(out / "whole"))
+    img, meta = embed_image_stage(items, str(out))
     image_stage_s = time.perf_counter() - t0
     n_img = len(image_rows(items))
-    per = (n_img + 3) // 4
+    n_check = min(IMAGE_CHUNK_CHECK_ROWS, n_img)
+    per = (n_check + 3) // 4
     t0 = time.perf_counter()
     for c in range(4):
-        embed_image_stage(items, str(out), chunk_start=c * per, chunk_end=(c + 1) * per, chunk_id=c)
-    merged, merged_items = merge_image_chunks(str(out), 4)
+        embed_image_stage(items, str(out / "chunks"), chunk_start=c * per,
+                          chunk_end=min((c + 1) * per, n_check), chunk_id=c)
+    merged, merged_items = merge_image_chunks(str(out / "chunks"), 4)
     chunks_s = time.perf_counter() - t0
     store = ArtifactStore()
-    whole_items = store.load_parquet(str(out / "whole" / "img_items.parquet"))
-    same = np.array_equal(merged, img) and list(merged_items["asin"]) == list(whole_items["asin"])
+    whole_items = store.load_parquet(str(out / "img_items.parquet"))
+    same = (np.array_equal(merged, img[:n_check])
+            and list(merged_items["asin"]) == list(whole_items["asin"][:n_check]))
     if not same or meta["n_images"] != n_img:
-        raise AssertionError(f"embed: 4 merged chunks differ from the unchunked image stage ({n_img} rows)")
+        raise AssertionError(f"embed: 4 merged chunks differ from the unchunked image stage's first {n_check} "
+                             f"of {n_img} rows")
 
     walls, captured = {}, {}
     plain_train, plain_fuse = fusion.train_fusion, fusion.fuse_all_items
@@ -2971,7 +2991,7 @@ def embed_zero_egress(work: Path, items: dict, dev) -> dict:
     fuse_err = float(np.abs(fused - want).max())
     line = {"catalog_rows": n, "image_rows": n_img, "compose_s": compose_s, "hash_encode_s": hash_s[0],
             "text_stage_s": text_stage_s, "image_stage_s": image_stage_s, "image_4_chunks_merge_s": chunks_s,
-            "chunks_equal_unchunked": same, "fuse_stage_s": fuse_s, **walls,
+            "chunk_check_rows": n_check, "chunks_equal_unchunked": same, "fuse_stage_s": fuse_s, **walls,
             "fuse_inference_cpu_s": fuse_cpu_s,
             "fusion_losses": hist, "first_step_loss": {"card": l_dev, "cpu": l_cpu},
             "first_step_grad_max_abs_err": grad_err, "grad_tol": GRAD_TOL,
@@ -3015,9 +3035,9 @@ def pipeline_args(workdir: Path, shape: dict, dev=None) -> list:
 
 
 def phase_pipeline(work: Path, dev) -> dict:
-    """Path 13: `cli pipeline --in-process` at the Amazon shape (PIPELINE),
-    counters at 0 first: it must end "complete", launch kernels 10, 1, 2
-    and 3 and leave every sentinel artifact; then the same command with
+    """Path 13: `cli pipeline --in-process` at a tenth of the Amazon shape
+    (PIPELINE), counters at 0 first: it must end "complete", launch kernels
+    10, 1, 2 and 3 and leave every sentinel artifact; then the same command with
     `--continue` must skip every sentinel stage. Then, in a fresh workdir,
     the subprocess mode `--parallel --image-chunks 4` at JAX's defaults
     (every lane on the card): exit 0, and its merged img.npy and

@@ -5,7 +5,7 @@ at the smoke's sizes, each with its checks.
 
     python3 docs/scripts/embed_paths.py [embed | pipeline]
 
-With an argument only that path runs. About 5 minutes on an H100 (both
+With an argument only that path runs. About 4 minutes on an H100 (both
 paths), against the full smoke's ~11.
 """
 from __future__ import annotations

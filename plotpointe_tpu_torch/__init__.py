@@ -35,14 +35,15 @@ def resolve_device(device=None) -> torch.device:
 
 @contextlib.contextmanager
 def full_f32_matmul() -> Iterator[None]:
-    """CUDA f32 matrix products in full f32 inside the block (TF32 off), as
-    the JAX package's HIGH/HIGHEST precisions ask; the setting is restored."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """CUDA f32 matrix products and cuDNN convolutions in full f32 inside the
+    block (TF32 off), as the JAX package's HIGH/HIGHEST precisions ask; the
+    settings are restored."""
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
 @contextlib.contextmanager

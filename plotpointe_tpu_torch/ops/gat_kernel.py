@@ -52,7 +52,7 @@ from plotpointe_tpu_torch.ops.gat_fused import (
     HEAD_ID_STRIDE, MAX_PACKED_HEADS, MAX_PACKED_WIDTH, _check, _fwd, attention_fwd_plain,
     attention_v3, attention_v3_mh, segment_sum_rows, segment_sum_rows_plain)
 from plotpointe_tpu_torch.ops.segment import (
-    attention_weights, bernoulli_mask, segment_softmax_attention)
+    attention_weights, bernoulli_mask, resolve_attn_impl, segment_softmax_attention)
 from plotpointe_tpu_torch.ops.spmm_kernel import spmm_gathered, spmm_gathered_plain
 
 FUSED_REDUCE_LAUNCHES = cb.COUNTERS["fused_segment_reduce"]
@@ -66,11 +66,9 @@ def resolve_hs_dtype(impl: str, device) -> torch.dtype:
     JAX trainer's kernel path); `xla`, and `auto` on the CPU, keep them f32
     (the JAX golden's function). There is no separate golden path on the
     card."""
-    if impl == "pallas" or (impl == "auto" and torch.device(device).type == "cuda"):
-        return torch.bfloat16
-    if impl in ("auto", "xla"):
-        return torch.float32
-    raise ValueError(f"unknown impl {impl!r} (expected auto|xla|pallas)")
+    if impl not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown impl {impl!r} (expected auto|xla|pallas)")
+    return torch.bfloat16 if resolve_attn_impl(impl, device) == "pallas" else torch.float32
 
 
 def _pad_width(h, a_src, a_dst, width):

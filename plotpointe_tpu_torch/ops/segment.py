@@ -29,6 +29,16 @@ LOGIT_CLAMP = 10.0
 EPS = 1e-9
 
 
+def resolve_attn_impl(impl: str, device=None) -> str:
+    """"auto" -> "pallas" (the kernel path) on a CUDA device, "xla" (the
+    plain golden) elsewhere; any other value is returned unchanged, as the
+    JAX package's `resolve_attn_impl` returns it. `device` None means the
+    port's default device, the card."""
+    if impl == "auto":
+        return "pallas" if torch.device("cuda" if device is None else device).type == "cuda" else "xla"
+    return impl
+
+
 def edge_numerators(gs: torch.Tensor, gd: torch.Tensor, graph: Graph) -> torch.Tensor:
     """exp(clamp(lrelu(gs[src] + gd[dst]))) per edge from per-node logit terms."""
     e = gather_rows(gs, graph.src) + gather_rows(gd, graph.dst)

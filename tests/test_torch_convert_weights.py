@@ -4,7 +4,9 @@ network) through the port's converter give HF's outputs (f32 rtol 1e-4 /
 atol 1e-5), the converter's arrays equal JAX's, `convert` reads
 `model.safetensors` and `pytorch_model.bin`, and either package's npz loads
 in the other. The real-checkpoint fixtures stay gated on their files, as
-`tests/test_convert_weights.py`'s do."""
+`tests/test_convert_weights.py`'s do; their checks (`check_real_minilm`,
+`check_real_clip`) also run in `tests/test_torch_fetch_fixtures.py` on
+fixtures written from random-init models at the real dimensions."""
 from pathlib import Path
 
 import jax
@@ -160,22 +162,40 @@ def _cos_rows(a, b):
     return (a * b).sum(1)
 
 
-@pytest.mark.skipif(not (FIXTURES / "minilm_real.npz").exists(),
-                    reason="real-weight fixture absent (needs the real checkpoint's files in the repo)")
-def test_real_minilm_checkpoint_parity():
-    blob = np.load(FIXTURES / "minilm_real.npz")
+def check_real_minilm(path) -> np.ndarray:
+    """The MiniLM tower at its real dimensions, loaded from a `minilm_real.npz`
+    (`tools/fetch_fixtures`), against the file's HF reference: cosine >=
+    0.999 on every probe. Returns the tower's rows."""
+    blob = np.load(path)
     ids, mask = blob["probe_ids"], blob["probe_mask"]
     tower = TransformerTextEncoder(max_len=ids.shape[1])
     tower.load_state_dict(encoder_params_from_jax(_fixture_params(blob)))
     got = tower.eval()(torch.as_tensor(ids), torch.as_tensor(mask)).detach().numpy()
     assert (_cos_rows(got, blob["ref_pooled"]) >= 0.999).all()
+    return got
 
 
-@pytest.mark.skipif(not (FIXTURES / "clip_real.npz").exists(),
-                    reason="real-weight fixture absent (needs the real checkpoint's files in the repo)")
-def test_real_clip_checkpoint_parity():
-    blob = np.load(FIXTURES / "clip_real.npz")
+def check_real_clip(path) -> np.ndarray:
+    """The CLIP ViT-B/32 tower loaded from a `clip_real.npz` against the
+    file's HF reference: cosine >= 0.999 on every probe. Returns the tower's
+    rows."""
+    blob = np.load(path)
     tower = ViTImageEncoder()
     tower.load_state_dict(encoder_params_from_jax(_fixture_params(blob)))
     got = tower.eval()(torch.as_tensor(blob["probe_pixels"])).detach().numpy()
     assert (_cos_rows(got, blob["ref_embeds"]) >= 0.999).all()
+    return got
+
+
+@pytest.mark.skipif(not (FIXTURES / "minilm_real.npz").exists(),
+                    reason="real-weight fixture absent (make it with tools/fetch_fixtures on a machine "
+                           "with network access)")
+def test_real_minilm_checkpoint_parity():
+    check_real_minilm(FIXTURES / "minilm_real.npz")
+
+
+@pytest.mark.skipif(not (FIXTURES / "clip_real.npz").exists(),
+                    reason="real-weight fixture absent (make it with tools/fetch_fixtures on a machine "
+                           "with network access)")
+def test_real_clip_checkpoint_parity():
+    check_real_clip(FIXTURES / "clip_real.npz")

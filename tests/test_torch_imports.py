@@ -38,7 +38,8 @@ def test_port_imports_no_jax():
               "models.embed_stages", "tools.convert_weights", "parallel", "parallel.mesh",
               "parallel.multihost", "parallel.collectives", "parallel.sharded_table",
               "parallel.spmd", "parallel.cases", "train.sharded", "tools.multihost_smoke",
-              "tools.scaling_audit", "tools.multichip_dryrun", "tools.provision", "tools.jobs"):
+              "tools.scaling_audit", "tools.multichip_dryrun", "tools.provision", "tools.jobs",
+              "tools.fetch_fixtures"):
         assert f"plotpointe_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, json, sys\n"
@@ -49,6 +50,24 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_resolve_attn_impl_imports_no_jax_and_no_cuda():
+    """`ops.segment.resolve_attn_impl` resolves "auto" for a CUDA device
+    without JAX, the JAX package or a CUDA context; `tools.fetch_fixtures`
+    imports `transformers` only when it runs."""
+    code = (
+        "import json, sys, torch\n"
+        "from plotpointe_tpu_torch.ops.segment import resolve_attn_impl\n"
+        "import plotpointe_tpu_torch.tools.fetch_fixtures\n"
+        "got = [resolve_attn_impl('auto', d) for d in ('cuda', 'cpu', None)]\n"
+        "print(json.dumps([got, torch.cuda.is_initialized(), 'transformers' in sys.modules,"
+        " sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'plotpointe_tpu' or m.startswith('plotpointe_tpu.'))]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [["pallas", "xla", "pallas"], False, False, []]
 
 
 def test_resolve_device_needs_cuda_unless_cpu_is_asked():
