@@ -3,14 +3,16 @@
 Counterpart of `plotpointe_tpu/cli.py` for the ported commands:
   train   interactions (+ item features for the GAT) -> best checkpoint +
           metrics JSON (GAT or LightGCN; --mesh SPEC trains over a mesh of
-          ranks, one per GPU, spawned here, with ShardedTrainer)
+          ranks, one per GPU, spawned here, with ShardedTrainer; --trace PATH
+          writes this process's spans as a Chrome trace after the fit)
   export  checkpoint + interactions (+ item features for the GAT) ->
           item_embeddings.npy
   serve   top-K server: the stdlib HTTP server (--stdlib or
           $PLOTPOINTE_STDLIB_HTTP; --item-embeddings, else $ITEM_EMBEDDINGS_URI,
           is loaded at start), else the FastAPI app under uvicorn (the
           `serving` extra); --telemetry-dir logs requests and feedback
-          (--telemetry-durable: through the durable queue)
+          (--telemetry-durable: through the durable queue); --trace PATH
+          writes the spans as a Chrome trace when the server stops
   drift   hourly drift aggregates of a telemetry directory
   build-ui      interactions -> ui_edges.npz + node_maps.json + ui_stats.json
   build-subset  full-catalog features + items + interactions ->
@@ -51,11 +53,31 @@ arrays) when they exist, else from the parquet files.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
 
 import numpy as np
+
+
+@contextlib.contextmanager
+def _traced(path):
+    """Record the port's spans over the block and write them to `path` as a
+    Chrome trace when it ends (nothing without a path)."""
+    if not path:
+        yield
+        return
+    from plotpointe_tpu_torch.utils import tracing
+
+    tracing.enable()
+    try:
+        yield
+    finally:
+        tracing.disable()
+        n = tracing.write_chrome_trace(path)
+        print(json.dumps({"trace": path, "spans": n, "dropped": tracing.dropped()}),
+              file=sys.stderr, flush=True)
 
 
 def _cmd_train(args):
@@ -81,10 +103,11 @@ def _cmd_train(args):
         warmup_steps=args.warmup_steps,
         mesh_shape=args.mesh,
     )
-    results = train_from_artifacts(cfg, staging_prefix=args.staging_prefix,
-                                   embeddings_prefix=args.embeddings_prefix,
-                                   models_prefix=args.models_prefix, resume=args.resume,
-                                   device=args.device)
+    with _traced(args.trace):
+        results = train_from_artifacts(cfg, staging_prefix=args.staging_prefix,
+                                       embeddings_prefix=args.embeddings_prefix,
+                                       models_prefix=args.models_prefix, resume=args.resume,
+                                       device=args.device)
     print(json.dumps({"best_val_ndcg@20": results["best_val_ndcg@20"], "test": results["test"]},
                      indent=2))
 
@@ -116,7 +139,8 @@ def _cmd_serve(args):
             import uvicorn
         except ImportError as e:
             raise ImportError(SERVING_EXTRA) from e
-        uvicorn.run(app, host=args.host, port=args.port)
+        with _traced(args.trace):
+            uvicorn.run(app, host=args.host, port=args.port)
         return
     from plotpointe_tpu_torch.serving.httpd import serve
     from plotpointe_tpu_torch.serving.runtime import RecommenderRuntime, ServingConfig
@@ -129,9 +153,10 @@ def _cmd_serve(args):
         rt.startup()
     print(json.dumps({"serving": f"http://{args.host}:{args.port}", "loaded": rt is not None,
                       "telemetry": bool(telemetry), "micro_batch": args.micro_batch}), flush=True)
-    serve(args.host, args.port, runtime=rt, telemetry=telemetry, block=True,
-          micro_batch=args.micro_batch, micro_batch_max=args.micro_batch_max,
-          micro_batch_wait_ms=args.micro_batch_wait_ms)
+    with _traced(args.trace):
+        serve(args.host, args.port, runtime=rt, telemetry=telemetry, block=True,
+              micro_batch=args.micro_batch, micro_batch_max=args.micro_batch_max,
+              micro_batch_wait_ms=args.micro_batch_wait_ms)
 
 
 def _cmd_drift(args):
@@ -508,6 +533,10 @@ def _cmd_jobs(args):
     main(args.rest)
 
 
+TRACE_HELP = ("record the port's spans (utils/tracing.py; off by default) and write them to PATH "
+              "as a Chrome trace for Perfetto (train --mesh: the spawned ranks are not traced)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="plotpointe_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -544,6 +573,7 @@ def build_parser() -> argparse.ArgumentParser:
                         'GPU, or gloo ranks with --device cpu; the ranks are spawned here unless '
                         'this process is one of them)')
     t.add_argument("--device", default=None, help="default: cuda")
+    t.add_argument("--trace", default=None, metavar="PATH", help=TRACE_HELP)
     t.set_defaults(fn=_cmd_train)
 
     e = sub.add_parser("export", help="checkpoint -> item_embeddings.npy")
@@ -571,6 +601,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--micro-batch-max", type=int, default=64)
     s.add_argument("--micro-batch-wait-ms", type=float, default=3.0)
     s.add_argument("--device", default=None, help="default: cuda")
+    s.add_argument("--trace", default=None, metavar="PATH", help=TRACE_HELP)
     s.set_defaults(fn=_cmd_serve)
 
     b = sub.add_parser("drift", help="aggregate serving telemetry into drift stats")

@@ -11,15 +11,21 @@ Batch sizes are bucketed to powers of two (padded by repeating the last
 query) so the batched path sees few shapes. Under no concurrency the cost is
 one `max_wait_ms` of added latency ceiling; the dispatcher never waits when
 the queue drains empty-handed.
+
+Spans (`utils/tracing.py`): `batch.queue`, one a request under its request
+id, from `submit`'s put to the start of its batch's `_run`; `batch.run`, one
+a batch, with its size, its bucket and the request ids it serves.
 """
 from __future__ import annotations
 
 import queue
 import threading
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from plotpointe_tpu_torch.utils import tracing
 
 
 @dataclass
@@ -29,6 +35,7 @@ class _Slot:
     event: threading.Event = field(default_factory=threading.Event)
     result: Optional[Tuple[np.ndarray, np.ndarray]] = None
     error: Optional[Exception] = None
+    queued: Any = tracing.NOOP  # the open `batch.queue` span
 
 
 @dataclass
@@ -80,6 +87,7 @@ class MicroBatcher:
 
     def submit(self, item_ids: Sequence[int], k: int) -> Tuple[np.ndarray, np.ndarray]:
         slot = _Slot(item_ids=np.asarray(list(item_ids), dtype=np.int32), k=int(k))
+        slot.queued = tracing.begin("batch.queue")
         self._q.put(slot)
         if not slot.event.wait(self.timeout_s):
             raise TimeoutError("micro-batch dispatch timed out")
@@ -120,23 +128,27 @@ class MicroBatcher:
             self._sem.release()
 
     def _run(self, batch: List[_Slot]) -> None:
-        with self._stats_lock:
-            self.stats.n_requests += len(batch)
-            self.stats.n_batches += 1
-            self.stats.max_batch = max(self.stats.max_batch, len(batch))
-        try:
-            results = self.runtime.top_k_for_batch(
-                [s.item_ids for s in batch], [s.k for s in batch],
-                max_batch=self.max_batch,
-            )
-            for s, (idx, sc) in zip(batch, results):
-                s.result = (idx, sc)
-        except Exception as e:  # noqa: BLE001 - propagate to every waiter
-            for s in batch:
-                s.error = e
-        finally:
-            for s in batch:
-                s.event.set()
+        for s in batch:
+            s.queued.end()
+        n, rids = len(batch), [s.queued.rid for s in batch]
+        with tracing.span("batch.run", batch=n, bucket=bucket_size(n, self.max_batch), rids=rids):
+            with self._stats_lock:
+                self.stats.n_requests += len(batch)
+                self.stats.n_batches += 1
+                self.stats.max_batch = max(self.stats.max_batch, len(batch))
+            try:
+                results = self.runtime.top_k_for_batch(
+                    [s.item_ids for s in batch], [s.k for s in batch],
+                    max_batch=self.max_batch,
+                )
+                for s, (idx, sc) in zip(batch, results):
+                    s.result = (idx, sc)
+            except Exception as e:  # noqa: BLE001 - propagate to every waiter
+                for s in batch:
+                    s.error = e
+            finally:
+                for s in batch:
+                    s.event.set()
 
 
 def bucket_size(n: int, max_batch: int) -> int:

@@ -7,6 +7,8 @@ parsed payload to an (http_status, body) pair; the stdlib HTTP transport
 (httpd.py) and the FastAPI app (app.py) delegate here. With telemetry, each
 served request is logged and its reply carries the `request_id` that
 /feedback refers to; rejected requests and feedback go to the rejects sink.
+/recommend runs in span `serve.recommend` (`utils/tracing.py`) under the
+transport's request id, or a new one.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 
 from plotpointe_tpu_torch.serving.batching import MicroBatcher
 from plotpointe_tpu_torch.serving.runtime import RecommenderRuntime, ServingConfig
+from plotpointe_tpu_torch.utils import tracing
 
 Reply = Tuple[int, Dict[str, Any]]
 
@@ -81,6 +84,10 @@ class ServingState:
         return 200, {"status": "ok"}
 
     def recommend(self, payload: Dict[str, Any]) -> Reply:
+        with tracing.span("serve.recommend", rid=tracing.request_id()):
+            return self._recommend(payload)
+
+    def _recommend(self, payload: Dict[str, Any]) -> Reply:
         if self.runtime is None:
             return 503, {"detail": MSG_NOT_LOADED}
         raw_ids = payload.get("item_ids")

@@ -1,7 +1,10 @@
 """Dependency-free HTTP transport (stdlib http.server) over the serving endpoints.
 
 Counterpart of `plotpointe_tpu/serving/httpd.py`. All request logic lives in
-`endpoints.ServingState`; this module only parses HTTP and JSON.
+`endpoints.ServingState`; this module only parses HTTP and JSON. Spans
+(`utils/tracing.py`): `http.request` (a new request id, the route and the
+status) around `http.parse` (the body's read and `json.loads`), the endpoint
+and `http.reply` (`json.dumps` and the write).
 """
 from __future__ import annotations
 
@@ -12,18 +15,20 @@ from typing import Optional
 
 from plotpointe_tpu_torch.serving.endpoints import ServingState
 from plotpointe_tpu_torch.serving.runtime import RecommenderRuntime
+from plotpointe_tpu_torch.utils import tracing
 
 
 class _Handler(BaseHTTPRequestHandler):
     server_version = "plotpointe-tpu-torch/0.1"
 
     def _send(self, code: int, obj) -> None:
-        body = json.dumps(obj).encode()
-        self.send_response(code)
-        self.send_header("Content-Type", "application/json")
-        self.send_header("Content-Length", str(len(body)))
-        self.end_headers()
-        self.wfile.write(body)
+        with tracing.span("http.reply"):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
 
     def log_message(self, fmt, *args):  # quiet by default
         pass
@@ -33,27 +38,35 @@ class _Handler(BaseHTTPRequestHandler):
         return self.server.state  # type: ignore[attr-defined]
 
     def do_GET(self):
-        if self.path == "/healthz":
-            self._send(*self._state.healthz())
-        else:
-            self._send(404, {"detail": "not found"})
+        with tracing.span("http.request", rid=tracing.request_id(), route=self.path) as req:
+            if self.path == "/healthz":
+                code, body = self._state.healthz()
+            else:
+                code, body = 404, {"detail": "not found"}
+            req.note(status=code)
+            self._send(code, body)
 
     def do_POST(self):
-        try:
-            length = int(self.headers.get("Content-Length", 0))
-            payload = json.loads(self.rfile.read(length) or b"{}")
-        except (ValueError, json.JSONDecodeError):
-            self._send(400, {"detail": "invalid JSON body"})
-            return
+        with tracing.span("http.request", rid=tracing.request_id(), route=self.path) as req:
+            code, body = self._post()
+            req.note(status=code)
+            self._send(code, body)
+
+    def _post(self):
+        with tracing.span("http.parse"):
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                payload = json.loads(self.rfile.read(length) or b"{}")
+            except (ValueError, json.JSONDecodeError):
+                return 400, {"detail": "invalid JSON body"}
         route = {
             "/startup": self._state.startup,
             "/recommend": self._state.recommend,
             "/feedback": self._state.feedback,
         }.get(self.path)
         if route is None:
-            self._send(404, {"detail": "not found"})
-            return
-        self._send(*route(payload))
+            return 404, {"detail": "not found"}
+        return route(payload)
 
 
 class _Server(ThreadingHTTPServer):

@@ -12,6 +12,11 @@ Paths, chosen by the config:
   use_device=True, not use_kernel_topk: one f32 score matrix and
       `torch.topk`, history masked to -1e9.
 The table lives on `device` (None = the GPU) in `table_dtype`.
+
+Spans of the batched path (`utils/tracing.py`): `serve.queries` (the host
+history means and their copy to the device), `serve.topk` (with a device
+interval), `serve.fetch` (the reads back to the host), `serve.filter` (the
+history dropped).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 from plotpointe_tpu_torch import resolve_device
 from plotpointe_tpu_torch.ops.topk_kernel import topk_mips
 from plotpointe_tpu_torch.serving.batching import bucket_size
+from plotpointe_tpu_torch.utils import tracing
 from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
 
 _TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -128,16 +134,20 @@ class RecommenderRuntime:
         b = len(histories)
         bp = bucket_size(b, max_batch)
         padded = list(histories) + [histories[-1]] * (bp - b)
-        q = self._queries(padded)
-        if self._kernel_topk():
-            idx, scores = topk_mips(self._table, q, kk, mode=self.cfg.topk_mode)
-        else:
-            scores, idx = torch.topk(q.float() @ self._table.float().T, kk, dim=1)
-        idx_np, sc_np = idx[:b].cpu().numpy(), scores[:b].cpu().numpy()
-        out = []
-        for r, (h, k) in enumerate(zip(histories, ks)):
-            keep = ~np.isin(idx_np[r], np.asarray(h) % n)  # numpy's negative-id wrap
-            out.append((idx_np[r][keep][: int(k)], sc_np[r][keep][: int(k)]))
+        with tracing.span("serve.queries", batch=bp):
+            q = self._queries(padded)
+        with tracing.span("serve.topk", device=self._table.device, k=kk):
+            if self._kernel_topk():
+                idx, scores = topk_mips(self._table, q, kk, mode=self.cfg.topk_mode)
+            else:
+                scores, idx = torch.topk(q.float() @ self._table.float().T, kk, dim=1)
+        with tracing.span("serve.fetch"):
+            idx_np, sc_np = idx[:b].cpu().numpy(), scores[:b].cpu().numpy()
+        with tracing.span("serve.filter"):
+            out = []
+            for r, (h, k) in enumerate(zip(histories, ks)):
+                keep = ~np.isin(idx_np[r], np.asarray(h) % n)  # numpy's negative-id wrap
+                out.append((idx_np[r][keep][: int(k)], sc_np[r][keep][: int(k)]))
         return out
 
     def _topk_numpy(self, ids: np.ndarray, K: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -11,6 +11,9 @@ reports the share of negatives exactly tying the positive.
 Users go in chunks of `chunk`; each chunk scores all items with one f32
 matrix product, with TF32 off (the JAX package asks for HIGH precision: a
 rank comparison is sensitive to rounding), then gathers the candidates.
+Spans (`utils/tracing.py`): per chunk `eval.negatives` and `eval.scores` (the
+products and ranks, with its device interval), then `eval.read` (the
+totals' reads).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 
 from plotpointe_tpu_torch import full_f32_matmul
 from plotpointe_tpu_torch.train.sampling import sample_eval_negatives
+from plotpointe_tpu_torch.utils import tracing
 
 
 def eval_from_negatives(U: torch.Tensor, I: torch.Tensor, users: torch.Tensor, pos: torch.Tensor,
@@ -69,11 +73,15 @@ def sampled_eval(U: torch.Tensor, I: torch.Tensor, eval_users: np.ndarray, eval_
         sums: Dict[str, torch.Tensor] = {}
         for c in range(0, n_pad, chunk):
             sl = slice(c, c + chunk)
-            negs = sample_eval_negatives(generator, users[sl], pos[sl], user_pos_padded, user_deg,
-                                         I.shape[0], neg_k)
-            for k, v in eval_from_negatives(U, I, users[sl], pos[sl], negs, valid[sl], ks).items():
-                sums[k] = sums[k] + v if k in sums else v
-    totals = {k: float(v) for k, v in sums.items()}
+            with tracing.span("eval.negatives"):
+                negs = sample_eval_negatives(generator, users[sl], pos[sl], user_pos_padded,
+                                             user_deg, I.shape[0], neg_k)
+            with tracing.span("eval.scores", device=dev):
+                part = eval_from_negatives(U, I, users[sl], pos[sl], negs, valid[sl], ks)
+                for k, v in part.items():
+                    sums[k] = sums[k] + v if k in sums else v
+    with tracing.span("eval.read"):
+        totals = {k: float(v) for k, v in sums.items()}
     count = max(totals["count"], 1.0)
     metrics = {}
     for k in ks:

@@ -23,6 +23,14 @@ what an uninterrupted one would. Its draws are not the JAX package's.
 The loss gathers node rows with `gather_rows`, whose backward is a sorted
 segment sum, and no kernel uses float atomics, so a run on the card is
 repeatable bit for bit.
+
+Spans (`utils/tracing.py`, off unless enabled or profiled): `train.fit`,
+`train.epoch`, per step `train.step` with its phases `train.sample`,
+`train.forward` (forward and loss), `train.backward` (zero_grad and
+backward) and `train.optimizer` (device intervals on each), `train.read`
+(the blocking read of a loss: each step for the GAT, each epoch for
+LightGCN), `train.best_state`; `eval` with `eval.forward` (device), then
+`train/evaluate.py`'s chunk spans (`eval.scores` on the device).
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ from plotpointe_tpu_torch.train.checkpoint import (
 from plotpointe_tpu_torch.train.evaluate import sampled_eval
 from plotpointe_tpu_torch.train.losses import LOSSES
 from plotpointe_tpu_torch.train.sampling import rank_to_item, sample_bpr_triples, uniform_ranks
+from plotpointe_tpu_torch.utils import tracing
 from plotpointe_tpu_torch.utils.logging import log_event
 from plotpointe_tpu_torch.utils.prng import stream_seed
 
@@ -142,19 +151,27 @@ class Trainer:
             self.scheduler.step()
 
     def _train_step(self) -> float:
-        u, i, j, seeds = self._sample()
-        loss = self._loss(u, i, j, seeds)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self._opt_step()
-        return float(loss.detach())
+        dev = self.device
+        with tracing.span("train.step", device=dev):
+            with tracing.span("train.sample", device=dev):
+                u, i, j, seeds = self._sample()
+            with tracing.span("train.forward", device=dev):
+                loss = self._loss(u, i, j, seeds)
+            with tracing.span("train.backward", device=dev):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with tracing.span("train.optimizer", device=dev):
+                self._opt_step()
+            with tracing.span("train.read"):
+                return float(loss.detach())
 
     def _epoch(self, epoch: int) -> float:
-        self._reseed(STREAM_TRAIN, epoch)
-        if self._spmm_op is not None:
-            return self._lightgcn_epoch()
-        steps = max(1, self.cfg.steps_per_epoch)
-        return sum(self._train_step() for _ in range(steps)) / steps
+        with tracing.span("train.epoch", epoch=epoch):
+            self._reseed(STREAM_TRAIN, epoch)
+            if self._spmm_op is not None:
+                return self._lightgcn_epoch()
+            steps = max(1, self.cfg.steps_per_epoch)
+            return sum(self._train_step() for _ in range(steps)) / steps
 
     # -- LightGCN mini-batch step, in phases -------------------------------------
 
@@ -190,15 +207,23 @@ class Trainer:
         return LOSSES[self.cfg.loss](pos[:, None].expand(bs, npp).reshape(-1), neg.reshape(-1))
 
     def _lightgcn_epoch(self) -> float:
+        dev = self.device
         perm, n_steps = self._lightgcn_perm()
-        total = torch.zeros((), device=self.device)
+        total = torch.zeros((), device=dev)
         for step in range(n_steps):
-            loss = self._lightgcn_loss(*self._lightgcn_sample(perm, step))
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            self._opt_step()
-            total += loss.detach()
-        return float(total) / n_steps  # the losses are read once per epoch
+            with tracing.span("train.step", device=dev):
+                with tracing.span("train.sample", device=dev):
+                    u, i, j = self._lightgcn_sample(perm, step)
+                with tracing.span("train.forward", device=dev):
+                    loss = self._lightgcn_loss(u, i, j)
+                with tracing.span("train.backward", device=dev):
+                    self.optimizer.zero_grad(set_to_none=True)
+                    loss.backward()
+                with tracing.span("train.optimizer", device=dev):
+                    self._opt_step()
+                total += loss.detach()
+        with tracing.span("train.read"):
+            return float(total) / n_steps  # the losses are read once per epoch
 
     # -- evaluation ------------------------------------------------------------
 
@@ -213,10 +238,12 @@ class Trainer:
     def evaluate(self, eval_u: np.ndarray, eval_i: np.ndarray, index: int) -> Dict[str, float]:
         """Sampled metrics of the model's current parameters; `index` picks
         the negatives' random stream."""
-        U, I = self._forward_eval()
-        return sampled_eval(U, I, eval_u, eval_i, self.user_pos_padded, self.user_deg,
-                            self._reseed(STREAM_EVAL, index), neg_k=self.cfg.eval_neg_k,
-                            chunk=self.cfg.eval_chunk)
+        with tracing.span("eval", index=index):
+            with tracing.span("eval.forward", device=self.device):
+                U, I = self._forward_eval()
+            return sampled_eval(U, I, eval_u, eval_i, self.user_pos_padded, self.user_deg,
+                                self._reseed(STREAM_EVAL, index), neg_k=self.cfg.eval_neg_k,
+                                chunk=self.cfg.eval_chunk)
 
     # -- fit -------------------------------------------------------------------
     # hooks a subclass that places the parameters otherwise (the sharded
@@ -251,69 +278,76 @@ class Trainer:
         """Train `cfg.epochs` epochs (from the resume state when
         `resume_path` exists; it is rewritten after every epoch). Afterwards
         the model holds the best parameters."""
-        cfg = self.cfg
-        self._init_params()
-        self.optimizer, self.scheduler = make_optimizer(self._trained_params(), cfg.lr, cfg.l2,
-                                                        cfg.optimizer, cfg.warmup_steps)
-        best_val, best_state, start_epoch = -1.0, self._full_state(), 1
-        if resume_path is not None and Path(resume_path).exists():
-            params, opt_state, best_state, meta = load_resume_state(resume_path, self.device)
-            self._load_params(params)
-            self._load_opt_state(opt_state)
-            start_epoch = int(meta["epoch"]) + 1
-            best_val = float(meta["best_val_ndcg20"])
+        with tracing.span("train.fit"):
+            cfg = self.cfg
+            self._init_params()
+            self.optimizer, self.scheduler = make_optimizer(self._trained_params(), cfg.lr, cfg.l2,
+                                                            cfg.optimizer, cfg.warmup_steps)
+            with tracing.span("train.best_state"):
+                best_state = self._full_state()
+            best_val, start_epoch = -1.0, 1
+            if resume_path is not None and Path(resume_path).exists():
+                params, opt_state, best_state, meta = load_resume_state(resume_path, self.device)
+                self._load_params(params)
+                self._load_opt_state(opt_state)
+                start_epoch = int(meta["epoch"]) + 1
+                best_val = float(meta["best_val_ndcg20"])
 
-        run_id = cfg.run_id or f"{cfg.model_family}_d{cfg.hidden_dim}_{int(time.time())}"
-        if cfg.structured_logs and self.writes:
-            log_event("run_start", run_id=run_id, model_family=cfg.model_family, config=cfg.to_dict(),
-                      resumed_from_epoch=start_epoch - 1 if start_epoch > 1 else None)
-        history = []
-        val_metrics: Dict[str, float] = {}
-        t_start = time.perf_counter()
-        for epoch in range(start_epoch, cfg.epochs + 1):
-            t0 = time.perf_counter()
-            loss = self._epoch(epoch)
-            step_time = time.perf_counter() - t0
-            t1 = time.perf_counter()
-            val_metrics = (self.evaluate(self.splits.val_u, self.splits.val_i, epoch)
-                           if len(self.splits.val_u) else {})
-            eval_time = time.perf_counter() - t1
-            history.append({"epoch": epoch, "loss": loss, "step_time_s": step_time,
-                            "eval_time_s": eval_time,
-                            **{f"val_{k}": v for k, v in val_metrics.items()}})
+            run_id = cfg.run_id or f"{cfg.model_family}_d{cfg.hidden_dim}_{int(time.time())}"
             if cfg.structured_logs and self.writes:
-                log_event("epoch_end", run_id=run_id, epoch=epoch, loss=loss, val=val_metrics)
-            ndcg20 = val_metrics.get("ndcg@20", 0.0)
-            if ndcg20 > best_val:
-                best_val, best_state = ndcg20, self._full_state()
-                if checkpoint_path and self.writes:
-                    save_checkpoint(checkpoint_path, params_to_jax(best_state),
-                                    self.model.config_dict() | {"train_config": cfg.to_dict()})
-            if resume_path is not None:
-                params, opt_state = self._full_state(), self._opt_state()
-                if self.writes:
-                    save_resume_state(resume_path, params, opt_state, best_state,
-                                      {"epoch": epoch, "best_val_ndcg20": float(best_val)})
+                log_event("run_start", run_id=run_id, model_family=cfg.model_family,
+                          config=cfg.to_dict(),
+                          resumed_from_epoch=start_epoch - 1 if start_epoch > 1 else None)
+            history = []
+            val_metrics: Dict[str, float] = {}
+            t_start = time.perf_counter()
+            for epoch in range(start_epoch, cfg.epochs + 1):
+                t0 = time.perf_counter()
+                loss = self._epoch(epoch)
+                step_time = time.perf_counter() - t0
+                t1 = time.perf_counter()
+                val_metrics = (self.evaluate(self.splits.val_u, self.splits.val_i, epoch)
+                               if len(self.splits.val_u) else {})
+                eval_time = time.perf_counter() - t1
+                history.append({"epoch": epoch, "loss": loss, "step_time_s": step_time,
+                                "eval_time_s": eval_time,
+                                **{f"val_{k}": v for k, v in val_metrics.items()}})
+                if cfg.structured_logs and self.writes:
+                    log_event("epoch_end", run_id=run_id, epoch=epoch, loss=loss, val=val_metrics)
+                ndcg20 = val_metrics.get("ndcg@20", 0.0)
+                if ndcg20 > best_val:
+                    with tracing.span("train.best_state"):
+                        best_val, best_state = ndcg20, self._full_state()
+                    if checkpoint_path and self.writes:
+                        save_checkpoint(checkpoint_path, params_to_jax(best_state),
+                                        self.model.config_dict() | {"train_config": cfg.to_dict()})
+                if resume_path is not None:
+                    params, opt_state = self._full_state(), self._opt_state()
+                    if self.writes:
+                        save_resume_state(resume_path, params, opt_state, best_state,
+                                          {"epoch": epoch, "best_val_ndcg20": float(best_val)})
 
-        if best_val < 0:  # no val split and no epoch run: best = last
-            best_state = self._full_state()
-        self._load_params(best_state)
-        test_metrics = self.evaluate(self.splits.test_u, self.splits.test_i, TEST_EVAL_INDEX)
-        wall = time.perf_counter() - t_start
-        results = {
-            "best_val_ndcg@20": float(best_val),
-            "val": val_metrics,
-            "test": test_metrics,
-            "config": cfg.to_dict() | self.model.config_dict(),
-            "history": history,
-            "wall_time_s": wall,
-            "run_id": run_id,
-            "notes": f"one-backward-per-epoch, {cfg.samples_per_epoch} sampled triples, loss={cfg.loss}",
-        }
-        if cfg.structured_logs and self.writes:
-            log_event("run_complete", run_id=run_id, best_val_ndcg20=results["best_val_ndcg@20"],
-                      test=test_metrics)
-        return results
+            if best_val < 0:  # no val split and no epoch run: best = last
+                with tracing.span("train.best_state"):
+                    best_state = self._full_state()
+            self._load_params(best_state)
+            test_metrics = self.evaluate(self.splits.test_u, self.splits.test_i, TEST_EVAL_INDEX)
+            wall = time.perf_counter() - t_start
+            results = {
+                "best_val_ndcg@20": float(best_val),
+                "val": val_metrics,
+                "test": test_metrics,
+                "config": cfg.to_dict() | self.model.config_dict(),
+                "history": history,
+                "wall_time_s": wall,
+                "run_id": run_id,
+                "notes": (f"one-backward-per-epoch, {cfg.samples_per_epoch} sampled triples, "
+                          f"loss={cfg.loss}"),
+            }
+            if cfg.structured_logs and self.writes:
+                log_event("run_complete", run_id=run_id,
+                          best_val_ndcg20=results["best_val_ndcg@20"], test=test_metrics)
+            return results
 
     def export_item_embeddings(self) -> np.ndarray:
         """Item-side embeddings [n_items, hidden] from a full forward of the

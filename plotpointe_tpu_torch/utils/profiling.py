@@ -3,20 +3,18 @@
 Counterpart of `plotpointe_tpu/utils/profiling.py`: the card's published
 peaks (`GPU_SPECS`), roofline accounting (`Roofline`), the calibration of
 what this card delivers (`measure_device_peaks`: a bf16 matrix-product loop
-and the read-stream probe, kernel 6 -> `csrc/stream_probe.cu`), a
-`torch.profiler` trace and a synchronised timer.
+and the read-stream probe, kernel 6 -> `csrc/stream_probe.cu`). The port's
+spans and their Chrome trace are `utils/tracing.py`.
 
 `stream_probe` runs `stream_probe_plain` for CPU tensors and launches the
 kernel (or raises) for CUDA tensors.
 """
 from __future__ import annotations
 
-import contextlib
 import os
 import time
 from dataclasses import dataclass
-from pathlib import Path
-from typing import Dict, Iterator, Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -157,32 +155,3 @@ def measure_device_peaks(device="cuda", mm_shape=(4096, 8192, 4096), probe_shape
     x = torch.randn((pm, pd), generator=gen, device=dev).to(torch.bfloat16)
     t_stream = _best_seconds(lambda: stream_probe(x, bm), dev, n_iter, n_rep)
     return {"tflops": 2.0 * m * k * n / t_mm / 1e12, "hbm_gbps": pm * pd * 2 / t_stream / 1e9}
-
-
-@contextlib.contextmanager
-def trace(log_dir: str = "tmp/torch_trace") -> Iterator[torch.profiler.profile]:
-    """Profile the block with `torch.profiler` (the card too, where there is
-    one) and write a Chrome trace to `log_dir/trace.json`."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    Path(log_dir).mkdir(parents=True, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
-
-
-def timed_call(fn, *args, iters: int = 5, warmup: int = 1) -> float:
-    """Mean seconds per call over `iters` calls after `warmup`, the card
-    synchronised before and after."""
-    for _ in range(warmup):
-        fn(*args)
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn(*args)
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / iters
-

@@ -131,13 +131,6 @@ def test_measure_device_peaks_small_on_cpu():
     assert all(np.isfinite(v) and v > 0 for v in peaks.values())
 
 
-def test_trace_writes_a_chrome_trace(tmp_path):
-    with profiling.trace(str(tmp_path / "t")):
-        affine(torch.ones(8, 128))
-    assert json.loads((tmp_path / "t" / "trace.json").read_text())
-    assert profiling.timed_call(affine, torch.ones(8, 128), iters=2) > 0
-
-
 def test_run_smoke_on_cpu_and_cli(capsys):
     report = run_smoke("cpu")
     assert report["ok"], report
