@@ -27,12 +27,16 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            on a long row of the per-request kind (k 2,000 and 5,000 over
            2,008 chunks' scores), and `topk_mips`'s indices against
            `topk_mips_ref`'s wherever untied; the attention ops' and the SpMM
-           operator's gradients vs autograd of the plain goldens
+           operator's gradients vs autograd of the plain goldens; the eval's
+           rank kernel at one eval chunk (2,048 users x 1,001 candidates of
+           63,001 rows, D 64 and 128) equal to the dense product's ranks and
+           ties on rows whose scores are exact, and on a second launch
   train    path 1, every launch counter set to 0 first: `train_from_artifacts`
            (interactions.npz + features npy -> `--epochs` optimizer steps of
            200,000 BPR triples with dropout 0.1 and bf16 rows, a 1,000-negative
            val eval per epoch, best checkpoint in the JAX npz format); losses
-           must be finite and the attention kernels must have launched; then
+           must be finite and the attention kernels and the eval's rank
+           kernel must have launched; then
            the first step with the kernels vs the same step with their plain
            versions (loss and every parameter gradient)
   main     path 2, counters set to 0 first: `export_item_embeddings` of the
@@ -100,13 +104,13 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            beyond-parity leg (adam; the gate skips the adamw leg). The gate
            must print PASS; the dataset block and generator config must
            equal `docs/results/anchor_full_r05.json`'s and the baselines'
-           NDCG@20 lie within 0.005 of its; kernels 1, 2 and 3 must have
-           launched. Each leg's metrics and wall beside the archive's
+           NDCG@20 lie within 0.005 of its; kernels 1, 2 and 3 and the
+           eval's rank kernel must have launched. Each leg's metrics and wall beside the archive's
   ablate   path 9, the anchor's data as interactions.npz with its 128-d
            (fused) and 384-d (txt) features, then, counters at 0, `cli
            ablate` in-process over the seven variants at 1 epoch of 200,000
            samples: no variant may report an error; kernels 1, 2, 3, 7, 8
-           and 9 must have launched
+           and 9 and the eval's rank kernel must have launched
   serve_telemetry
            path 10, counters at 0 first, on path 2's export (63,001 x 128
            f32): a micro-batching stdlib server loaded by
@@ -223,7 +227,10 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            eval pass; kernel 7 in both directions with `torch.sparse.mm` as
            its yardstick; kernels 8 and 9 per layer; the LightGCN and 2-head
            steps by phase, profiled; kernels 10 and 11 at the graph-build
-           shapes beside a blocked `torch.mm` of the same product
+           shapes beside a blocked `torch.mm` of the same product; the eval's
+           rank kernel at one eval chunk (D 128 and 64) beside the dense
+           product and gathers, its bound at the measured L2 and
+           device-memory read rates
   kernels  one {"kernels": [...]} line, each kernel with its bound at the spec
            peaks (`utils/profiling.GPU_SPECS`) and `sol_fraction_dev`, its
            bound at the measured peaks over its time
@@ -304,15 +311,17 @@ SOURCES = {
                              "plotpointe_tpu/ops/gat_kernel.py:47"),
     "fused_layer": ("plotpointe_tpu_torch/csrc/gat_fwd.cu", "plotpointe_tpu/ops/gat_kernel.py:129"),
     "onehot_reduce": ("plotpointe_tpu_torch/csrc/spmm_csr.cu", "plotpointe_tpu/ops/gat_fused.py:291"),
+    # the eval's ranks: an XLA product and gathers in the JAX package, not a Pallas kernel
+    "eval_rank": ("plotpointe_tpu_torch/csrc/eval_rank.cu", "plotpointe_tpu/train/evaluate.py:47"),
 }
 # the kernels each path must launch; gather_fence is on none (the port's
 # backward kernels gather rows themselves, so there are no two XLA gathers
 # to order) and is only checked and timed
-PATH_KERNELS = {"train": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src"),
+PATH_KERNELS = {"train": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "eval_rank"),
                 "serve": ("gat_fwd", "topk_chunkmax", "topk_rescore", "topk_select"),
-                "lightgcn_train": ("spmm_csr",),
+                "lightgcn_train": ("spmm_csr", "eval_rank"),
                 "lightgcn_serve": ("spmm_csr", "topk_chunkmax", "topk_rescore", "topk_select"),
-                "mh_train": ("gat_fwd_mh", "gat_bwd_dst_mh", "gat_bwd_src"),
+                "mh_train": ("gat_fwd_mh", "gat_bwd_dst_mh", "gat_bwd_src", "eval_rank"),
                 "mh_export": ("gat_fwd_mh",),
                 "graph_build": ("knn_topk",),
                 "graph_build_fast": ("knn_topk_fast",),
@@ -320,9 +329,9 @@ PATH_KERNELS = {"train": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src"),
                 "legacy_v2": ("fused_layer",),
                 "legacy_v1": ("fused_segment_reduce",),
                 "legacy_v1_mh": ("onehot_reduce",),
-                "anchor": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src"),
+                "anchor": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "eval_rank"),
                 "ablate": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "spmm_csr", "gat_fwd_mh",
-                           "gat_bwd_dst_mh"),
+                           "gat_bwd_dst_mh", "eval_rank"),
                 "serve_telemetry": ("topk_chunkmax", "topk_rescore", "topk_select"),
                 "serve_bench": ("topk_chunkmax", "topk_rescore", "topk_select"),
                 "embed": (),  # plain PyTorch ops, as the JAX towers and fusion are plain XLA
@@ -335,6 +344,7 @@ PATH_KERNELS = {"train": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src"),
 # with D % 128 == 0, v1 the rest (64 is the reference's hidden-dim ablation)
 LEGACY = (("legacy_v2", 128, 1), ("legacy_v1", 64, 1), ("legacy_v1_mh", 128, 2))
 LIGHTGCN = dict(embed_dim=64, n_prop_layers=3, batch_size=8192, neg_per_pos=5)
+EVAL_CHUNK, EVAL_NEG_K = 2048, 1000  # an eval chunk (TrainConfig.eval_chunk) and its negatives
 # the quality anchor's archived JAX run at full shape, and how near the
 # port's reference-free baselines must land (their negatives are other draws)
 ARCHIVED_ANCHOR = "docs/results/anchor_full_r05.json"
@@ -1149,6 +1159,7 @@ def phase_check(errs, rng, graph, h0, a_s, a_d, catalog, dev) -> None:
             errs.equal("topk_select", f"long row W={long.shape[1]} final k={k}", select_items(long, cid, k),
                        select_items_plain(long, cid, k))
     sync()
+    check_eval_rank(errs, dev)
     check_knn(errs, "small", small_knn_rows(rng, dev))
 
 
@@ -3737,6 +3748,117 @@ def time_tooling_and_legacy(rows_out, graph, h0, a_s, a_d, dev) -> None:
         del xp, view
 
 
+def eval_rank_inputs(d: int, dev, exact: bool, seed: int = 0):
+    """One eval chunk at the Amazon shape: 2,048 of 192,403 users, each with a
+    positive and 1,000 negatives of 63,001 items, rows of width d, from a
+    generator of its own (the numpy stream is left as it was). exact: rows
+    of quarters in [-2, 2], so every score is exact in f32 and any order of
+    sums gives the same bits; the first 100 users' positives and half
+    their negatives among 64 copies of one row (exact ties), a NaN user and
+    an infinite item (non-finite positives). Else normal rows."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_users, n_items, c, k = 192_403, 63_001, EVAL_CHUNK, EVAL_NEG_K
+    if exact:
+        U = torch.randint(-8, 9, (n_users, d), generator=g, device=dev).float() / 4
+        I = torch.randint(-8, 9, (n_items, d), generator=g, device=dev).float() / 4
+    else:
+        U = torch.randn(n_users, d, generator=g, device=dev)
+        I = torch.randn(n_items, d, generator=g, device=dev)
+    users = torch.randint(0, n_users, (c,), generator=g, device=dev, dtype=torch.int32)
+    pos = torch.randint(0, n_items, (c,), generator=g, device=dev, dtype=torch.int32)
+    negs = torch.randint(0, n_items, (c, k), generator=g, device=dev, dtype=torch.int32)
+    if exact:
+        I[1:64] = I[0]
+        U[7], I[5] = float("nan"), float("inf")
+        pos[:100] = torch.randint(0, 64, (100,), generator=g, device=dev, dtype=torch.int32)
+        negs[:100, :k // 2] = torch.randint(0, 64, (100, k // 2), generator=g, device=dev, dtype=torch.int32)
+        users[100], pos[101], negs[102, 0] = 7, 5, 5
+    return U, I, users, pos, negs
+
+
+def check_eval_rank(errs, dev) -> None:
+    """The eval's rank kernel against its plain version (the dense f32
+    product and gathers, TF32 off) at one eval chunk, D 64 and 128: equal
+    ranks and ties on rows whose scores are exact, and on a second launch;
+    on normal rows the disagreements are printed (0 where cuBLAS sums each
+    score in one ascending chain, as the kernel does)."""
+    import torch
+
+    from plotpointe_tpu_torch.ops.eval_kernel import eval_rank, eval_rank_plain
+
+    for d in (64, 128):
+        args = eval_rank_inputs(d, dev, exact=True)
+        what = f"C={EVAL_CHUNK} neg_k={EVAL_NEG_K} 63,001 x {d} quarters"
+        got = eval_rank(*args)
+        errs.equal("eval_rank", what, got, eval_rank_plain(*args))
+        errs.same_bits("eval_rank", what, got, eval_rank(*args))
+        args = eval_rank_inputs(d, dev, exact=False)
+        got, want = eval_rank(*args), eval_rank_plain(*args)
+        emit({"phase": "check", "kernel": "eval_rank", "case": f"C={EVAL_CHUNK} neg_k={EVAL_NEG_K} 63,001 x {d} "
+              "normal rows", "rank_differ": int((got[0] != want[0]).sum()),
+              "ties_differ": int((got[1] != want[1]).sum()), "users_with_ties": int((want[1] > 0).sum())})
+        del args, got, want
+    sync()
+
+
+def launch_ms(fn, key: str, iters: int = 50) -> float:
+    """Mean device time of one launch of the CUDA kernels whose names hold
+    `key`, over `iters` calls of `fn` under torch.profiler: each kernel's
+    recorded time over the number of records, so a profile that drops
+    records (it happens) still gives the mean of those it kept."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if key in e.key]
+    return sum(e.device_time_total for e in hits) / max(1, sum(e.count for e in hits)) / 1e3
+
+
+def read_gbps(mb: int) -> float:
+    """Kernel 6's read rate over an mb-MB bf16 array (`launch_ms`): at 24 MB
+    the array stays in the L2, at 256 MB every pass reads device memory. A
+    24 MB pass is a few microseconds, so its ramp counts: a low estimate of
+    the L2's rate."""
+    import torch
+
+    from plotpointe_tpu_torch.utils.profiling import stream_probe
+
+    x = torch.randn(mb * 512, 1024, device="cuda").to(torch.bfloat16)
+    return x.numel() * 2 / launch_ms(lambda: stream_probe(x, 64), "stream") / 1e6
+
+
+def time_eval_rank(rows_out, dev) -> None:
+    """The eval's rank kernel at one eval chunk (2,048 users, 1 + 1,000
+    candidates of 63,001 rows) at D 128 (GAT) and 64 (LightGCN), beside its
+    plain version, which is also the one PyTorch computation of the same
+    ranks (`library_ms`: the dense f32 product and gathers). Bound: the
+    candidate rows read once each (2,048 x 1,001 x D x 4 bytes) with the
+    ids, the user rows and the outputs; also the rows' bytes alone at the
+    measured L2 (24 MB) and device-memory (256 MB) read rates."""
+    from plotpointe_tpu_torch.ops.eval_kernel import eval_rank, eval_rank_plain
+
+    l2, hbm = read_gbps(24), read_gbps(256)
+    rows = EVAL_CHUNK * (1 + EVAL_NEG_K)
+    for d in (128, 64):
+        args = eval_rank_inputs(d, dev, exact=False)
+        nbytes = {"rows": rows * d * 4, "users": EVAL_CHUNK * d * 4, "ids": rows * 4, "out": EVAL_CHUNK * 8}
+        line = timing_row(
+            "eval_rank", f"C={EVAL_CHUNK} neg_k={EVAL_NEG_K} I=63,001 x {d} float32",
+            lambda: eval_rank(*args), lambda: eval_rank_plain(*args), nbytes, 2 * rows * d, "float32",
+            library=lambda: eval_rank_plain(*args), library_what="U[users] @ I.T and two gathers",
+            device_ms=launch_ms(lambda: eval_rank(*args), "eval_rank", 20), l2_gbps=l2, hbm_gbps=hbm,
+            rows_at_l2_ms=nbytes["rows"] / l2 / 1e6, rows_at_hbm_ms=nbytes["rows"] / hbm / 1e6)
+        if d == 128:
+            rows_out["eval_rank"] = line
+        del args
+
+
 def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev):
     import torch
 
@@ -3837,6 +3959,7 @@ def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev):
                         rows["topk_select"] = line
     time_rule2(rows, graph, dev)
     time_multihead(rows, graph, dev, rng)
+    time_eval_rank(rows, dev)
     return rows
 
 

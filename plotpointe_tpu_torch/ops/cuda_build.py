@@ -44,7 +44,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "plotpointe_tpu_torch"
 KERNELS = ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "gather_fence", "topk_chunkmax", "topk_rescore",
-           "topk_select", "spmm_csr", "knn_topk", "knn_topk_fast", "stream_probe", "smoke_affine")
+           "topk_select", "spmm_csr", "knn_topk", "knn_topk_fast", "stream_probe", "smoke_affine",
+           "eval_rank")
 # TPU kernels that a source above computes in another mode, each with a
 # counter of its own: the head-packed forward (kernel 8) is gat_fwd at 2-8
 # heads and the head-packed B1 (kernel 9) gat_bwd_dst at 2-8 heads; the
@@ -70,6 +71,7 @@ SIGNATURES = {
     "knn_topk_fast": ("ppt_knn_topk_fast", [P, P, P, I, I, I, P]),
     "stream_probe": ("ppt_stream_probe", [P, ctypes.c_float, P, I, I, I, P]),
     "smoke_affine": ("ppt_smoke_affine", [P, P, ctypes.c_longlong, P]),
+    "eval_rank": ("ppt_eval_rank", [P] * 7 + [I] * 3 + [P]),
 }
 MAX_SMEM = 232_448 - 1024  # a block's shared memory on sm_90, less static use
 

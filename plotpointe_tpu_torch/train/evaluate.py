@@ -8,12 +8,16 @@ on a hit; macro mean. A non-finite positive score counts as unranked (a
 diverged model would otherwise rank first everywhere), and `tie_fraction`
 reports the share of negatives exactly tying the positive.
 
-Users go in chunks of `chunk`; each chunk scores all items with one f32
-matrix product, with TF32 off (the JAX package asks for HIGH precision: a
-rank comparison is sensitive to rounding), then gathers the candidates.
-Spans (`utils/tracing.py`): per chunk `eval.negatives` and `eval.scores` (the
-products and ranks, with its device interval), then `eval.read` (the
-totals' reads).
+Users go in chunks of `chunk`. Each chunk's ranks and ties come from one
+launch of `ops/eval_kernel.eval_rank`, which scores just the positive and the
+negatives of each user, each as one f32 FMA chain (f32 throughout, as the JAX
+package asks for HIGH precision: a rank comparison is sensitive to rounding);
+on the CPU its plain version scores all items with one f32 matrix product and
+gathers the candidates. Rows whose width is not a multiple of 4 (the anchor's
+one-column baselines) are padded with zero columns first, which leaves every
+score as it was. Spans (`utils/tracing.py`): per chunk
+`eval.negatives` and `eval.scores` (the ranks and the sums, with its device
+interval), then `eval.read` (the totals' reads).
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from plotpointe_tpu_torch import full_f32_matmul
+from plotpointe_tpu_torch.ops.eval_kernel import eval_rank
 from plotpointe_tpu_torch.train.sampling import sample_eval_negatives
 from plotpointe_tpu_torch.utils import tracing
 
@@ -33,13 +37,8 @@ def eval_from_negatives(U: torch.Tensor, I: torch.Tensor, users: torch.Tensor, p
     """Sums over one chunk (`_eval_chunk`'s outputs): `tie_frac_sum`,
     `recall@k_sum`, `ndcg@k_sum`, `count`. users/pos [C], negs [C, neg_k],
     valid [C] float {0, 1}."""
-    neg_k = negs.shape[1]
-    scores = U[users.long()] @ I.T  # [C, n_items]
-    pos_score = torch.gather(scores, 1, pos.long()[:, None])  # [C, 1]
-    neg_scores = torch.gather(scores, 1, negs.long())  # [C, neg_k]
-    rank = 1 + torch.sum(neg_scores > pos_score, dim=1)
-    rank = torch.where(torch.isfinite(pos_score[:, 0]), rank, torch.full_like(rank, neg_k + 2))
-    ties = torch.sum(neg_scores == pos_score, dim=1).to(torch.float32) / neg_k
+    rank, ties = eval_rank(U, I, users, pos, negs)
+    ties = ties.to(torch.float32) / negs.shape[1]
     out = {"tie_frac_sum": (ties * valid).sum()}
     rank_f = rank.to(torch.float32)
     for k in ks:
@@ -68,18 +67,19 @@ def sampled_eval(U: torch.Tensor, I: torch.Tensor, eval_users: np.ndarray, eval_
     users[:n] = torch.as_tensor(np.asarray(eval_users, np.int32), device=dev)
     pos[:n] = torch.as_tensor(np.asarray(eval_pos, np.int32), device=dev)
     valid[:n] = 1.0
+    if U.shape[1] % 4:  # the rank kernel reads rows in 16-byte loads; zero columns add exact zeros
+        U, I = (torch.nn.functional.pad(x, (0, -U.shape[1] % 4)) for x in (U, I))
 
-    with full_f32_matmul():
-        sums: Dict[str, torch.Tensor] = {}
-        for c in range(0, n_pad, chunk):
-            sl = slice(c, c + chunk)
-            with tracing.span("eval.negatives"):
-                negs = sample_eval_negatives(generator, users[sl], pos[sl], user_pos_padded,
-                                             user_deg, I.shape[0], neg_k)
-            with tracing.span("eval.scores", device=dev):
-                part = eval_from_negatives(U, I, users[sl], pos[sl], negs, valid[sl], ks)
-                for k, v in part.items():
-                    sums[k] = sums[k] + v if k in sums else v
+    sums: Dict[str, torch.Tensor] = {}
+    for c in range(0, n_pad, chunk):
+        sl = slice(c, c + chunk)
+        with tracing.span("eval.negatives"):
+            negs = sample_eval_negatives(generator, users[sl], pos[sl], user_pos_padded,
+                                         user_deg, I.shape[0], neg_k)
+        with tracing.span("eval.scores", device=dev):
+            part = eval_from_negatives(U, I, users[sl], pos[sl], negs, valid[sl], ks)
+            for k, v in part.items():
+                sums[k] = sums[k] + v if k in sums else v
     with tracing.span("eval.read"):
         totals = {k: float(v) for k, v in sums.items()}
     count = max(totals["count"], 1.0)
