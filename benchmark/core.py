@@ -18,7 +18,7 @@ import math
 import sys
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -74,8 +74,9 @@ def metrics_of(bench: dict, cell: str, kind: str) -> List[dict]:
 
 @dataclass
 class Context:
-    """What a driver gets: the cell, its configuration, the run's arguments
-    and the spans recorder of a traced run."""
+    """What a driver gets: the cell, its configuration, the run's arguments,
+    the spans recorder of a traced run and the chips its BENCHMARK.json
+    entry asks for."""
     cell: dict
     config: dict
     seed: int
@@ -84,6 +85,7 @@ class Context:
     device: torch.device
     t_start: float
     spans: Spans
+    chips: int = 1
     log: Callable[[str], None] = lambda msg: print(msg, file=sys.stderr, flush=True)
 
 
@@ -110,13 +112,22 @@ class Observation:
     kind: str = "cpu"  # the GPU_SPECS row on a card; "cpu" reads no share of a peak
     window: tuple = (float("-inf"), float("inf"))  # the measured window on the host clock
     host: Dict[str, float] = field(default_factory=dict)  # readings of the host's clock
+    # the program's span records where another process took them (a rank); None: this process's
+    records: Optional[List[Any]] = None
+    # (busy_s, window_s) averaged over the chips, where each traced its own device
+    device_busy: Optional[Tuple[float, float]] = None
 
 
-def device_info(device: torch.device, peak: int) -> dict:
+def device_info(device: torch.device, peak: int, count: int = 1) -> dict:
     if device.type != "cuda":
-        return {"platform": "cpu", "kind": "cpu", "count": 1, "memory_peak_bytes": int(peak)}
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(device), "count": 1,
+        return {"platform": "cpu", "kind": "cpu", "count": int(count), "memory_peak_bytes": int(peak)}
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(device), "count": int(count),
             "memory_peak_bytes": int(peak)}
+
+
+def chips_of(bench: dict, name: str) -> int:
+    """The chips cell `name` asks for in BENCHMARK.json (1 if it is not there)."""
+    return next((int(w["chips"]) for w in bench["workloads"] if w["name"] == name), 1)
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, t_start: float,
@@ -126,7 +137,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, t_start: float,
     cell = load_cell(name, root)
     config = load_config(cell["config"], root)
     dev = torch.device(device or "cuda")
-    ctx = Context(cell, config, int(seed), float(seconds), bool(trace), dev, t_start, Spans(dev))
+    chips = chips_of(bench, name)
+    ctx = Context(cell, config, int(seed), float(seconds), bool(trace), dev, t_start, Spans(dev), chips)
     out = load_driver(cell["driver"])(ctx)
     if out.obs is not None and dev.type == "cuda":
         out.obs.kind = peaks.generation(torch.cuda.get_device_name(dev))
@@ -138,16 +150,16 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, t_start: float,
             value = load_reader(m["name"], root)(out.obs) if out.obs is not None else None
             if value is not None and math.isfinite(value):
                 metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
-        dev_info = device_info(dev, out.memory_peak_bytes)
+        dev_info = device_info(dev, out.memory_peak_bytes, chips)
         if out.obs is not None and out.obs.trace is not None:
-            dev_info["busy_s"] = out.obs.trace.busy_s()
-            dev_info["window_s"] = out.obs.trace.window_s
+            busy, window = out.obs.device_busy or (out.obs.trace.busy_s(), out.obs.trace.window_s)
+            dev_info["busy_s"], dev_info["window_s"] = busy, window
             extra["breakdown"] = breakdown(out.obs.trace, out.obs.spans.items)
     else:
         wanted = {m["name"]: m["unit"] for m in metrics_of(bench, name, "end_to_end")}
         values = {"setup_s": out.setup_s, **out.e2e}
         metrics = {k: {"value": float(values[k]), "unit": u} for k, u in wanted.items() if k in values}
-        dev_info, extra = device_info(dev, out.memory_peak_bytes), {}
+        dev_info, extra = device_info(dev, out.memory_peak_bytes, chips), {}
     return {"correct": bool(correct), "attempted": int(out.attempted), "failed": int(out.failed),
             "metrics": metrics, "device": dev_info, **extra,
             "checks": {k: {"value": out.numbers.get(k, math.inf), "limit": lim}

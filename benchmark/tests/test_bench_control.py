@@ -9,7 +9,8 @@ from benchmark.tests.conftest import CELLS
 from benchmark.tools import control
 
 
-@pytest.mark.parametrize("cell", ["tiny.gat.train", "tiny.lightgcn.train", "tiny.gat.train.ref"])
+@pytest.mark.parametrize("cell", ["tiny.gat.train", "tiny.lightgcn.train", "tiny.gat.train.ref",
+                                  "tiny.gat.train.mesh4"])
 def test_training_control_and_half_batch_fail(cell):
     spec = core.load_cell(cell, CELLS)
     r = control.train_readings(spec, core.load_config(spec["config"], CELLS), 11, torch.device("cpu"))
@@ -25,3 +26,13 @@ def test_serving_control_runs():
     spec = core.load_cell("tiny.gat.serve", CELLS)
     r = control.serve_readings(spec, core.load_config(spec["config"], CELLS), 11, torch.device("cpu"))
     assert r["replies"] > 0 and r["control"]["score_gap"] <= spec["limits"]["score_gap"]
+
+
+def test_mesh_faults_fail_and_the_sound_program_passes():
+    """The tool's readings of the mesh cell on 4 gloo ranks: the sound
+    program within every limit, each fault over one."""
+    spec = core.load_cell("tiny.gat.train.mesh4", CELLS)
+    rows = control.mesh_readings(spec, core.load_config(spec["config"], CELLS), [3],
+                                 ["grad_exchange_left_out", "overlay_stale"], torch.device("cpu"))
+    verdicts = {r["fault"]: checks.verdict(r["numbers"], spec["limits"]) for r in rows}
+    assert verdicts == {"none": True, "grad_exchange_left_out": False, "overlay_stale": False}

@@ -68,11 +68,18 @@ def test_per_layer_rules():
 def test_every_cell_loads_by_name(cell):
     entry = next(w for w in BENCH["workloads"] if w["name"] == cell)
     spec = core.load_cell(cell)
-    assert spec["config"] == entry["config"] and entry["chips"] == 1
+    assert spec["config"] == entry["config"] and entry["chips"] in (1, 4)
     assert core.load_config(spec["config"])["name"] == entry["config"]
     assert callable(core.load_driver(spec["driver"]))
     assert spec["limits"] and all(v > 0 for v in spec["limits"].values())
     assert spec["why"] == entry["why"]
+
+
+def test_at_most_a_quarter_of_the_cells_take_four_chips():
+    """A cell on four chips costs four times the chip time in every later
+    check: at most a quarter of the cells, rounded down, and always one."""
+    fours = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(fours) <= max(1, len(BENCH["workloads"]) // 4), fours
 
 
 @pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])

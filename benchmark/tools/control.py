@@ -17,7 +17,16 @@ other streams (other negatives). A state left unchanged reads 1 on
 Serving cells: the control scores in TF32 (f32 with TF32 off is stated)
 and answers its own top k for the same sample of requests a run checks.
 
-One JSON line per seed on standard output."""
+Mesh cells (`drivers/train_fit_mesh.py`), with `--faults`: the program on
+its ranks, one spawn for every seed, read as a run reads its set-up fit,
+once sound and once with each fault of `tools/faults.py` planted on every
+rank (the reference followed once a seed):
+
+    python benchmark/tools/control.py --workload gat.train.mesh4 --seeds 1 2 3 \
+        --faults grad_exchange_left_out overlay_stale
+
+One JSON line per seed (per seed and fault with `--faults`) on standard
+output."""
 from __future__ import annotations
 
 import argparse
@@ -100,10 +109,24 @@ def serve_readings(cell: dict, config: dict, seed: int, device) -> dict:
     return {"seed": seed, "control": {"score_gap": gap}, "replies": len(hs)}
 
 
+def mesh_readings(cell: dict, config: dict, seeds, fault_names, device) -> list:
+    """Rank 0's numbers of each seed's set-up fit, sound and with each fault."""
+    from benchmark.drivers.train_fit_mesh import spawn_ranks
+    from benchmark.tools.faults import FAULTS
+
+    names = [None] + list(fault_names)
+    jobs = [(seed, FAULTS[n] if n else None) for seed in seeds for n in names]
+    rows = spawn_ranks(cell, config, jobs, None, False, time.time(), device)[0]
+    return [{"seed": seed, "fault": n or "none", "numbers": row["numbers"]}
+            for (seed, n), row in zip(((seed, n) for seed in seeds for n in names), rows)]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
+    ap.add_argument("--faults", nargs="*", default=None,
+                    help="mesh cells: the program sound and with each of these faults planted")
     args = ap.parse_args()
     sys.path.insert(0, str(REPO))
     import torch
@@ -113,6 +136,12 @@ def main() -> int:
     cell = core.load_cell(args.workload)
     config = core.load_config(cell["config"])
     dev = torch.device("cuda")
+    if args.faults is not None:
+        t0 = time.time()
+        for row in mesh_readings(cell, config, args.seeds, args.faults, dev):
+            row["workload"], row["seconds"] = args.workload, time.time() - t0
+            print(json.dumps(row), flush=True)
+        return 0
     for seed in args.seeds:
         t0 = time.time()
         fn = serve_readings if cell["driver"] == "serve_open_loop" else train_readings
