@@ -225,7 +225,8 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            split into sampling, forward, backward and optimizer, and its
            device time by kernel with the idle share (torch.profiler); one
            eval pass; kernel 7 in both directions with `torch.sparse.mm` as
-           its yardstick; kernels 8 and 9 per layer; the LightGCN and 2-head
+           its yardstick; kernels 8 and 9 per layer; the GATv2 kernels
+           (forward, B1, B2) at 2 heads x 128; the LightGCN and 2-head
            steps by phase, profiled; kernels 10 and 11 at the graph-build
            shapes beside a blocked `torch.mm` of the same product; the eval's
            rank kernel at one eval chunk (D 128 and 64) beside the dense
@@ -313,6 +314,10 @@ SOURCES = {
     "onehot_reduce": ("plotpointe_tpu_torch/csrc/spmm_csr.cu", "plotpointe_tpu/ops/gat_fused.py:291"),
     # the eval's ranks: an XLA product and gathers in the JAX package, not a Pallas kernel
     "eval_rank": ("plotpointe_tpu_torch/csrc/eval_rank.cu", "plotpointe_tpu/train/evaluate.py:47"),
+    # GATv2 is port-only: the JAX package has no counterpart, the plain reference is benchmark/reference/gatv2.py
+    "gatv2_fwd": ("plotpointe_tpu_torch/csrc/gatv2_fwd.cu", None),
+    "gatv2_bwd_dst": ("plotpointe_tpu_torch/csrc/gatv2_bwd_dst.cu", None),
+    "gatv2_bwd_src": ("plotpointe_tpu_torch/csrc/gatv2_bwd_src.cu", None),
 }
 # the kernels each path must launch; gather_fence is on none (the port's
 # backward kernels gather rows themselves, so there are no two XLA gathers
@@ -323,6 +328,8 @@ PATH_KERNELS = {"train": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "eval_rank"),
                 "lightgcn_serve": ("spmm_csr", "topk_chunkmax", "topk_rescore", "topk_select"),
                 "mh_train": ("gat_fwd_mh", "gat_bwd_dst_mh", "gat_bwd_src", "eval_rank"),
                 "mh_export": ("gat_fwd_mh",),
+                "gatv2_train": ("gatv2_fwd", "gatv2_bwd_dst", "gatv2_bwd_src", "eval_rank"),
+                "gatv2_export": ("gatv2_fwd",),
                 "graph_build": ("knn_topk",),
                 "graph_build_fast": ("knn_topk_fast",),
                 "tooling": ("smoke_affine", "stream_probe"),
@@ -637,6 +644,18 @@ class Errors:
               "ok": ok})
         if not ok:
             raise AssertionError(f"{name} ({what}) differs from its plain version: max abs err {err}")
+
+    def within(self, name: str, what: str, got, want, band) -> None:
+        """|got - want| within `band`, a tolerance of each entry's own (a sum
+        over a node's edges widened by the bound of its f32 summation)."""
+        diff = (got - want).abs()
+        err = float(diff.max()) if got.numel() else 0.0
+        excess = float((diff - band).max()) if got.numel() else 0.0
+        self.max[name] = max(self.max.get(name, 0.0), err)
+        emit({"phase": "check", "kernel": name, "case": what, "max_abs_err": err,
+              "max_excess_over_band": excess, "ok": excess <= 0})
+        if excess > 0:
+            raise AssertionError(f"{name} ({what}) disagrees with its plain version: {excess} past its band")
 
     def same_bits(self, name: str, what: str, got, again) -> None:
         """Two launches of a kernel on the same inputs must give equal bits."""
@@ -1047,6 +1066,66 @@ def check_multihead(errs, rng, label, g, dev, layer=None):
     sync()
 
 
+def check_gatv2(errs, label, g, dev) -> None:
+    """The GATv2 kernels (`csrc/gatv2_*.cu`) vs their plain versions at the
+    `gatv2-amazon` cell's 2 heads x 128: bf16 rows with dropout 0.1
+    (training), f32 rows without (the export). Tolerances as in
+    tests/test_torch_gatv2.py: the forward within ATTN_TOL; B1's per-edge
+    (al, ds) within GRAD_TOL; a node's sum over its edges (dxr, dxl) within
+    GRAD_TOL widened by twice the bound of an f32 sum in any order (entries
+    x 2^-24 x sum |terms|); da, a sum over every edge, within GRAD_TOL's
+    rtol and its atol x sqrt(E); the signs of z equal wherever |z| > 1e-6;
+    the same bits on a second launch. Inputs from a generator of their own,
+    so the numpy stream of the later phases is unchanged."""
+    import torch
+
+    from plotpointe_tpu_torch.ops import gatv2 as op
+
+    own = np.random.default_rng(23)
+    n, e, heads, d = g.n_nodes, g.n_edges, 2, 128
+    src, dst = g.src.long(), g.dst.long()
+
+    def t(*shape, scale=0.3):
+        return torch.as_tensor((own.normal(size=shape) * scale).astype(np.float32), device=dev)
+
+    def sums(name, what, got, want, rows, terms_abs):
+        depth = torch.bincount(rows, minlength=n).float()[:, None, None]
+        mag = torch.zeros_like(got).index_add_(0, rows, terms_abs)
+        band = GRAD_TOL["atol"] + GRAD_TOL["rtol"] * want.abs() + 2 * 2.0 ** -24 * depth * mag
+        errs.within(name, what, got, want, band)
+
+    xl, xr, a, ct = t(n, heads, d), t(n, heads, d), t(heads, d), t(n, heads, d, scale=1.0)
+    da_tol = dict(rtol=GRAD_TOL["rtol"], atol=GRAD_TOL["atol"] * e ** 0.5)
+    with torch.no_grad():
+        for rows_dt, rate in ((torch.bfloat16, 0.1), (torch.float32, 0.0)):
+            what = f"{label} N={n} E={e} H={heads} D={d} rows={str(rows_dt)[6:]} dropout={rate}"
+            rl = xl.to(rows_dt).contiguous()
+            fa = (rl, xr, a, g, rate, 7)
+            got = op.gatv2_fwd(*fa)
+            out, den = op.gatv2_fwd_plain(*fa)
+            errs.check("gatv2_fwd", what + " out", got[0], out, ATTN_TOL)
+            errs.check("gatv2_fwd", what + " den", got[1], den, ATTN_TOL)
+            errs.same_bits("gatv2_fwd", what, got, op.gatv2_fwd(*fa))
+            b1 = (rl, xr, a, ct, out, den, g, rate, 7)
+            got = op.gatv2_bwd_dst(*b1)
+            dxr, da, edge, signs = op.gatv2_bwd_dst_plain(*b1)
+            errs.check("gatv2_bwd_dst", what + " edge (al, ds)", got[2], edge, GRAD_TOL)
+            sums("gatv2_bwd_dst", what + " dxr", got[0], dxr, dst, edge[:, :, 1:2].abs() * a.abs())
+            errs.check("gatv2_bwd_dst", what + " da", got[1], da, da_tol)
+            clear = ((rl.float()[src] + xr[dst]).abs() > 1e-6).reshape(e, -1, op.vec_of(rows_dt)).all(-1)
+            errs.equal("gatv2_bwd_dst", what + " signs of z where |z| > 1e-6", [got[3][clear]],
+                       [signs[clear]])
+            errs.same_bits("gatv2_bwd_dst", what, got, op.gatv2_bwd_dst(*b1))
+            b2 = (ct, a, edge, signs, g)
+            got = op.gatv2_bwd_src(*b2)
+            terms = edge[:, :, :1].abs() * ct[dst].abs() + edge[:, :, 1:2].abs() * a.abs()
+            sums("gatv2_bwd_src", what + " dxl", got, op.gatv2_bwd_src_plain(*b2), src, terms)
+            errs.same_bits("gatv2_bwd_src", what, [got], [op.gatv2_bwd_src(*b2)])
+            del got, out, den, dxr, da, edge, signs, clear, terms, rl, fa, b1, b2
+    del xl, xr, a, ct
+    sync()
+
+
 def check_legacy_kernels(errs, rng, label, g, h, a_s, a_d, dev) -> None:
     """Kernels 13, 14 and 15 vs their plain versions on the legacy paths'
     inputs: kernel 14 with and without the Bernoulli mask; kernel 13 on
@@ -1112,6 +1191,7 @@ def phase_check(errs, rng, graph, h0, a_s, a_d, catalog, dev) -> None:
     for label, g, layer in (("small", gsmall, None), ("main", graph, (h0, a_s, a_d))):
         check_spmm(errs, rng, label, g, dev)
         check_multihead(errs, rng, label, g, dev, layer)
+        check_gatv2(errs, label, g, dev)
     with torch.no_grad():
         for label, x in (("small", hsmall[:40, 0, :64]), ("main", h0[:, 0])):
             for dt in (torch.float32, torch.bfloat16):
@@ -2088,6 +2168,61 @@ def time_multihead(rows_out, graph, dev, rng) -> None:
                 if rows_dt == torch.bfloat16:
                     rows_out[kname] = line  # the training path's rows and mask
             del rows, out, den, a1
+
+
+def time_gatv2(rows_out, graph, dev, rng) -> None:
+    """The GATv2 kernels (`csrc/gatv2_*.cu`) at the `gatv2-amazon` cell's 2
+    heads x 128 on the main graph: the forward at f32 rows without dropout
+    (the export) and at bf16 rows with dropout 0.1 (training), then B1 and
+    B2 on that forward; each beside its plain version, with its bound
+    (`benchmark/counts/gatv2.py`), its gather ceiling and its largest gap to
+    the plain output."""
+    import torch
+
+    from benchmark.counts import gatv2 as counts
+    from plotpointe_tpu_torch.ops import gatv2 as op
+
+    n, e, hh, d = graph.n_nodes, graph.n_edges, 2, 128
+
+    def t(*shape, scale=1.0):
+        return torch.as_tensor((rng.normal(size=shape) * scale).astype(np.float32), device=dev)
+
+    def gap(got, want):
+        return max(float((x.float() - y.float()).abs().max()) for x, y in zip(got, want))
+
+    xl, xr, a, g = t(n, hh, d, scale=0.3), t(n, hh, d, scale=0.3), t(hh, d, scale=0.1), t(n, hh, d)
+    with torch.no_grad():
+        for rows_dt, rate in ((torch.float32, 0.0), (torch.bfloat16, 0.1)):
+            isz, dname = (4 if rows_dt == torch.float32 else 2), str(rows_dt)[6:]
+            shape = f"N={n} E={e} H={hh} D={d} rows={dname} dropout={rate}"
+            fa = (xl.to(rows_dt).contiguous(), xr, a, graph, rate, 7)
+            out, den = op.gatv2_fwd(*fa)
+            nbytes = counts.fwd_bytes(n, e, hh, d, isz)
+            line = timing_row("gatv2_fwd", shape, lambda: op.gatv2_fwd(*fa), lambda: op.gatv2_fwd_plain(*fa),
+                              nbytes, counts.fwd_ops(e, hh, d), "float32", plain_iters=2,
+                              max_abs_err=gap((out, den), op.gatv2_fwd_plain(*fa)),
+                              gather_ms=gather_ms(nbytes, e, hh * d * isz))
+            if rows_dt == torch.float32:
+                continue
+            rows_out["gatv2_fwd"] = line
+            b1 = (fa[0], xr, a, g, out, den, graph, rate, 7)
+            dxr, da, edge, signs = op.gatv2_bwd_dst(*b1)
+            want = op.gatv2_bwd_dst_plain(*b1)
+            nbytes = counts.bwd_dst_bytes(n, e, hh, d, isz)
+            rows_out["gatv2_bwd_dst"] = timing_row(
+                "gatv2_bwd_dst", shape, lambda: op.gatv2_bwd_dst(*b1), lambda: op.gatv2_bwd_dst_plain(*b1),
+                nbytes, counts.bwd_dst_ops(e, hh, d), "float32", plain_iters=2,
+                max_abs_err=gap((dxr, edge), want[:3:2]), da_max_abs_err=gap((da,), want[1:2]),
+                signs_differ=int((signs != want[3]).sum()), gather_ms=gather_ms(nbytes, e, hh * d * isz))
+            b2 = (g, a, edge, signs, graph)
+            nbytes = counts.bwd_src_bytes(n, e, hh, d, isz)
+            rows_out["gatv2_bwd_src"] = timing_row(
+                "gatv2_bwd_src", shape, lambda: op.gatv2_bwd_src(*b2), lambda: op.gatv2_bwd_src_plain(*b2),
+                nbytes, counts.bwd_src_ops(e, hh, d), "float32", plain_iters=2,
+                max_abs_err=gap((op.gatv2_bwd_src(*b2),), (op.gatv2_bwd_src_plain(*b2),)),
+                gather_ms=gather_ms(nbytes, e, hh * d * 4))
+            del b1, b2, want, dxr, edge, signs
+    del xl, xr, a, g
 
 
 def time_gather_trees(graph, dev, tree: str) -> None:
@@ -3959,6 +4094,7 @@ def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev):
                         rows["topk_select"] = line
     time_rule2(rows, graph, dev)
     time_multihead(rows, graph, dev, rng)
+    time_gatv2(rows, graph, dev, rng)
     time_eval_rank(rows, dev)
     return rows
 
@@ -4047,6 +4183,15 @@ def run(args, work: Path, dev="cuda") -> int:
     phase_step_parity("train_mh", mh_trainer)
     by_path["mh_export"] = phase_serve("export_mh", work, mh_ckpt, inter, feats, s.n_items, 128,
                                        0, 0, dev, PATH_KERNELS["mh_export"])
+    # path 4b: GATv2 at 2 heads (the gatv2-amazon configuration), trained, then exported
+    v2_trainer, v2_ckpt, _, by_path["gatv2_train"] = phase_train(
+        "train_gatv2", TrainConfig(heads=MH_HEADS, attention="gatv2", **gat), work, dev,
+        PATH_KERNELS["gatv2_train"],
+        {"n_layers": args.layers, "hidden_dim": 128, "heads": MH_HEADS, "attention": "gatv2"})
+    phase_step_parity("train_gatv2", v2_trainer)
+    del v2_trainer
+    by_path["gatv2_export"] = phase_serve("export_gatv2", work, v2_ckpt, inter, feats, s.n_items, 128,
+                                          0, 0, dev, PATH_KERNELS["gatv2_export"])
     mark("paths_1_4")
     # path 5: the graph-build stage, then kNN's fast mode
     by_path["graph_build"], by_path["graph_build_fast"], knn_feats, build_knn_s = phase_graph_build(

@@ -89,6 +89,7 @@ def _cmd_train(args):
         hidden_dim=args.hidden_dim,
         layers=args.layers,
         heads=args.heads,
+        attention=args.attention,
         epochs=args.epochs,
         samples_per_epoch=args.samples_per_epoch,
         steps_per_epoch=args.steps_per_epoch,
@@ -550,6 +551,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--hidden-dim", type=int, default=128)
     t.add_argument("--layers", type=int, default=2)
     t.add_argument("--heads", type=int, default=1)
+    t.add_argument("--attention", choices=["gat", "gatv2"], default="gat",
+                   help="the GAT's logit: gat (a_src.h_j + a_dst.h_i, then LeakyReLU) or gatv2 "
+                        "(a.LeakyReLU(W_l x_j + W_r x_i), 1 to 8 heads; one device)")
     t.add_argument("--epochs", type=int, default=20)
     t.add_argument("--samples-per-epoch", type=int, default=200_000)
     t.add_argument("--steps-per-epoch", type=int, default=1)

@@ -6,7 +6,8 @@ defaults, same `from_env` / `to_dict` / `from_dict`), so a checkpoint's
 embedded `train_config` reads in both packages; `FusionConfig` (the fusion
 MLP's, `from_env` with the `FUSION_` prefix); `KnnConfig`; and
 `FeatureManifest`, `load_registry`, `load_manifest` (the same manifest JSON
-schema and the same errors).
+schema and the same errors). `TrainConfig.attention` is the port's own
+field (the JAX package runs the original GAT only): `gatv2` trains GATv2.
 
 `attn_impl` (GAT) and `spmm_impl` (LightGCN) keep the JAX values and pick
 the type the kernels round gathered rows to (`ops/gat_kernel.resolve_hs_dtype`):
@@ -51,6 +52,7 @@ class TrainConfig:
     layers: int = 2
     heads: int = 1
     attn_dropout: float = 0.1
+    attention: str = "gat"  # {gat, gatv2}: the GAT's logit, see models/gat.py (GAT only)
     # optimization
     lr: float = 1e-3
     l2: float = 1e-4

@@ -12,6 +12,13 @@ key-paths with dots (`['layers'][0]['a_src']` <-> `layers.0.a_src`):
 `hs_dtype` is the type attention rounds source rows to: float32 is the
 function the JAX export computes; bfloat16 is what the JAX trainer's kernel
 path computes (`attention_v3`'s default).
+
+`attention="gatv2"` (port-only) swaps each layer for GATv2 (Brody et al.
+2022; PyG's `GATv2Conv` with `concat=False`, `add_self_loops=False`,
+`share_weights=False`, no bias): `layers.l.w_l`, `layers.l.w_r [H, heads,
+D]` and `layers.l.a [heads, D]`, the logit a . LeakyReLU(x_j W_l + x_i W_r)
+per edge j -> i (`ops/gatv2.py`), then the head-mean. `config_dict` records
+`attention`; a config without it is the original GAT.
 """
 from __future__ import annotations
 
@@ -23,6 +30,9 @@ from torch import nn
 
 from plotpointe_tpu_torch.graphs.csr import Graph
 from plotpointe_tpu_torch.ops.gat_kernel import segment_softmax_attention_kernel
+from plotpointe_tpu_torch.ops.gatv2 import gatv2_attention
+
+ATTENTIONS = ("gat", "gatv2")
 
 
 class ItemProjection(nn.Module):
@@ -35,6 +45,11 @@ class ItemProjection(nn.Module):
         return feats @ self.w + self.b
 
 
+def _uniform(shape, bound: float, generator: torch.Generator) -> torch.Tensor:
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return (2.0 * u - 1.0) * bound
+
+
 class GATLayer(nn.Module):
     def __init__(self, hidden: int, heads: int, use_bias: bool):
         super().__init__()
@@ -43,10 +58,47 @@ class GATLayer(nn.Module):
         self.a_dst = nn.Parameter(torch.zeros(heads, hidden))
         self.b = nn.Parameter(torch.zeros(hidden)) if use_bias else None
 
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator) -> None:
+        """xavier-uniform w, a_src and a_dst, in that order; a zero bias."""
+        h, d = self.w.shape[0], self.w.shape[2]
+        self.w.copy_(_uniform(self.w.shape, math.sqrt(6.0 / (h + d)), generator))
+        self.a_src.copy_(_uniform(self.a_src.shape, math.sqrt(6.0 / (1 + d)), generator))
+        self.a_dst.copy_(_uniform(self.a_dst.shape, math.sqrt(6.0 / (1 + d)), generator))
+        if self.b is not None:
+            self.b.zero_()
 
-def _uniform(shape, bound: float, generator: torch.Generator) -> torch.Tensor:
-    u = torch.rand(shape, generator=generator, device=generator.device)
-    return (2.0 * u - 1.0) * bound
+    def forward(self, x: torch.Tensor, graph: Graph, drop: float, seed, hs_dtype: torch.dtype,
+                li: int) -> torch.Tensor:
+        h = torch.einsum("nf,fhd->nhd", x, self.w)  # [N, heads, D]
+        out = segment_softmax_attention_kernel(h, self.a_src, self.a_dst, graph, dropout_rate=drop,
+                                               seed=seed, hs_dtype=hs_dtype)
+        x = out.mean(dim=1)  # head-mean; identity for heads == 1
+        return x if self.b is None else x + self.b
+
+
+class GATv2Layer(nn.Module):
+    def __init__(self, hidden: int, heads: int):
+        super().__init__()
+        self.w_l = nn.Parameter(torch.zeros(hidden, heads, hidden))
+        self.w_r = nn.Parameter(torch.zeros(hidden, heads, hidden))
+        self.a = nn.Parameter(torch.zeros(heads, hidden))
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator) -> None:
+        """xavier-uniform w_l, w_r and a, in that order, at the GAT's
+        bounds (not GATv2Conv's glorot over heads x D)."""
+        h, d = self.w_l.shape[0], self.w_l.shape[2]
+        for w in (self.w_l, self.w_r):
+            w.copy_(_uniform(w.shape, math.sqrt(6.0 / (h + d)), generator))
+        self.a.copy_(_uniform(self.a.shape, math.sqrt(6.0 / (1 + d)), generator))
+
+    def forward(self, x: torch.Tensor, graph: Graph, drop: float, seed, hs_dtype: torch.dtype,
+                li: int) -> torch.Tensor:
+        xl = torch.einsum("nf,fhd->nhd", x, self.w_l)
+        xr = torch.einsum("nf,fhd->nhd", x, self.w_r)
+        return gatv2_attention(xl, xr, self.a, graph, dropout_rate=drop, seed=seed, hs_dtype=hs_dtype,
+                               layer=li).mean(dim=1)
 
 
 class GATModel(nn.Module):
@@ -54,14 +106,23 @@ class GATModel(nn.Module):
 
     def __init__(self, n_users: int, n_items: int, feat_dim: int, hidden_dim: int = 128,
                  n_layers: int = 2, heads: int = 1, attn_dropout: float = 0.1,
-                 use_bias: bool = False, hs_dtype: torch.dtype = torch.float32):
+                 use_bias: bool = False, hs_dtype: torch.dtype = torch.float32,
+                 attention: str = "gat"):
         super().__init__()
+        if attention not in ATTENTIONS:
+            raise ValueError(f"unknown attention {attention!r} (expected gat|gatv2)")
+        if attention == "gatv2" and (use_bias or not 1 <= heads <= 8):
+            raise ValueError(f"GATv2 takes 1 to 8 heads and no bias; got heads={heads}, "
+                             f"use_bias={use_bias}")
         self.n_users, self.n_items, self.feat_dim = n_users, n_items, feat_dim
         self.hidden_dim, self.n_layers, self.heads = hidden_dim, n_layers, heads
         self.attn_dropout, self.use_bias, self.hs_dtype = attn_dropout, use_bias, hs_dtype
+        self.attention = attention
         self.user_emb = nn.Parameter(torch.zeros(n_users, hidden_dim))
         self.item_proj = ItemProjection(feat_dim, hidden_dim)
-        self.layers = nn.ModuleList(GATLayer(hidden_dim, heads, use_bias) for _ in range(n_layers))
+        self.layers = nn.ModuleList(
+            GATv2Layer(hidden_dim, heads) if attention == "gatv2" else GATLayer(hidden_dim, heads, use_bias)
+            for _ in range(n_layers))
 
     @property
     def n_nodes(self) -> int:
@@ -71,19 +132,15 @@ class GATModel(nn.Module):
     def init_params(self, generator: torch.Generator) -> None:
         """The JAX package's init distributions: user_emb N(0, 0.1),
         item_proj.w U(+-1/sqrt(F)), xavier-uniform layer w, a_src and a_dst,
-        zero biases. Draws on the generator's device."""
-        h, d = self.hidden_dim, self.hidden_dim
+        zero biases; GATv2: xavier-uniform w_l, w_r and a, in that order,
+        layer by layer. Draws on the generator's device."""
         self.user_emb.copy_(0.1 * torch.randn(self.user_emb.shape, generator=generator,
                                               device=generator.device))
         self.item_proj.w.copy_(_uniform(self.item_proj.w.shape, 1.0 / math.sqrt(self.feat_dim),
                                         generator))
         self.item_proj.b.zero_()
         for layer in self.layers:
-            layer.w.copy_(_uniform(layer.w.shape, math.sqrt(6.0 / (h + d)), generator))
-            layer.a_src.copy_(_uniform(layer.a_src.shape, math.sqrt(6.0 / (1 + d)), generator))
-            layer.a_dst.copy_(_uniform(layer.a_dst.shape, math.sqrt(6.0 / (1 + d)), generator))
-            if layer.b is not None:
-                layer.b.zero_()
+            layer.init_(generator)
 
     def node_features(self, item_feats: torch.Tensor) -> torch.Tensor:
         """concat([user_emb, item_proj(item_feats)]) -> [n_nodes, hidden]."""
@@ -97,14 +154,8 @@ class GATModel(nn.Module):
         drop = self.attn_dropout if train else 0.0
         x = self.node_features(item_feats)
         for li, layer in enumerate(self.layers):
-            h = torch.einsum("nf,fhd->nhd", x, layer.w)  # [N, heads, D]
             seed = seeds[li] if (seeds is not None and drop > 0) else None
-            out = segment_softmax_attention_kernel(h, layer.a_src, layer.a_dst, graph,
-                                                   dropout_rate=drop, seed=seed,
-                                                   hs_dtype=self.hs_dtype)
-            x = out.mean(dim=1)  # head-mean; identity for heads == 1
-            if layer.b is not None:
-                x = x + layer.b
+            x = layer(x, graph, drop, seed, self.hs_dtype, li)
         return x
 
     def config_dict(self) -> Dict[str, Any]:
@@ -118,6 +169,7 @@ class GATModel(nn.Module):
             "heads": self.heads,
             "attn_dropout": self.attn_dropout,
             "use_bias": self.use_bias,
+            "attention": self.attention,
         }
 
     @staticmethod
@@ -131,4 +183,5 @@ class GATModel(nn.Module):
             heads=int(d.get("heads", 1)),
             attn_dropout=float(d.get("attn_dropout", 0.1)),
             use_bias=bool(d.get("use_bias", False)),
+            attention=str(d.get("attention", "gat")),
         )

@@ -45,7 +45,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "plotpointe_tpu_torch"
 KERNELS = ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "gather_fence", "topk_chunkmax", "topk_rescore",
            "topk_select", "spmm_csr", "knn_topk", "knn_topk_fast", "stream_probe", "smoke_affine",
-           "eval_rank")
+           "eval_rank", "gatv2_fwd", "gatv2_bwd_dst", "gatv2_bwd_src")
 # TPU kernels that a source above computes in another mode, each with a
 # counter of its own: the head-packed forward (kernel 8) is gat_fwd at 2-8
 # heads and the head-packed B1 (kernel 9) gat_bwd_dst at 2-8 heads; the
@@ -57,6 +57,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint
+F = ctypes.c_float
+LL = ctypes.c_longlong
 # C entry point and argument types of each library
 SIGNATURES = {
     "gat_fwd": ("ppt_gat_fwd", [P] * 18 + [I] * 7 + [P]),
@@ -72,6 +75,9 @@ SIGNATURES = {
     "stream_probe": ("ppt_stream_probe", [P, ctypes.c_float, P, I, I, I, P]),
     "smoke_affine": ("ppt_smoke_affine", [P, P, ctypes.c_longlong, P]),
     "eval_rank": ("ppt_eval_rank", [P] * 7 + [I] * 3 + [P]),
+    "gatv2_fwd": ("ppt_gatv2_fwd", [P, I] + [P] * 13 + [I] * 7 + [U, U, F, LL, P]),
+    "gatv2_bwd_dst": ("ppt_gatv2_bwd_dst", [P, I] + [P] * 17 + [I] * 7 + [U, U, F, LL, P]),
+    "gatv2_bwd_src": ("ppt_gatv2_bwd_src", [P, I] + [P] * 12 + [I] * 6 + [P]),
 }
 MAX_SMEM = 232_448 - 1024  # a block's shared memory on sm_90, less static use
 

@@ -33,7 +33,8 @@ def _check_family(cfg: TrainConfig) -> None:
 
 def make_model(cfg: TrainConfig, n_users: int, n_items: int, feat_dim: int, device=None):
     """The model of `cfg`, with the row type its `attn_impl` (GAT) or
-    `spmm_impl` (LightGCN) means on `device`."""
+    `spmm_impl` (LightGCN) means on `device`; the GAT's layers are
+    `cfg.attention`'s (gat or gatv2)."""
     _check_family(cfg)
     if cfg.model_family == "lightgcn":
         return LightGCNModel(n_users=n_users, n_items=n_items, embed_dim=cfg.embed_dim,
@@ -41,7 +42,8 @@ def make_model(cfg: TrainConfig, n_users: int, n_items: int, feat_dim: int, devi
                              xs_dtype=resolve_hs_dtype(cfg.spmm_impl, resolve_device(device)))
     return GATModel(n_users=n_users, n_items=n_items, feat_dim=feat_dim, hidden_dim=cfg.hidden_dim,
                     n_layers=cfg.layers, heads=cfg.heads, attn_dropout=cfg.attn_dropout,
-                    hs_dtype=resolve_hs_dtype(cfg.attn_impl, resolve_device(device)))
+                    hs_dtype=resolve_hs_dtype(cfg.attn_impl, resolve_device(device)),
+                    attention=cfg.attention)
 
 
 def _features(store: ArtifactStore, cfg: TrainConfig, embeddings_prefix: str, n_items: int):

@@ -5,8 +5,8 @@ the bipartite graph exactly as training did, restore the model from the
 checkpoint's embedded config, run one full-graph forward, keep the item half,
 save float32. Both families run at f32 rows, the function the JAX export
 computes: on the GPU the GAT's attention layers run the fused kernels (kernel
-1, or 8 for 2 to 8 heads), LightGCN's propagation runs kernel 7. LightGCN
-takes no item features.
+1, or 8 for 2 to 8 heads; a GATv2 checkpoint, `csrc/gatv2_fwd.cu`),
+LightGCN's propagation runs kernel 7. LightGCN takes no item features.
 """
 from __future__ import annotations
 

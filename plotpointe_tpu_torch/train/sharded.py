@@ -60,6 +60,10 @@ class ShardedTrainer(Trainer):
     def __init__(self, model, cfg: TrainConfig, graph: Graph, splits: Splits,
                  item_feats: Optional[np.ndarray] = None, mesh: Optional[Mesh] = None,
                  max_pos_degree: int = 512, device=None):
+        if model.config_dict().get("attention", "gat") != "gat":
+            raise ValueError(f"the sharded trainer runs the original GAT and LightGCN; "
+                             f"attention={model.config_dict()['attention']!r} trains on one device "
+                             f"(no mesh)")
         self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh_shape, device=device)
         super().__init__(model, cfg, graph, splits, item_feats=item_feats,
                          max_pos_degree=max_pos_degree, device=self.mesh.device)
