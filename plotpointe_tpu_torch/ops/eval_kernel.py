@@ -12,6 +12,11 @@ order a non-split-K f32 product on the CUDA cores accumulates in, and the
 positive and the negatives go through the same code, so copied rows tie
 exactly. The plain version, taken for CPU tensors, is the dense product and
 the gathers.
+
+A launch made while the current stream captures a CUDA graph (the eval's
+`G_scores`, `train/evaluate.py`) is not counted: it runs at each replay, and
+the replay counts it. `EVAL_GRAPH_CAPTURES` and `EVAL_GRAPH_REPLAYS` count
+the eval's captures (one a key) and its graph replays (two a chunk).
 """
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ import torch
 from plotpointe_tpu_torch.ops import cuda_build as cb
 
 EVAL_RANK_LAUNCHES = cb.COUNTERS["eval_rank"]
+EVAL_GRAPH_CAPTURES = cb.LaunchCounter()
+EVAL_GRAPH_REPLAYS = cb.LaunchCounter()
 
 
 def eval_rank_plain(U: torch.Tensor, I: torch.Tensor, users: torch.Tensor, pos: torch.Tensor,
@@ -63,7 +70,8 @@ def eval_rank(U: torch.Tensor, I: torch.Tensor, users: torch.Tensor, pos: torch.
               negs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """U [n_users, D] and I [n_items, D] float32 (D a multiple of 4), users
     and pos [C] and negs [C, neg_k] int32 ids in range -> (rank, ties), both
-    int32 [C]. One launch on the card; the plain version on the CPU."""
+    int32 [C]. One launch on the card (counted unless captured); the plain
+    version on the CPU."""
     _check(U, I, users, pos, negs)
     if U.is_cpu:
         return eval_rank_plain(U, I, users, pos, negs)
@@ -73,5 +81,6 @@ def eval_rank(U: torch.Tensor, I: torch.Tensor, users: torch.Tensor, pos: torch.
     ties = torch.empty(c, dtype=torch.int32, device=U.device)
     cb.launch("eval_rank", U.device, U.data_ptr(), I.data_ptr(), users.data_ptr(), pos.data_ptr(),
               negs.data_ptr(), rank.data_ptr(), ties.data_ptr(), c, d, neg_k)
-    EVAL_RANK_LAUNCHES.bump()
+    if not torch.cuda.is_current_stream_capturing():
+        EVAL_RANK_LAUNCHES.bump()
     return rank, ties

@@ -30,7 +30,9 @@ Spans (`utils/tracing.py`, off unless enabled or profiled): `train.fit`,
 backward) and `train.optimizer` (device intervals on each), `train.read`
 (the blocking read of a loss: each step for the GAT, each epoch for
 LightGCN), `train.best_state`; `eval` with `eval.forward` (device), then
-`train/evaluate.py`'s chunk spans (`eval.scores` on the device).
+`train/evaluate.py`'s chunk spans (`eval.scores` on the device); the `eval`
+span's meta holds the eval's graph replays (`graphed`) and captures
+(`captures`).
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from plotpointe_tpu_torch import resolve_device
 from plotpointe_tpu_torch.config import TrainConfig
 from plotpointe_tpu_torch.data.splits import Splits, padded_positives
 from plotpointe_tpu_torch.graphs.csr import Graph
+from plotpointe_tpu_torch.ops.eval_kernel import EVAL_GRAPH_CAPTURES, EVAL_GRAPH_REPLAYS
 from plotpointe_tpu_torch.ops.gat_fused import MAX_PACKED_HEADS
 from plotpointe_tpu_torch.ops.segment import gather_rows
 from plotpointe_tpu_torch.train.checkpoint import (
@@ -238,12 +241,16 @@ class Trainer:
     def evaluate(self, eval_u: np.ndarray, eval_i: np.ndarray, index: int) -> Dict[str, float]:
         """Sampled metrics of the model's current parameters; `index` picks
         the negatives' random stream."""
-        with tracing.span("eval", index=index):
+        with tracing.span("eval", index=index) as sp:
             with tracing.span("eval.forward", device=self.device):
                 U, I = self._forward_eval()
-            return sampled_eval(U, I, eval_u, eval_i, self.user_pos_padded, self.user_deg,
-                                self._reseed(STREAM_EVAL, index), neg_k=self.cfg.eval_neg_k,
-                                chunk=self.cfg.eval_chunk)
+            replays, captures = EVAL_GRAPH_REPLAYS.count, EVAL_GRAPH_CAPTURES.count
+            metrics = sampled_eval(U, I, eval_u, eval_i, self.user_pos_padded, self.user_deg,
+                                   self._reseed(STREAM_EVAL, index), neg_k=self.cfg.eval_neg_k,
+                                   chunk=self.cfg.eval_chunk)
+            sp.note(graphed=EVAL_GRAPH_REPLAYS.count - replays,
+                    captures=EVAL_GRAPH_CAPTURES.count - captures)
+            return metrics
 
     # -- fit -------------------------------------------------------------------
     # hooks a subclass that places the parameters otherwise (the sharded

@@ -10,6 +10,12 @@ at 2,048 users x 1,001 candidates, on data whose scores are exact in f32;
 how many candidate scores of random rows differ bitwise between a one-FMA-
 chain recomputation and `U[users] @ I.T`; one launch counted per chunk.
 
+`sampled_eval` against a restatement of its eager chunk loop (before the
+CUDA graphs): on the CPU it runs that loop, captures nothing and returns the
+same bits; on the card its graphed eval returns the same metrics to the bit,
+reuses one capture across evals and leaves the generator where the eager
+loop leaves it.
+
 JAX is imported inside the CPU tests, so the card tests run where JAX is
 absent:
 
@@ -20,7 +26,7 @@ import pytest
 import torch
 
 from plotpointe_tpu_torch import full_f32_matmul
-from plotpointe_tpu_torch.ops import cuda_build
+from plotpointe_tpu_torch.ops import cuda_build, eval_kernel
 from plotpointe_tpu_torch.ops.eval_kernel import eval_rank, eval_rank_plain
 from plotpointe_tpu_torch.train.evaluate import eval_from_negatives, sampled_eval
 
@@ -144,6 +150,69 @@ def test_sampled_eval_takes_rows_of_any_width(d):
     ndcg = torch.where(rank <= 10, 1.0 / torch.log2(rank + 1.0), torch.zeros_like(rank))
     assert got["ndcg@10"] == pytest.approx(float(ndcg.mean()), abs=1e-6)
     assert got["tie_fraction"] == pytest.approx(float((ties / neg_k).mean()), abs=1e-7)
+
+
+def eager_sampled_eval(U, I, eval_users, eval_pos, table, deg, generator, neg_k, ks=(10, 20),
+                       chunk=512):
+    """`sampled_eval` as it ran before the CUDA graphs: each chunk's
+    negatives, then its sums, added in chunk order, read one by one."""
+    from plotpointe_tpu_torch.train.sampling import sample_eval_negatives
+
+    n = len(eval_users)
+    chunk = min(chunk, ((n + 127) // 128) * 128)
+    n_pad = ((n + chunk - 1) // chunk) * chunk
+    dev = U.device
+    users = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+    pos = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+    valid = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+    users[:n] = torch.as_tensor(np.asarray(eval_users, np.int32), device=dev)
+    pos[:n] = torch.as_tensor(np.asarray(eval_pos, np.int32), device=dev)
+    valid[:n] = 1.0
+    if U.shape[1] % 4:
+        U, I = (torch.nn.functional.pad(x, (0, -U.shape[1] % 4)) for x in (U, I))
+    sums = {}
+    for c in range(0, n_pad, chunk):
+        sl = slice(c, c + chunk)
+        negs = sample_eval_negatives(generator, users[sl], pos[sl], table, deg, I.shape[0], neg_k)
+        part = eval_from_negatives(U, I, users[sl], pos[sl], negs, valid[sl], ks)
+        for k, v in part.items():
+            sums[k] = sums[k] + v if k in sums else v
+    totals = {k: float(v) for k, v in sums.items()}
+    count = max(totals["count"], 1.0)
+    metrics = {}
+    for k in ks:
+        metrics[f"recall@{k}"] = totals[f"recall@{k}_sum"] / count
+        metrics[f"ndcg@{k}"] = totals[f"ndcg@{k}_sum"] / count
+    metrics["tie_fraction"] = totals["tie_frac_sum"] / count
+    return metrics
+
+
+def _eval_case(dev, n, n_users=6000, n_items=5000, seed=0):
+    """A positives table of up to 16 sorted items a user and `n` eval pairs."""
+    rng = np.random.default_rng(seed)
+    table = torch.as_tensor(_avoid_rows(rng, n_users, 16, n_items), device=dev)
+    deg = (table < n_items).sum(1).to(torch.int32)
+    return table, deg, rng.integers(0, n_users, n), rng.integers(0, n_items, n)
+
+
+def graph_counts():
+    return (eval_kernel.EVAL_GRAPH_CAPTURES.count, eval_kernel.EVAL_GRAPH_REPLAYS.count,
+            cuda_build.COUNTERS["eval_rank"].count)
+
+
+@pytest.mark.parametrize("d,n,chunk", [(64, 1000, 256), (6, 300, 512)])
+def test_sampled_eval_cpu_is_the_eager_loop(d, n, chunk):
+    """On CPU tensors `sampled_eval` captures and replays nothing, and returns
+    the eager loop's metrics to the bit, leaving the generator where it does."""
+    table, deg, eu, ei = _eval_case("cpu", n, n_users=400, n_items=300)
+    g = torch.Generator().manual_seed(7)
+    U, I = torch.randn(400, d, generator=g), torch.randn(300, d, generator=g)
+    before = graph_counts()
+    got_gen, want_gen = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
+    got = sampled_eval(U, I, eu, ei, table, deg, got_gen, neg_k=50, chunk=chunk)
+    assert graph_counts() == before
+    assert got == eager_sampled_eval(U, I, eu, ei, table, deg, want_gen, 50, chunk=chunk)
+    assert torch.equal(torch.rand(4, generator=got_gen), torch.rand(4, generator=want_gen))
 
 
 def _inputs(c=6, d=8, neg_k=5, n=20):
@@ -293,3 +362,35 @@ def test_eval_rank_one_launch_a_chunk(cuda):
                      neg_k=1000, chunk=chunk)
     assert cuda_build.COUNTERS["eval_rank"].count == before + -(-n_eval // chunk)
     assert 0.0 <= m["recall@20"] <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n", [(128, 5000), (64, 5000), (128, 300), (64, 300), (1, 5000)])
+def test_sampled_eval_graphed_equals_eager(cuda, d, n):
+    """Three evals of one key, each with another seed and fresh U and I: the
+    graphed metrics equal the eager loop's to the bit (n 5,000 in chunks of
+    2,048, the last padded; n 300 in one chunk cut to 384; D 1 padded to 4);
+    the key is captured once, at its second chunk, and then replays two
+    graphs a chunk with one `eval_rank` launch counted a chunk; the draws
+    after each eval equal those after the eager one."""
+    table, deg, eu, ei = _eval_case(cuda, n)
+    chunks = -(-n // 2048)
+    graphed, eager = torch.Generator(device=cuda), torch.Generator(device=cuda)
+    start = graph_counts()
+    for seed in (1, 2, 3):
+        g = torch.Generator(device=cuda).manual_seed(100 + seed)
+        U = torch.randn(6000, d, generator=g, device=cuda)
+        I = torch.randn(5000, d, generator=g, device=cuda)
+        before = graph_counts()
+        got = sampled_eval(U, I, eu, ei, table, deg, graphed.manual_seed(seed), neg_k=1000, chunk=2048)
+        after = graph_counts()
+        want = eager_sampled_eval(U, I, eu, ei, table, deg, eager.manual_seed(seed), 1000, chunk=2048)
+        assert got == want, (seed, got, want)
+        assert after[2] - before[2] == chunks  # one eval_rank launch counted a chunk
+        if seed == 3:  # steady state: no capture, two replays a chunk
+            assert after[:2] == (before[0], before[1] + 2 * chunks)
+        assert torch.equal(torch.rand(16, generator=graphed, device=cuda),
+                           torch.rand(16, generator=eager, device=cuda))
+    end = graph_counts()
+    assert end[0] - start[0] == 1  # captured once, at the key's second chunk
+    assert end[1] - start[1] == 2 * (3 * chunks - 1)  # every chunk but the key's first replayed
