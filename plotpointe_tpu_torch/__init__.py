@@ -48,10 +48,10 @@ def full_f32_matmul() -> Iterator[None]:
 
 @contextlib.contextmanager
 def reference_versions() -> Iterator[None]:
-    """Inside this block the attention autograd ops (`AttentionV3`,
-    `AttentionV3MH`), the static SpMM operator and `knn_topk`'s candidate
-    selection run their plain versions on any device, forward and backward:
-    the reference their kernels are held to."""
+    """Inside this block the GAT attention op (`gat_fused.Attention`), the
+    static SpMM operator and `knn_topk`'s candidate selection run their
+    plain versions on any device, forward and backward: the reference their
+    kernels are held to."""
     global _reference
     prev, _reference = _reference, True
     try:

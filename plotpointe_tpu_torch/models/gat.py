@@ -13,6 +13,11 @@ key-paths with dots (`['layers'][0]['a_src']` <-> `layers.0.a_src`):
 function the JAX export computes; bfloat16 is what the JAX trainer's kernel
 path computes (`attention_v3`'s default).
 
+Dropout seeds (`dropout_seeds`): the model draws one uint32 a layer for a
+step, as the attention op masks all of a layer's heads from one seed. Above
+the op's packed limit (8 heads) a layer runs one pass a head, and the model
+draws one seed a head a layer.
+
 `attention="gatv2"` (port-only) swaps each layer for GATv2 (Brody et al.
 2022; PyG's `GATv2Conv` with `concat=False`, `add_self_loops=False`,
 `share_weights=False`, no bias): `layers.l.w_l`, `layers.l.w_r [H, heads,
@@ -29,6 +34,7 @@ import torch
 from torch import nn
 
 from plotpointe_tpu_torch.graphs.csr import Graph
+from plotpointe_tpu_torch.ops.gat_fused import MAX_PACKED_HEADS
 from plotpointe_tpu_torch.ops.gat_kernel import segment_softmax_attention_kernel
 from plotpointe_tpu_torch.ops.gatv2 import gatv2_attention
 
@@ -146,11 +152,20 @@ class GATModel(nn.Module):
         """concat([user_emb, item_proj(item_feats)]) -> [n_nodes, hidden]."""
         return torch.cat([self.user_emb, self.item_proj(item_feats)], dim=0)
 
+    def dropout_seeds(self, generator: torch.Generator) -> Optional[list]:
+        """One training step's uint32 attention-dropout seeds, drawn from
+        `generator`: one a layer, or [layers][heads] above 8 heads; None
+        without dropout."""
+        if self.attn_dropout <= 0:
+            return None
+        shape = (self.n_layers, self.heads) if self.heads > MAX_PACKED_HEADS else (self.n_layers,)
+        return torch.randint(0, 1 << 32, shape, generator=generator, device=generator.device,
+                             dtype=torch.int64).tolist()
+
     def forward(self, item_feats: torch.Tensor, graph: Graph, train: bool = False,
                 seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
-        """train=True applies attention dropout `attn_dropout`, with one uint32
-        mask seed per layer in `seeds` (per layer, a list of one seed per
-        head when heads > 8)."""
+        """train=True applies attention dropout `attn_dropout`, with the
+        seeds of `dropout_seeds`."""
         drop = self.attn_dropout if train else 0.0
         x = self.node_features(item_feats)
         for li, layer in enumerate(self.layers):

@@ -1,5 +1,5 @@
-"""Fused GAT attention, forward and backward, single-head and head-packed:
-CUDA kernels, their plain versions, and the autograd ops.
+"""Fused GAT attention, forward and backward, at 1 to 8 heads: CUDA kernels,
+their plain versions, and the one autograd op over them.
 
 Counterpart of `plotpointe_tpu/ops/gat_fused.py` (`attention_v3`,
 `attention_v3_mh`) and its kernels:
@@ -11,22 +11,32 @@ Counterpart of `plotpointe_tpu/ops/gat_fused.py` (`attention_v3`,
   mh B1       `_bwd_kernel_mh`  -> `csrc/gat_bwd_dst.cu`   (`attention_bwd_dst_mh`)
   reduce      `_reduce_kernel`  -> `csrc/spmm_csr.cu`, pre-gathered rows and
                                    unit weights (`segment_sum_rows`)
-The multi-head backward runs B2 once per head, on that head's rows of the
-[N, H, D] tensors read with a row stride (no per-head copies).
 Each `*_plain` function is the same function in plain PyTorch, used for CPU
 tensors and as the reference its kernel is held to on the card. A wrapper
 launches its kernel for CUDA tensors (or raises) and counts the launch.
 
+`Attention` is the one autograd op, h [N, H, D] -> [N, H, D] at 1 to 8
+heads: kernel 1 (one head) or 8 (2-8 heads) forward, then B1 for every head
+in one launch (kernel 2 or 9) and B2 once a head, on that head's rows of
+the [N, H, D] tensors read with a row stride (no per-head copies). One head
+takes D a multiple of 32 at any width (the kernels run rows wider than 512
+in column strips); 2-8 heads take the packed rule, D a power of two in
+[32, 512] and H * D <= 1,024. `attention_v3` (one head) and
+`attention_v3_mh` (2-8 heads) are its JAX names. Inside
+`reference_versions()` (the package root's switch, re-exported here) it runs
+the plain versions on any device, for checks that hold a kernel path
+against its reference on the card.
+
 Kernels 1, 8, 2 (B1) and 9 walk the cached piece plan of `row_ptr`, and B2
 that of `t_ptr` (`spmm_kernel.cached_walk`). Kernels 1 and 8 are one C
-entry at 1 to 8 heads (`csrc/gat_fwd.cu`) behind one wrapper (`_fwd`), and
-so are kernels 2 and 9 (`csrc/gat_bwd_dst.cu`, `_bwd_dst`); each kernel
-counts on its own counter. They read rows in 16-byte loads: their wrappers
-raise where a row view they would pass does not start 16-byte aligned, or
-its rows are not a multiple of 16 bytes apart. `attention_fwd_mh_pieces`
-(kernel 1 at one head, kernel 8 at more), `attention_bwd_dst_pieces`
-(kernel 2 at one head, kernel 9 at more) and `attention_bwd_src_pieces` are
-the functions in the walks' order of sums, for the tests.
+entry (`csrc/gat_fwd.cu`) behind one wrapper (`_fwd`), and so are kernels 2
+and 9 (`csrc/gat_bwd_dst.cu`, `_bwd_dst`); each kernel counts on its own
+counter. They read rows in 16-byte loads: their wrappers raise where a row
+view they would pass does not start 16-byte aligned, or its rows are not a
+multiple of 16 bytes apart. `attention_fwd_mh_pieces` (kernel 1 at one head,
+kernel 8 at more), `attention_bwd_dst_pieces` (kernel 2 at one head, kernel
+9 at more) and `attention_bwd_src_pieces` are the functions in the walks'
+order of sums, for the tests.
 
 Rounding matches the TPU kernels: source rows are rounded to `hs_dtype`
 (for the source logit term gs = round(h) . a_src, the aggregation and the
@@ -37,13 +47,10 @@ B1 uses the f32 cotangent g; B2 uses g rounded to `hs_dtype` (for its row
 product and its alpha * g term) and recomputes de from it, so in bf16 mode
 B1 and B2 see slightly different de, as in `attn_bwd`.
 
-Inside `reference_versions()` (the package root's switch, re-exported
-here) `AttentionV3` and `AttentionV3MH` run the plain versions on any device,
-for checks that hold a kernel path against its reference on the card.
-
-Multi-head dropout: head k masks with `hash_mask(seed, eid + k * 2**27, rate)`
-over canonical edge ids, one seed for all heads, as the JAX package does.
-`attention_v3`'s `id_offset` lets one single-head pass draw head k's mask.
+Dropout: head k masks with `hash_mask(seed, eid + id_offset + k * 2**27,
+rate)` over canonical edge ids, one seed for all heads, as the JAX package
+does; `id_offset` lets one single-head pass draw head k's mask, and a
+shard's local graph pass the canonical id of its first edge.
 
 The training step does not call `gather_fence`: on the TPU it orders two
 XLA row gathers of the backward, and the port's kernels gather rows
@@ -94,13 +101,24 @@ def hash_mask(seed: int, ids: torch.Tensor, rate: float) -> torch.Tensor:
     return (x < thresh).to(torch.float32) * (1.0 / (1.0 - rate))
 
 
-def dropout_mask(graph: Graph, rate: float, seed: Optional[int], device,
-                 id_offset: int = 0) -> Optional[torch.Tensor]:
-    """The hash mask over canonical edge ids + `id_offset`, or None without
-    dropout."""
+def dropout_mask_mh(graph: Graph, rate: float, seed: Optional[int], heads: int,
+                    device, id_offset: int = 0) -> Optional[torch.Tensor]:
+    """[heads, E] hash masks, head k over canonical ids + `id_offset` + k *
+    2**27, or None without dropout. A graph that holds the edges from
+    canonical id e_lo on (a shard's local graph) passes id_offset = e_lo."""
     if rate <= 0.0 or seed is None:
         return None
-    return hash_mask(seed, torch.arange(graph.n_edges, device=device) + id_offset, rate)
+    ids = torch.arange(graph.n_edges, device=device) + id_offset
+    if heads > 1:
+        ids = ids + torch.arange(0, heads * HEAD_ID_STRIDE, HEAD_ID_STRIDE, device=device)[:, None]
+    return hash_mask(seed, ids.view(heads, -1), rate)
+
+
+def dropout_mask(graph: Graph, rate: float, seed: Optional[int], device,
+                 id_offset: int = 0) -> Optional[torch.Tensor]:
+    """`dropout_mask_mh` at one head: the mask [E], or None."""
+    mask = dropout_mask_mh(graph, rate, seed, 1, device, id_offset)
+    return None if mask is None else mask[0]
 
 
 # ---------------------------------------------------------------------------
@@ -162,22 +180,43 @@ def _check_rows_aligned(name, t):
                          f"{t.data_ptr() % 16}, row stride {t.stride(0)} elements)")
 
 
+def _check_packed_shape(heads, d):
+    if not (2 <= heads <= MAX_PACKED_HEADS and 32 <= d <= 512 and not d & (d - 1)
+            and heads * d <= MAX_PACKED_WIDTH):
+        raise ValueError(f"the head-packed kernels take 2 to {MAX_PACKED_HEADS} heads, D a power "
+                         f"of two in [32, 512] and heads * D <= {MAX_PACKED_WIDTH}; got "
+                         f"heads={heads}, D={d}")
+
+
 def _check(h, a_src, a_dst, graph, mask, hs_dtype):
+    """The forward's inputs at 1 to 8 heads: h [N, H, D] f32, a_src/a_dst
+    [H, D] f32, mask [H, E] f32 or None. One head takes D a multiple of 32,
+    more heads the packed rule."""
     n, heads, d = h.shape
-    if heads != 1:
-        raise ValueError(f"attention_fwd is single-head; got heads={heads}")
-    _check_width(d)
+    if heads == 1:
+        _check_width(d)
+    else:
+        _check_packed_shape(heads, d)
     if n != graph.n_nodes:
         raise ValueError(f"h has {n} rows but the graph has {graph.n_nodes} nodes")
     if hs_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"hs_dtype must be float32 or bfloat16; got {hs_dtype}")
-    for name, t, dt in (("h", h, torch.float32), ("a_src", a_src, torch.float32),
-                        ("a_dst", a_dst, torch.float32), ("src", graph.src, torch.int32),
-                        ("row_ptr", graph.row_ptr, torch.int32)):
-        _check_tensor(name, t, dt, h.device)
-    if a_src.shape != (1, d) or a_dst.shape != (1, d):
-        raise ValueError(f"a_src/a_dst must be [1, {d}]")
-    _check_mask(mask, graph, h.device)
+    for name, t, dt, shape in (("h", h, torch.float32, None),
+                               ("a_src", a_src, torch.float32, (heads, d)),
+                               ("a_dst", a_dst, torch.float32, (heads, d)),
+                               ("src", graph.src, torch.int32, None),
+                               ("row_ptr", graph.row_ptr, torch.int32, None)):
+        _check_tensor(name, t, dt, h.device, shape)
+    if mask is not None:
+        _check_tensor("mask", mask, torch.float32, h.device, (heads, graph.n_edges))
+
+
+def _one_head(name, h, mask=None):
+    """A single-head wrapper's guard: h [N, 1, D]. Returns its mask [E] as
+    `_check` takes it, [1, E]."""
+    if h.shape[1] != 1:
+        raise ValueError(f"{name} is single-head; got heads={h.shape[1]}")
+    return None if mask is None else mask[None]
 
 
 def _fwd(h, a_src, a_dst, graph, mask, hs_dtype, counter, plain=False):
@@ -223,11 +262,11 @@ def attention_fwd(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, gra
     a_src/a_dst [1, D] f32, mask [E] f32 over canonical edge ids or None.
     Returns (out [N, 1, D] f32, den [N] f32). Launches the CUDA kernel for
     CUDA tensors; runs `attention_fwd_plain` for CPU tensors."""
-    _check(h, a_src, a_dst, graph, mask, hs_dtype)
+    m = _one_head("attention_fwd", h, mask)
+    _check(h, a_src, a_dst, graph, m, hs_dtype)
     if h.is_cpu:
         return attention_fwd_plain(h, a_src, a_dst, graph, mask, hs_dtype)
-    out, den = _fwd(h, a_src, a_dst, graph, None if mask is None else mask[None], hs_dtype,
-                    LAUNCHES)[:2]
+    out, den = _fwd(h, a_src, a_dst, graph, m, hs_dtype, LAUNCHES)[:2]
     return out, den[:, 0]
 
 
@@ -403,89 +442,9 @@ def attention_bwd_src_pieces(rows, gh, a_src, gs, gd, den, godot, graph: Graph,
     return sums[:, :-1] + sums[:, -1:] * a_src.reshape(1, -1)
 
 
-def _backward(h2, a_src, a_dst, graph, g2, out2, den, rows, gs, gd, mask, plain):
-    """(dh [N, D], da_src [1, D], da_dst [1, D]) of `attn_bwd`."""
-    bwd_dst = attention_bwd_dst_plain if plain else attention_bwd_dst
-    bwd_src = attention_bwd_src_plain if plain else attention_bwd_src
-    de_sum, godot, da_src = bwd_dst(rows, gs, gd, g2, out2, den, graph, mask)
-    dh = bwd_src(rows, g2.to(rows.dtype), a_src, gs, gd, den, godot, graph, mask)
-    dh = dh + de_sum[:, None] * a_dst
-    return dh, da_src, de_sum[None, :] @ h2
-
-
-def attention_bwd_plain(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,
-                        g: torch.Tensor, out: torch.Tensor, den: torch.Tensor,
-                        mask: Optional[torch.Tensor] = None,
-                        hs_dtype: torch.dtype = torch.bfloat16):
-    """The explicit backward of `attention_v3` in plain PyTorch: h, g, out
-    [N, 1, D] f32, den [N] -> (dh [N, 1, D], da_src [1, D], da_dst [1, D]).
-    The reference B1 and B2 are held to (not autograd of the golden)."""
-    n, _, d = h.shape
-    h2 = h.reshape(n, d).float()
-    rows, gs, gd = node_terms_plain(h2, a_src, a_dst, hs_dtype)
-    dh, da_src, da_dst = _backward(h2, a_src, a_dst, graph, g.reshape(n, d), out.reshape(n, d),
-                                   den, rows, gs, gd, mask, plain=True)
-    return dh[:, None, :], da_src, da_dst
-
-
-class AttentionV3(torch.autograd.Function):
-    """Single-head fused attention with the backward of `attention_v3`:
-    the forward kernel, then B1 and B2 (their plain versions for CPU
-    tensors, or on any device when the forward ran inside
-    `reference_versions()`). The mask is rebuilt in the backward from its
-    seed and id offset."""
-
-    @staticmethod
-    def forward(ctx, h, a_src, a_dst, graph, dropout_rate, seed, hs_dtype, id_offset):
-        plain = reference_active()
-        n, _, d = h.shape
-        mask = dropout_mask(graph, dropout_rate, seed, h.device, id_offset)
-        _check(h, a_src, a_dst, graph, mask, hs_dtype)
-        h = h.contiguous()
-        out, den, rows, gs, gd = _fwd(h, a_src, a_dst, graph, None if mask is None else mask[None],
-                                      hs_dtype, LAUNCHES, plain)
-        ctx.save_for_backward(h.view(n, d), a_src, a_dst, out.view(n, d), den.view(n),
-                              rows.view(n, d), gs.view(n), gd.view(n))
-        ctx.graph, ctx.dropout_rate, ctx.seed, ctx.plain = graph, dropout_rate, seed, plain
-        ctx.id_offset = id_offset
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        h2, a_src, a_dst, out2, den, rows, gs, gd = ctx.saved_tensors
-        n, d = h2.shape
-        mask = dropout_mask(ctx.graph, ctx.dropout_rate, ctx.seed, h2.device, ctx.id_offset)
-        dh, da_src, da_dst = _backward(h2, a_src, a_dst, ctx.graph, g.reshape(n, d).contiguous(),
-                                       out2, den, rows, gs, gd, mask, ctx.plain)
-        return dh.view(n, 1, d), da_src, da_dst, None, None, None, None, None
-
-
-def attention_v3(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,
-                 dropout_rate: float = 0.0, seed: Optional[int] = None,
-                 hs_dtype: torch.dtype = torch.bfloat16, id_offset: int = 0) -> torch.Tensor:
-    """Differentiable single-head attention, h [N, 1, D] -> [N, 1, D]. With
-    dropout_rate > 0 and a uint32 `seed`, the hash mask over canonical edge
-    ids + `id_offset` drops attention weights (the JAX package draws its seed
-    as `jax.random.bits(rng, (), uint32)`; head k of a packed call offsets
-    the ids by k * HEAD_ID_STRIDE)."""
-    return AttentionV3.apply(h, a_src, a_dst, graph, float(dropout_rate), seed, hs_dtype,
-                             int(id_offset))
-
-
 # ---------------------------------------------------------------------------
 # head-packed multi-head attention (2 <= heads <= 8)
 # ---------------------------------------------------------------------------
-
-
-def dropout_mask_mh(graph: Graph, rate: float, seed: Optional[int], heads: int,
-                    device, id_offset: int = 0) -> Optional[torch.Tensor]:
-    """[heads, E] hash masks, head k over canonical ids + `id_offset` + k *
-    2**27, or None without dropout. A graph that holds the edges from
-    canonical id e_lo on (a shard's local graph) passes id_offset = e_lo."""
-    if rate <= 0.0 or seed is None:
-        return None
-    ids = torch.arange(graph.n_edges, device=device) + id_offset
-    return torch.stack([hash_mask(seed, ids + k * HEAD_ID_STRIDE, rate) for k in range(heads)])
 
 
 def node_terms_mh_plain(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
@@ -495,31 +454,6 @@ def node_terms_mh_plain(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tenso
     terms = [node_terms_plain(h[:, k], a_src[k:k + 1], a_dst[k:k + 1], hs_dtype)
              for k in range(h.shape[1])]
     return tuple(torch.stack(t, 1) for t in zip(*terms))
-
-
-def _check_packed_shape(heads, d):
-    if not (2 <= heads <= MAX_PACKED_HEADS and 32 <= d <= 512 and not d & (d - 1)
-            and heads * d <= MAX_PACKED_WIDTH):
-        raise ValueError(f"the head-packed kernels take 2 to {MAX_PACKED_HEADS} heads, D a power "
-                         f"of two in [32, 512] and heads * D <= {MAX_PACKED_WIDTH}; got "
-                         f"heads={heads}, D={d}")
-
-
-def _check_mh(h, a_src, a_dst, graph, mask, hs_dtype):
-    n, heads, d = h.shape
-    _check_packed_shape(heads, d)
-    if n != graph.n_nodes:
-        raise ValueError(f"h has {n} rows but the graph has {graph.n_nodes} nodes")
-    if hs_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"hs_dtype must be float32 or bfloat16; got {hs_dtype}")
-    for name, t, dt, shape in (("h", h, torch.float32, None),
-                               ("a_src", a_src, torch.float32, (heads, d)),
-                               ("a_dst", a_dst, torch.float32, (heads, d)),
-                               ("src", graph.src, torch.int32, None),
-                               ("row_ptr", graph.row_ptr, torch.int32, None)):
-        _check_tensor(name, t, dt, h.device, shape)
-    if mask is not None:
-        _check_tensor("mask", mask, torch.float32, h.device, (heads, graph.n_edges))
 
 
 def attention_fwd_mh_plain(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
@@ -557,7 +491,8 @@ def attention_fwd_mh(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, 
     [H, D] f32; mask [H, E] f32 or None. Returns (out [N, H, D] f32, den
     [N, H] f32). Launches `csrc/gat_fwd.cu` for CUDA tensors; runs
     `attention_fwd_mh_plain` for CPU tensors."""
-    _check_mh(h, a_src, a_dst, graph, mask, hs_dtype)
+    _check_packed_shape(*h.shape[1:])
+    _check(h, a_src, a_dst, graph, mask, hs_dtype)
     return _fwd(h, a_src, a_dst, graph, mask, hs_dtype, MH_LAUNCHES)[:2]
 
 
@@ -624,48 +559,74 @@ def attention_bwd_dst_pieces(rows, gs, gd, g, out, den, graph: Graph,
             blocks.sum(0).view(heads, d))
 
 
-def _backward_mh(h, a_src, a_dst, graph, g, out, den, rows, gs, gd, mask, plain):
-    """(dh [N, H, D], da_src [H, D], da_dst [H, D]) of JAX `attention_v3_mh`'s
-    `attn_bwd`: B1 for every head at once, then B2 once per head on that
-    head's rows (row-strided views) and the cotangent rounded to the row
-    type; dh adds de_sum * a_dst and da_dst = sum_n de_sum * h (f32 rows)."""
-    bwd_dst = attention_bwd_dst_mh_plain if plain else attention_bwd_dst_mh
+# ---------------------------------------------------------------------------
+# the autograd op (1 to 8 heads)
+# ---------------------------------------------------------------------------
+
+
+def _backward(h, a_src, a_dst, graph, g, out, den, rows, gs, gd, mask, plain):
+    """(dh [N, H, D], da_src [H, D], da_dst [H, D]) of JAX `attn_bwd` at 1 to
+    8 heads: B1 for every head at once (kernel 2 at one head, kernel 9 at
+    more), then B2 once a head on that head's rows (row-strided views) and
+    the cotangent rounded to the row type; dh adds de_sum * a_dst and
+    da_dst = sum_n de_sum * h (f32 rows)."""
+    heads = h.shape[1]
+    plain = plain or h.is_cpu
+    if plain:
+        de_sum, godot, da_src = attention_bwd_dst_mh_plain(rows, gs, gd, g, out, den, graph, mask)
+    else:
+        de_sum, godot, da_src = _bwd_dst(rows, gs, gd, g, out, den, graph, mask,
+                                         BWD_DST_LAUNCHES if heads == 1 else MH_BWD_DST_LAUNCHES)
     bwd_src = attention_bwd_src_plain if plain else attention_bwd_src
-    de_sum, godot, da_src = bwd_dst(rows, gs, gd, g, out, den, graph, mask)
     gh = g.to(rows.dtype)
-    dh = torch.stack([bwd_src(rows[:, k], gh[:, k], a_src[k:k + 1], gs[:, k].contiguous(),
-                              gd[:, k].contiguous(), den[:, k].contiguous(),
-                              godot[:, k].contiguous(), graph, None if mask is None else mask[k])
-                      for k in range(rows.shape[1])], 1)
-    dh = dh + de_sum[:, :, None] * a_dst
-    return dh, da_src, torch.einsum("nh,nhd->hd", de_sum, h)
+    dh = [bwd_src(rows[:, k], gh[:, k], a_src[k:k + 1], gs[:, k].contiguous(), gd[:, k].contiguous(),
+                  den[:, k].contiguous(), godot[:, k].contiguous(), graph,
+                  None if mask is None else mask[k]) for k in range(heads)]
+    if heads == 1:  # no stacking copy; da_dst as JAX's single-head `attn_bwd` forms it
+        dh, da_dst = dh[0][:, None], de_sum[:, 0][None, :] @ h[:, 0]
+    else:
+        dh, da_dst = torch.stack(dh, 1), torch.einsum("nh,nhd->hd", de_sum, h)
+    return dh + de_sum[:, :, None] * a_dst, da_src, da_dst
 
 
 def attention_bwd_mh_plain(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
                            graph: Graph, g: torch.Tensor, out: torch.Tensor, den: torch.Tensor,
                            mask: Optional[torch.Tensor] = None,
                            hs_dtype: torch.dtype = torch.bfloat16):
-    """The explicit backward of `attention_v3_mh` in plain PyTorch: h, g, out
+    """The explicit backward of `Attention` in plain PyTorch: h, g, out
     [N, H, D] f32, den [N, H] -> (dh [N, H, D], da_src [H, D], da_dst
-    [H, D]). The reference kernels 8, 9 and B2 are held to."""
+    [H, D]). The reference kernels 2, 9 and B2 are held to (not autograd of
+    the golden)."""
     rows, gs, gd = node_terms_mh_plain(h, a_src, a_dst, hs_dtype)
-    return _backward_mh(h, a_src, a_dst, graph, g, out, den, rows, gs, gd, mask, plain=True)
+    return _backward(h, a_src, a_dst, graph, g, out, den, rows, gs, gd, mask, plain=True)
 
 
-class AttentionV3MH(torch.autograd.Function):
-    """Head-packed attention with the backward of `attention_v3_mh`: kernel
-    8, then kernel 9 and B2 per head (their plain versions for CPU tensors,
-    or on any device when the forward ran inside `reference_versions()`).
-    The masks are rebuilt in the backward from the seed."""
+def attention_bwd_plain(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,
+                        g: torch.Tensor, out: torch.Tensor, den: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None,
+                        hs_dtype: torch.dtype = torch.bfloat16):
+    """`attention_bwd_mh_plain` at one head: den [N], mask [E]."""
+    return attention_bwd_mh_plain(h, a_src, a_dst, graph, g, out, den[:, None],
+                                  None if mask is None else mask[None], hs_dtype)
+
+
+class Attention(torch.autograd.Function):
+    """The fused attention at 1 to 8 heads, h [N, H, D] -> [N, H, D], with
+    JAX `attn_bwd` as its backward: kernel 1 (one head) or 8, then B1 for
+    every head (kernel 2 or 9) and B2 once a head; their plain versions for
+    CPU tensors, or on any device when the forward ran inside
+    `reference_versions()`. The masks are rebuilt in the backward from the
+    seed and id offset."""
 
     @staticmethod
     def forward(ctx, h, a_src, a_dst, graph, dropout_rate, seed, hs_dtype, id_offset):
         plain = reference_active()
         heads = h.shape[1]
         mask = dropout_mask_mh(graph, dropout_rate, seed, heads, h.device, id_offset)
-        _check_mh(h, a_src, a_dst, graph, mask, hs_dtype)
+        _check(h, a_src, a_dst, graph, mask, hs_dtype)
         h = h.contiguous()
-        out, den, rows, gs, gd = _fwd(h, a_src, a_dst, graph, mask, hs_dtype, MH_LAUNCHES, plain)
+        out, den, rows, gs, gd = _fwd(h, a_src, a_dst, graph, mask, hs_dtype,
+                                      LAUNCHES if heads == 1 else MH_LAUNCHES, plain)
         ctx.save_for_backward(h, a_src, a_dst, out, den, rows, gs, gd)
         ctx.graph, ctx.dropout_rate, ctx.seed, ctx.plain = graph, dropout_rate, seed, plain
         ctx.id_offset = id_offset
@@ -676,21 +637,34 @@ class AttentionV3MH(torch.autograd.Function):
         h, a_src, a_dst, out, den, rows, gs, gd = ctx.saved_tensors
         mask = dropout_mask_mh(ctx.graph, ctx.dropout_rate, ctx.seed, h.shape[1], h.device,
                                ctx.id_offset)
-        dh, da_src, da_dst = _backward_mh(h, a_src, a_dst, ctx.graph, g.contiguous(), out, den,
-                                          rows, gs, gd, mask, ctx.plain)
+        dh, da_src, da_dst = _backward(h, a_src, a_dst, ctx.graph, g.contiguous(), out, den,
+                                       rows, gs, gd, mask, ctx.plain)
         return dh, da_src, da_dst, None, None, None, None, None
+
+
+def attention_v3(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,
+                 dropout_rate: float = 0.0, seed: Optional[int] = None,
+                 hs_dtype: torch.dtype = torch.bfloat16, id_offset: int = 0) -> torch.Tensor:
+    """`Attention` at one head, h [N, 1, D] -> [N, 1, D] (D a multiple of
+    32). With dropout_rate > 0 and a uint32 `seed`, the hash mask over
+    canonical edge ids + `id_offset` drops attention weights (the JAX package
+    draws its seed as `jax.random.bits(rng, (), uint32)`; head k of a packed
+    call offsets the ids by k * HEAD_ID_STRIDE)."""
+    _one_head("attention_v3", h)
+    return Attention.apply(h, a_src, a_dst, graph, float(dropout_rate), seed, hs_dtype,
+                           int(id_offset))
 
 
 def attention_v3_mh(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph: Graph,
                     dropout_rate: float = 0.0, seed: Optional[int] = None,
                     hs_dtype: torch.dtype = torch.bfloat16, id_offset: int = 0) -> torch.Tensor:
-    """Differentiable head-packed attention, h [N, H, D] -> [N, H, D] (2 <=
-    H <= 8, D a power of two in [32, 512], H * D <= 1024). With dropout_rate
-    > 0 and a uint32 `seed`, head k drops with the hash mask over canonical
-    ids + `id_offset` + k * 2**27 (the JAX package's seed is
-    `jax.random.bits(rng, (), uint32)`)."""
-    return AttentionV3MH.apply(h, a_src, a_dst, graph, float(dropout_rate), seed, hs_dtype,
-                               int(id_offset))
+    """`Attention` at 2 to 8 heads, h [N, H, D] -> [N, H, D] (D a power of
+    two in [32, 512], H * D <= 1024). With dropout_rate > 0 and a uint32
+    `seed`, head k drops with the hash mask over canonical ids + `id_offset`
+    + k * 2**27."""
+    _check_packed_shape(*h.shape[1:])
+    return Attention.apply(h, a_src, a_dst, graph, float(dropout_rate), seed, hs_dtype,
+                           int(id_offset))
 
 
 # ---------------------------------------------------------------------------

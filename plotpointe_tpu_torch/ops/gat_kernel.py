@@ -21,22 +21,25 @@ Bernoulli keep mask [E, H] on alpha (the golden's), drawn once per call from
 a `torch.Generator` seeded by the layer's seed (one generator per head,
 seeded by that head's seed, above 8 heads); forward and backward share it.
 
-Any other graph:
-  heads == 1    the fused op `attention_v3` (kernel 1, B1, B2); D is
-                zero-padded to a multiple of 32, and the kernels run rows
-                wider than 512 in column strips;
-  2 to 8 heads  the head-packed op `attention_v3_mh` (kernels 8, 9 and B2
-                per head); D is zero-padded to a power of two >= 32; where
-                heads * that width exceeds what the packed kernels hold
-                (1,024), one `attention_v3` pass per head, head k's mask
-                over canonical ids + k * 2**27: the packed op's function;
-  more heads    one `attention_v3` pass per head, each with its own seed.
-Zero columns add nothing to the logits and are sliced off afterwards, as the
-JAX dispatch pads D to the TPU's 128 lanes.
+Any other graph runs the one fused op `gat_fused.Attention` (kernel 1 or
+8 forward, kernel 2 or 9 and B2 a head backward), in passes of a group of
+heads:
+  route         pass                  D zero-padded to
+  1 head        the head              a multiple of 32 (the kernels run
+                                      rows wider than 512 in column strips)
+  2 to 8 heads  all heads, packed     a power of two >= 32
+  too wide      each head alone       a multiple of 32
+  above 8       each head alone, with its own seed
+"Too wide" is 2 to 8 heads whose padded width times the heads exceeds what
+the packed kernels hold (1,024). A pass over heads k.. masks head k with
+the ids + k * 2**27, so a too-wide H computes the packed op's function. Zero
+columns add nothing to the logits and are sliced off afterwards, as the JAX
+dispatch pads D to the TPU's 128 lanes.
 
 Dropout seeds: one uint32 `seed` for up to 8 heads; above 8 heads one seed
 per head (a sequence), which the JAX package derives as
-`bits(fold_in(rng, head))` and the port's trainer draws from its generator.
+`bits(fold_in(rng, head))` and the port's `GATModel.dropout_seeds` draws
+from the trainer's generator.
 """
 from __future__ import annotations
 
@@ -49,8 +52,8 @@ from plotpointe_tpu_torch import reference_active
 from plotpointe_tpu_torch.graphs.csr import Graph
 from plotpointe_tpu_torch.ops import cuda_build as cb
 from plotpointe_tpu_torch.ops.gat_fused import (
-    HEAD_ID_STRIDE, MAX_PACKED_HEADS, MAX_PACKED_WIDTH, _check, _fwd, attention_fwd_plain,
-    attention_v3, attention_v3_mh, segment_sum_rows, segment_sum_rows_plain)
+    HEAD_ID_STRIDE, MAX_PACKED_HEADS, MAX_PACKED_WIDTH, _check, _fwd, _one_head,
+    attention_fwd_plain, attention_v3, attention_v3_mh, segment_sum_rows, segment_sum_rows_plain)
 from plotpointe_tpu_torch.ops.segment import (
     attention_weights, bernoulli_mask, resolve_attn_impl, segment_softmax_attention)
 from plotpointe_tpu_torch.ops.spmm_kernel import spmm_gathered, spmm_gathered_plain
@@ -106,18 +109,17 @@ def segment_softmax_attention_kernel(h: torch.Tensor, a_src: torch.Tensor, a_dst
             h[:, k:k + 1], a_src[k:k + 1], a_dst[k:k + 1], graph, dropout_rate, seeds[k], hs_dtype,
             id_offset) for k in range(heads)], dim=1)
     packed = max(32, 1 << (d - 1).bit_length())
-    if heads == 1 or heads * packed > MAX_PACKED_WIDTH:
-        width = -(-d // 32) * 32
-        hp, sp, dp = _pad_width(h, a_src, a_dst, width)
-        outs = [attention_v3(hp[:, k:k + 1], sp[k:k + 1], dp[k:k + 1], graph,
-                             dropout_rate=dropout_rate, seed=seed, hs_dtype=hs_dtype,
-                             id_offset=id_offset + k * HEAD_ID_STRIDE) for k in range(heads)]
-        out = torch.cat(outs, dim=1) if heads > 1 else outs[0]
+    if heads > 1 and heads * packed <= MAX_PACKED_WIDTH:
+        op, width, one_pass = attention_v3_mh, packed, True  # all heads in one pass
     else:
-        width = packed
-        hp, sp, dp = _pad_width(h, a_src, a_dst, width)
-        out = attention_v3_mh(hp, sp, dp, graph, dropout_rate=dropout_rate, seed=seed,
-                              hs_dtype=hs_dtype, id_offset=id_offset)
+        op, width, one_pass = attention_v3, -(-d // 32) * 32, heads == 1  # a pass a head
+    hp, sp, dp = _pad_width(h, a_src, a_dst, width)
+    # one pass takes the whole tensors: a slice of a_src would add a fill and a copy to the backward
+    passes = [(0, hp, sp, dp)] if one_pass else [(k, hp[:, k:k + 1], sp[k:k + 1], dp[k:k + 1])
+                                                 for k in range(heads)]
+    outs = [op(x, s, t, graph, dropout_rate=dropout_rate, seed=seed, hs_dtype=hs_dtype,
+               id_offset=id_offset + k * HEAD_ID_STRIDE) for k, x, s, t in passes]
+    out = outs[0] if one_pass else torch.cat(outs, dim=1)
     return out[..., :d] if width != d else out
 
 
@@ -176,11 +178,11 @@ def fused_layer(h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, graph
     f32 or None -> out [N, 1, D] f32. Launches `csrc/gat_fwd.cu` for CUDA
     tensors, counted on `FUSED_LAYER_LAUNCHES`; runs the plain version for
     CPU tensors."""
-    _check(h, a_src, a_dst, graph, mask, torch.bfloat16)
+    m = _one_head("fused_layer", h, mask)
+    _check(h, a_src, a_dst, graph, m, torch.bfloat16)
     if h.is_cpu:
         return fused_layer_plain(h, a_src, a_dst, graph, mask)
-    return _fwd(h, a_src, a_dst, graph, None if mask is None else mask[None], torch.bfloat16,
-                FUSED_LAYER_LAUNCHES)[0]
+    return _fwd(h, a_src, a_dst, graph, m, torch.bfloat16, FUSED_LAYER_LAUNCHES)[0]
 
 
 def _v1_forward(h, a_src, a_dst, graph, mask, plain):

@@ -219,8 +219,7 @@ class ShardedGATStep:
     on every rank, differentiable in the parameters (backward() leaves each
     parameter's full gradient: a table block's own rows, a replicated
     parameter's all-reduced sum); `__call__` -> (grads, loss) of `loss`.
-    seeds: one uint32 per layer (a list of one per head above 8 heads), or
-    None without dropout."""
+    seeds: those of `GATModel.dropout_seeds`, or None without dropout."""
 
     def __init__(self, model, loss_name: str, mesh: Mesh, n_users: int, n_items: int, graph: Graph,
                  layout: Optional[ShardLayout], hs_dtype: torch.dtype, dropout_rate: float,

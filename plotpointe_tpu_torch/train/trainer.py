@@ -48,7 +48,6 @@ from plotpointe_tpu_torch.config import TrainConfig
 from plotpointe_tpu_torch.data.splits import Splits, padded_positives
 from plotpointe_tpu_torch.graphs.csr import Graph
 from plotpointe_tpu_torch.ops.eval_kernel import EVAL_GRAPH_CAPTURES, EVAL_GRAPH_REPLAYS
-from plotpointe_tpu_torch.ops.gat_fused import MAX_PACKED_HEADS
 from plotpointe_tpu_torch.ops.segment import gather_rows
 from plotpointe_tpu_torch.train.checkpoint import (
     load_resume_state, params_to_jax, save_checkpoint, save_resume_state)
@@ -128,17 +127,11 @@ class Trainer:
     # -- one step, in phases (chip_smoke.py times each) ------------------------
 
     def _sample(self):
-        """(u, i, j) triples and the uint32 dropout seeds: one per layer, or
-        [layers][heads] above 8 heads (one attention pass per head)."""
+        """(u, i, j) triples, then the model's dropout seeds
+        (`GATModel.dropout_seeds`) from the same generator."""
         u, i, j = sample_bpr_triples(self.generator, self.train_users, self.user_pos_padded,
                                      self.user_deg, self.n_items, self.n_samples)
-        seeds = None
-        if self.model.attn_dropout > 0:
-            m = self.model
-            shape = (m.n_layers, m.heads) if m.heads > MAX_PACKED_HEADS else (m.n_layers,)
-            seeds = torch.randint(0, 1 << 32, shape, generator=self.generator,
-                                  device=self.device, dtype=torch.int64).tolist()
-        return u, i, j, seeds
+        return u, i, j, self.model.dropout_seeds(self.generator)
 
     def _loss(self, u, i, j, seeds) -> torch.Tensor:
         """The loss of the JAX step: scores U[u].I[i] and U[u].I[j] from a
