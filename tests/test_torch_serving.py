@@ -3,6 +3,7 @@ runtime paths against the JAX runtime, micro-batching, the stdlib HTTP
 surface and the CLI. Mirrors tests/test_serving.py and tests/test_batching.py."""
 import json
 import threading
+import time
 import types
 import urllib.request
 
@@ -235,6 +236,81 @@ def test_microbatcher_coalesces_and_isolates_errors(tmp_path):
     idx, _ = mb.submit([1, 2, 3], 5)
     assert len(idx) == 5
     mb.close()
+
+
+def _batcher(tmp_path, max_wait_ms):
+    rt, _ = _runtimes(tmp_path, np.random.default_rng(0).normal(size=(500, 32)).astype(np.float32),
+                      device="cpu", use_kernel_topk=True)
+    return rt, MicroBatcher(rt, max_batch=64, max_wait_ms=max_wait_ms)
+
+
+def test_microbatcher_dispatches_a_lone_request_at_once(tmp_path):
+    """An idle batcher pays no straggler wait: a 2 s window would show."""
+    rt, mb = _batcher(tmp_path, max_wait_ms=2000.0)
+    try:
+        t0 = time.perf_counter()
+        idx, _ = mb.submit([1, 2, 3], 5)
+        assert time.perf_counter() - t0 < 1.0
+        np.testing.assert_array_equal(idx, rt.top_k_for_user_items([1, 2, 3], k=5)[0])
+        assert (mb.stats.n_batches, mb.stats.n_immediate) == (1, 1), mb.stats
+    finally:
+        mb.close()
+
+
+def test_microbatcher_sparse_arrivals_never_wait(tmp_path):
+    """Arrivals further apart than the window are each a batch of one,
+    dispatched at once; each `batch.run` span says it did not wait."""
+    from plotpointe_tpu_torch.utils import tracing
+
+    _, mb = _batcher(tmp_path, max_wait_ms=50.0)
+    tracing.clear()
+    tracing.enable()
+    try:
+        for i in range(3):
+            if i:
+                time.sleep(0.2)
+            assert len(mb.submit([i, i + 10], 4)[0]) == 4
+        # a batch's span closes just after its waiter is woken
+        deadline = time.time() + 10
+        while time.time() < deadline and sum(r.name == "batch.run" for r in tracing.records()) < 3:
+            time.sleep(0.01)
+    finally:
+        tracing.disable()
+        mb.close()
+    st = mb.stats
+    assert (st.n_requests, st.n_batches, st.n_immediate) == (3, 3, 3), st
+    runs = [r for r in tracing.records() if r.name == "batch.run"]
+    assert [(r.meta["batch"], r.meta["waited"]) for r in runs] == [(1, False)] * 3
+    tracing.clear()
+
+
+def test_microbatcher_burst_after_quiet_spell_coalesces(tmp_path):
+    """Only the first request of a burst can find the batcher idle; the
+    rest arrive within the window of one another and coalesce."""
+    rt, mb = _batcher(tmp_path, max_wait_ms=200.0)
+    rng = np.random.default_rng(4)
+    histories = [rng.choice(500, size=5, replace=False).tolist() for _ in range(16)]
+    results = [None] * 16
+    barrier = threading.Barrier(16)
+
+    def worker(i):
+        barrier.wait()
+        results[i] = mb.submit(histories[i], 10)
+
+    try:
+        time.sleep(0.2)
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+            assert not t.is_alive()
+        for h, (idx, _) in zip(histories, results):
+            np.testing.assert_array_equal(idx, rt.top_k_for_user_items(h, k=10)[0])
+        st = mb.stats
+        assert st.n_requests == 16 and st.n_batches <= 3 and st.n_immediate <= 1, st
+    finally:
+        mb.close()
 
 
 def _req(url, data=None):
