@@ -286,6 +286,10 @@ SCORE_TOL = dict(rtol=1e-5, atol=1e-4)  # f32 dot products of width 128, another
 # bf16 value; gradients summed over every item show it at ~2e-4 of their
 # largest entry (the same band as the CPU test against JAX)
 STEP_RTOL, STEP_ATOL_OF_MAX, LOSS_RTOL = 5e-4, 1e-3, 1e-5
+# a leaf whose plain gradient's largest entry is under this share of the median
+# leaf's is zero but for round-off (the HGT's last item output bias: every item
+# score difference cancels it) and is held to that floor on both sides
+ZERO_GRAD_SHARE = 1e-4
 V2_MODEL_SEEDS = (0, 5, 9, 11)  # legacy v2 model seeds drawn besides the main one
 SERVE_RTOL = 1e-4  # served scores vs the plain CPU answer
 CATALOG = 498_196  # the reference's serving catalog
@@ -318,6 +322,10 @@ SOURCES = {
     "gatv2_fwd": ("plotpointe_tpu_torch/csrc/gatv2_fwd.cu", None),
     "gatv2_bwd_dst": ("plotpointe_tpu_torch/csrc/gatv2_bwd_dst.cu", None),
     "gatv2_bwd_src": ("plotpointe_tpu_torch/csrc/gatv2_bwd_src.cu", None),
+    # HGT is port-only too: the plain reference is benchmark/reference/hgt.py
+    "hgt_fwd": ("plotpointe_tpu_torch/csrc/hgt_fwd.cu", None),
+    "hgt_bwd_dst": ("plotpointe_tpu_torch/csrc/hgt_bwd_dst.cu", None),
+    "hgt_bwd_src": ("plotpointe_tpu_torch/csrc/hgt_bwd_src.cu", None),
 }
 # the kernels each path must launch; gather_fence is on none (the port's
 # backward kernels gather rows themselves, so there are no two XLA gathers
@@ -330,6 +338,7 @@ PATH_KERNELS = {"train": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "eval_rank"),
                 "mh_export": ("gat_fwd_mh",),
                 "gatv2_train": ("gatv2_fwd", "gatv2_bwd_dst", "gatv2_bwd_src", "eval_rank"),
                 "gatv2_export": ("gatv2_fwd",),
+                "hgt_train": ("hgt_fwd", "hgt_bwd_dst", "hgt_bwd_src", "eval_rank"),
                 "graph_build": ("knn_topk",),
                 "graph_build_fast": ("knn_topk_fast",),
                 "tooling": ("smoke_affine", "stream_probe"),
@@ -1126,6 +1135,86 @@ def check_gatv2(errs, label, g, dev) -> None:
     sync()
 
 
+def hgt_graph(s, feats, work: Path, dev):
+    """The typed graph of the `hgt-amazon` configuration over the main
+    graph's train split: the item kNN of the main features (k 20,
+    min_similarity 0.0, `benchmark/reference/hgt.knn_edges`), also written as
+    the `ii_edges_hgt.npz` artifact the HGT path trains from."""
+    import torch
+
+    from benchmark.reference.hgt import knn_edges
+    from plotpointe_tpu_torch.graphs.hetero import build_hetero_graph
+
+    rows, cols = knn_edges(torch.as_tensor(feats, device=dev), 20, 0.0)
+    (work / "graphs").mkdir(parents=True, exist_ok=True)
+    np.savez(work / "graphs" / "ii_edges_hgt.npz", row=rows.astype(np.int32), col=cols.astype(np.int32),
+             data=np.ones(len(rows), np.float32))
+    g = build_hetero_graph(s.train_u, s.train_i, s.n_users, s.n_items, rows, cols)
+    emit({"phase": "data", "what": "hgt typed graph", "targets": g.n_nodes, "stacked_rows": g.n_rows,
+          "edges": g.n_edges, "edges_by_relation": list(g.rel_edges),
+          "max_in_degree": int((g.row_ptr[1:] - g.row_ptr[:-1]).max())})
+    return g.to(dev)
+
+
+def check_hgt(errs, label, g, dev) -> None:
+    """The HGT kernels (`csrc/hgt_*.cu`) vs their plain versions at the
+    `hgt-amazon` cell's 8 heads x 32: bf16 rows (training) and f32 rows (the
+    export). Tolerances as in tests/test_torch_hgt.py: the forward (out,
+    lse) within ATTN_TOL; B1's per-edge (c | alpha) within GRAD_TOL; a row's
+    sum over its edges (dq over in-edges, dkv over a stacked row's edges)
+    within GRAD_TOL widened by twice the bound of an f32 sum in any order;
+    dp, a sum over every edge, within GRAD_TOL's rtol and its atol x
+    sqrt(E); the same bits on a second launch. Inputs from a generator of
+    their own."""
+    import torch
+
+    from plotpointe_tpu_torch.ops import hgt as op
+
+    own = np.random.default_rng(29)
+    n, e, heads, d = g.n_nodes, g.n_edges, 8, 32
+    src, dst = g.src.long(), g.dst.long()
+
+    def t(*shape, scale=0.5):
+        return torch.as_tensor((own.normal(size=shape) * scale).astype(np.float32), device=dev)
+
+    def sums(name, what, got, want, rows, terms_abs):
+        shape = (-1,) + (1,) * (got.dim() - 1)
+        depth = torch.bincount(rows, minlength=got.shape[0]).float().view(shape)
+        mag = torch.zeros_like(got).index_add_(0, rows, terms_abs)
+        band = GRAD_TOL["atol"] + GRAD_TOL["rtol"] * want.abs() + 2 * 2.0 ** -24 * depth * mag
+        errs.within(name, what, got, want, band)
+
+    q, kv, ct = t(n, heads, d), t(g.n_rows, 2, heads, d), t(n, heads, d, scale=1.0)
+    p = torch.as_tensor(own.uniform(0.5, 1.5, (3, heads)).astype(np.float32), device=dev)
+    scale = d ** -0.5
+    dp_tol = dict(rtol=GRAD_TOL["rtol"], atol=GRAD_TOL["atol"] * e ** 0.5)
+    with torch.no_grad():
+        for rows_dt in (torch.bfloat16, torch.float32):
+            what = f"{label} N={n} S={g.n_rows} E={e} H={heads} D={d} rows={str(rows_dt)[6:]}"
+            rows = kv.to(rows_dt).contiguous()
+            fa = (q, rows, p, g, scale)
+            got = op.hgt_fwd(*fa)
+            out, lse = op.hgt_fwd_plain(*fa)
+            errs.check("hgt_fwd", what + " out", got[0], out, ATTN_TOL)
+            errs.check("hgt_fwd", what + " lse", got[1], lse, ATTN_TOL)
+            errs.same_bits("hgt_fwd", what, got, op.hgt_fwd(*fa))
+            b1 = (q, rows, p, ct, out, lse, g, scale)
+            got = op.hgt_bwd_dst(*b1)
+            dq, dp, edge = op.hgt_bwd_dst_plain(*b1)
+            errs.check("hgt_bwd_dst", what + " edge (c | alpha)", got[2], edge, GRAD_TOL)
+            sums("hgt_bwd_dst", what + " dq", got[0], dq, dst, edge[:, :heads, None].abs() * rows[:, 0].float()[src].abs())
+            errs.check("hgt_bwd_dst", what + " dp", got[1], dp, dp_tol)
+            errs.same_bits("hgt_bwd_dst", what, got, op.hgt_bwd_dst(*b1))
+            got = op.hgt_bwd_src(q, ct, edge, g)
+            terms = torch.stack([edge[:, :heads, None].abs() * q[dst].abs(),
+                                 edge[:, heads:, None].abs() * ct[dst].abs()], 1)
+            sums("hgt_bwd_src", what + " dkv", got, op.hgt_bwd_src_plain(q, ct, edge, g), src, terms)
+            errs.same_bits("hgt_bwd_src", what, [got], [op.hgt_bwd_src(q, ct, edge, g)])
+            del got, out, lse, dq, dp, edge, terms, rows, fa, b1
+    del q, kv, ct
+    sync()
+
+
 def check_legacy_kernels(errs, rng, label, g, h, a_s, a_d, dev) -> None:
     """Kernels 13, 14 and 15 vs their plain versions on the legacy paths'
     inputs: kernel 14 with and without the Bernoulli mask; kernel 13 on
@@ -1333,24 +1422,29 @@ def step_parity(label: str, model, loss_fn) -> None:
         out[plain] = (float(loss.detach()), {n: p.grad.detach().clone()
                                              for n, p in model.named_parameters()})
     (lk, gk), (lp, gp) = out[False], out[True]
-    worst, bad = {}, []
+    worst, bad, roundoff = {}, [], []
+    floor = ZERO_GRAD_SHARE * float(np.median([float(w.abs().max()) for w in gp.values()]))
     for name, want in gp.items():
         scale = float(want.abs().max())
         worst[name] = float((gk[name] - want).abs().max()) / max(scale, 1e-30)
-        if not torch.allclose(gk[name], want, rtol=STEP_RTOL, atol=STEP_ATOL_OF_MAX * scale):
+        if scale < floor:  # a gradient that is zero but for round-off: both sides must stay under the floor
+            roundoff.append(name)
+            if float(gk[name].abs().max()) >= floor:
+                bad.append(name)
+        elif not torch.allclose(gk[name], want, rtol=STEP_RTOL, atol=STEP_ATOL_OF_MAX * scale):
             bad.append(name)
     loss_ok = abs(lk - lp) <= LOSS_RTOL * abs(lp)
     emit({"phase": label, "check": "first step, kernels vs plain versions", "loss_kernels": lk,
           "loss_plain": lp, "grad_max_abs_err_over_max": worst,
           "tol": {"rtol": STEP_RTOL, "atol_of_max": STEP_ATOL_OF_MAX, "loss_rtol": LOSS_RTOL},
-          "ok": loss_ok and not bad})
+          "roundoff_leaves": roundoff, "roundoff_floor": floor, "ok": loss_ok and not bad})
     if not loss_ok or bad:
         raise AssertionError(f"{label} step: loss {lk} vs {lp}, gradients off: {bad}")
     model.zero_grad(set_to_none=True)
 
 
 def phase_step_parity(label: str, tr) -> None:
-    """The first step of a trainer's path (GAT or LightGCN) from its initial
+    """The first step of a trainer's path (GAT, HGT or LightGCN) from its initial
     parameters, kernels vs plain versions."""
     from plotpointe_tpu_torch.train.trainer import STREAM_INIT, STREAM_TRAIN
 
@@ -2223,6 +2317,62 @@ def time_gatv2(rows_out, graph, dev, rng) -> None:
                 gather_ms=gather_ms(nbytes, e, hh * d * 4))
             del b1, b2, want, dxr, edge, signs
     del xl, xr, a, g
+
+
+def time_hgt(rows_out, g, dev, rng) -> None:
+    """The HGT kernels (`csrc/hgt_*.cu`) at the `hgt-amazon` cell's 8 heads x
+    32 on the main typed graph: the forward at f32 rows (the export) and at
+    bf16 rows (training), then B1 and B2 on that forward; each beside its
+    plain version, with its bound (`benchmark/counts/hgt.py`), its gather
+    ceiling and its largest gap to the plain output."""
+    import torch
+
+    from benchmark.counts import hgt as counts
+    from plotpointe_tpu_torch.ops import hgt as op
+
+    n, s_rows, e, hh, d = g.n_nodes, g.n_rows, g.n_edges, 8, 32
+
+    def t(*shape, scale=1.0):
+        return torch.as_tensor((rng.normal(size=shape) * scale).astype(np.float32), device=dev)
+
+    def gap(got, want):
+        return max(float((x.float() - y.float()).abs().max()) for x, y in zip(got, want))
+
+    q, kv, ct = t(n, hh, d, scale=0.5), t(s_rows, 2, hh, d, scale=0.5), t(n, hh, d)
+    p = torch.as_tensor(rng.uniform(0.5, 1.5, (3, hh)).astype(np.float32), device=dev)
+    scale = d ** -0.5
+    with torch.no_grad():
+        for rows_dt in (torch.float32, torch.bfloat16):
+            isz, dname = (4 if rows_dt == torch.float32 else 2), str(rows_dt)[6:]
+            shape = f"N={n} S={s_rows} E={e} H={hh} D={d} rows={dname}"
+            fa = (q, kv.to(rows_dt).contiguous(), p, g, scale)
+            out, lse = op.hgt_fwd(*fa)
+            nbytes = counts.fwd_bytes(n, s_rows, e, hh, d, isz)
+            line = timing_row("hgt_fwd", shape, lambda: op.hgt_fwd(*fa), lambda: op.hgt_fwd_plain(*fa),
+                              nbytes, counts.fwd_ops(e, hh, d), "float32", plain_iters=2,
+                              max_abs_err=gap((out, lse), op.hgt_fwd_plain(*fa)),
+                              gather_ms=gather_ms(nbytes, e, 2 * hh * d * isz))
+            if rows_dt == torch.float32:
+                continue
+            rows_out["hgt_fwd"] = line
+            b1 = (*fa[:3], ct, out, lse, g, scale)
+            dq, dp, edge = op.hgt_bwd_dst(*b1)
+            want = op.hgt_bwd_dst_plain(*b1)
+            nbytes = counts.bwd_dst_bytes(n, s_rows, e, hh, d, isz)
+            rows_out["hgt_bwd_dst"] = timing_row(
+                "hgt_bwd_dst", shape, lambda: op.hgt_bwd_dst(*b1), lambda: op.hgt_bwd_dst_plain(*b1),
+                nbytes, counts.bwd_dst_ops(e, hh, d), "float32", plain_iters=2,
+                max_abs_err=gap((dq, edge), want[::2]), dp_max_abs_err=gap((dp,), want[1:2]),
+                gather_ms=gather_ms(nbytes, e, 2 * hh * d * isz))
+            nbytes = counts.bwd_src_bytes(n, s_rows, e, hh, d)
+            rows_out["hgt_bwd_src"] = timing_row(
+                "hgt_bwd_src", shape, lambda: op.hgt_bwd_src(q, ct, edge, g),
+                lambda: op.hgt_bwd_src_plain(q, ct, edge, g), nbytes, counts.bwd_src_ops(e, hh, d),
+                "float32", plain_iters=2,
+                max_abs_err=gap((op.hgt_bwd_src(q, ct, edge, g),), (op.hgt_bwd_src_plain(q, ct, edge, g),)),
+                gather_ms=gather_ms(nbytes, e, 2 * hh * d * 4))
+            del b1, want, dq, dp, edge
+    del q, kv, ct
 
 
 def time_gather_trees(graph, dev, tree: str) -> None:
@@ -3994,7 +4144,7 @@ def time_eval_rank(rows_out, dev) -> None:
         del args
 
 
-def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev):
+def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev, hgraph=None):
     import torch
 
     from plotpointe_tpu_torch.graphs.csr import build_graph
@@ -4095,6 +4245,8 @@ def phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev):
     time_rule2(rows, graph, dev)
     time_multihead(rows, graph, dev, rng)
     time_gatv2(rows, graph, dev, rng)
+    if hgraph is not None:
+        time_hgt(rows, hgraph, dev, rng)
     time_eval_rank(rows, dev)
     return rows
 
@@ -4152,6 +4304,8 @@ def run(args, work: Path, dev="cuda") -> int:
     errs = Errors()
     phase_check(errs, rng, graph, h0, a_s, a_d, catalog, dev)
     write_artifacts(work, inter, feats)
+    hgraph = hgt_graph(s, feats, work, dev)
+    check_hgt(errs, "main", hgraph, dev)
     mark("check")
     by_path = {}
     gat = dict(hidden_dim=128, layers=args.layers, attn_dropout=0.1, epochs=args.epochs,
@@ -4192,6 +4346,15 @@ def run(args, work: Path, dev="cuda") -> int:
     del v2_trainer
     by_path["gatv2_export"] = phase_serve("export_gatv2", work, v2_ckpt, inter, feats, s.n_items, 128,
                                           0, 0, dev, PATH_KERNELS["gatv2_export"])
+    # path 4c: HGT at 8 heads x 32 x 3 layers (the hgt-amazon configuration) over the typed graph
+    hgt_cfg = TrainConfig(model_family="hgt", hidden_dim=256, layers=3, heads=8, epochs=args.epochs,
+                          samples_per_epoch=200_000, eval_neg_k=1000, attn_impl="auto", seed=args.seed,
+                          knn_edges=str(work / "graphs" / "ii_edges_hgt.npz"))
+    hgt_trainer, _, _, by_path["hgt_train"] = phase_train(
+        "train_hgt", hgt_cfg, work, dev, PATH_KERNELS["hgt_train"],
+        {"model_family": "hgt", "n_layers": 3, "hidden_dim": 256, "heads": 8})
+    phase_step_parity("train_hgt", hgt_trainer)
+    del hgt_trainer
     mark("paths_1_4")
     # path 5: the graph-build stage, then kNN's fast mode
     by_path["graph_build"], by_path["graph_build_fast"], knn_feats, build_knn_s = phase_graph_build(
@@ -4224,7 +4387,7 @@ def run(args, work: Path, dev="cuda") -> int:
     by_path["deploy"] = phase_deploy(work, dev)
     mark("deploy")
 
-    rows = phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev)
+    rows = phase_timing(rng, graph, h0, a_s, a_d, catalog, trainer, s, dev, hgraph)
     time_train_step("gat", trainer, s, samples=trainer.cfg.samples_per_epoch)
     time_train_step("lightgcn", lg_trainer, s, batch=LIGHTGCN["batch_size"],
                     negatives_per_positive=LIGHTGCN["neg_per_pos"], steps_per_epoch=lg_steps,

@@ -90,6 +90,7 @@ def _cmd_train(args):
         layers=args.layers,
         heads=args.heads,
         attention=args.attention,
+        knn_edges=args.knn_edges,
         epochs=args.epochs,
         samples_per_epoch=args.samples_per_epoch,
         steps_per_epoch=args.steps_per_epoch,
@@ -121,7 +122,7 @@ def _cmd_export(args):
     interactions = store.load_interactions(args.staging_prefix)
     feats = np.asarray(store.load_npy(args.features)) if args.features else None
     emb = export_item_embeddings(store.fetch(args.checkpoint), interactions, feats, args.out,
-                                 store=store, device=args.device)
+                                 store=store, device=args.device, knn_edges=args.knn_edges)
     print(json.dumps({"shape": list(emb.shape), "out": args.out}))
 
 
@@ -542,8 +543,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="plotpointe_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    t = sub.add_parser("train", help="train the GAT or LightGCN")
-    t.add_argument("--model-family", choices=["gat", "lightgcn"], default="gat")
+    t = sub.add_parser("train", help="train the GAT, HGT or LightGCN")
+    t.add_argument("--model-family", choices=["gat", "lightgcn", "hgt"], default="gat",
+                   help="hgt: the HGT over the user-item graph and the item kNN graph of "
+                        "--knn-edges (one device)")
     t.add_argument("--staging-prefix", required=True,
                    help="holds interactions.npz (column arrays) or interactions.parquet")
     t.add_argument("--embeddings-prefix", required=True)
@@ -554,6 +557,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--attention", choices=["gat", "gatv2"], default="gat",
                    help="the GAT's logit: gat (a_src.h_j + a_dst.h_i, then LeakyReLU) or gatv2 "
                         "(a.LeakyReLU(W_l x_j + W_r x_i), 1 to 8 heads; one device)")
+    t.add_argument("--knn-edges", default=None, metavar="NPZ",
+                   help="hgt: the item kNN artifact (ii_edges_{name}.npz of build-knn)")
     t.add_argument("--epochs", type=int, default=20)
     t.add_argument("--samples-per-epoch", type=int, default=200_000)
     t.add_argument("--steps-per-epoch", type=int, default=1)
@@ -585,7 +590,9 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--staging-prefix", required=True,
                    help="holds interactions.npz (column arrays) or interactions.parquet")
     e.add_argument("--features", default=None,
-                   help="item features npy, first-occurrence order (GAT; LightGCN takes none)")
+                   help="item features npy, first-occurrence order (GAT, HGT; LightGCN takes none)")
+    e.add_argument("--knn-edges", default=None, metavar="NPZ",
+                   help="HGT: the item kNN artifact (default: the one the checkpoint's training used)")
     e.add_argument("--out", required=True)
     e.add_argument("--device", default=None, help="default: cuda")
     e.set_defaults(fn=_cmd_export)

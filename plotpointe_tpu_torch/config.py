@@ -8,6 +8,8 @@ MLP's, `from_env` with the `FUSION_` prefix); `KnnConfig`; and
 `FeatureManifest`, `load_registry`, `load_manifest` (the same manifest JSON
 schema and the same errors). `TrainConfig.attention` is the port's own
 field (the JAX package runs the original GAT only): `gatv2` trains GATv2.
+`model_family` "hgt" (port-only) trains the HGT over the user-item graph and
+the item kNN graph of `knn_edges` (an `ii_edges_{name}.npz` artifact).
 
 `attn_impl` (GAT) and `spmm_impl` (LightGCN) keep the JAX values and pick
 the type the kernels round gathered rows to (`ops/gat_kernel.resolve_hs_dtype`):
@@ -47,7 +49,7 @@ def _env_override(cfg, prefix: str = ""):
 @dataclass
 class TrainConfig:
     # model
-    model_family: str = "gat"  # {gat, lightgcn}
+    model_family: str = "gat"  # {gat, lightgcn, hgt}
     hidden_dim: int = 128
     layers: int = 2
     heads: int = 1
@@ -68,6 +70,7 @@ class TrainConfig:
     eval_chunk: int = 2048
     # features
     item_features: str = "fused"  # {fused, txt}
+    knn_edges: Optional[str] = None  # hgt: the item kNN artifact (ii_edges_{name}.npz)
     # lightgcn-specific
     embed_dim: int = 64
     n_prop_layers: int = 3

@@ -45,7 +45,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "plotpointe_tpu_torch"
 KERNELS = ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "gather_fence", "topk_chunkmax", "topk_rescore",
            "topk_select", "spmm_csr", "knn_topk", "knn_topk_fast", "stream_probe", "smoke_affine",
-           "eval_rank", "gatv2_fwd", "gatv2_bwd_dst", "gatv2_bwd_src")
+           "eval_rank", "gatv2_fwd", "gatv2_bwd_dst", "gatv2_bwd_src", "hgt_fwd", "hgt_bwd_dst",
+           "hgt_bwd_src")
 # TPU kernels that a source above computes in another mode, each with a
 # counter of its own: the head-packed forward (kernel 8) is gat_fwd at 2-8
 # heads and the head-packed B1 (kernel 9) gat_bwd_dst at 2-8 heads; the
@@ -78,6 +79,9 @@ SIGNATURES = {
     "gatv2_fwd": ("ppt_gatv2_fwd", [P, I] + [P] * 13 + [I] * 7 + [U, U, F, LL, P]),
     "gatv2_bwd_dst": ("ppt_gatv2_bwd_dst", [P, I] + [P] * 17 + [I] * 7 + [U, U, F, LL, P]),
     "gatv2_bwd_src": ("ppt_gatv2_bwd_src", [P, I] + [P] * 12 + [I] * 6 + [P]),
+    "hgt_fwd": ("ppt_hgt_fwd", [P, P, I] + [P] * 12 + [I] * 8 + [F, P]),
+    "hgt_bwd_dst": ("ppt_hgt_bwd_dst", [P, P, I] + [P] * 15 + [I] * 8 + [F, P]),
+    "hgt_bwd_src": ("ppt_hgt_bwd_src", [P] * 12 + [I] * 6 + [P]),
 }
 MAX_SMEM = 232_448 - 1024  # a block's shared memory on sm_90, less static use
 

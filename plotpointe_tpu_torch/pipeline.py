@@ -6,7 +6,9 @@ Counterpart of `plotpointe_tpu/pipeline.py` (`make_model`,
 `{staging}/interactions.npz` (column arrays) when present, else the parquet
 file; the GAT's item features from `{embeddings}/fused_interacted.npy` or
 `txt_interacted.npy` (`item_features`), else `fused.npy` / `txt.npy`.
-LightGCN reads no features.
+LightGCN reads no features. The HGT (port-only) reads the GAT's features
+and the item kNN artifact `cfg.knn_edges` and trains over the typed graph
+(`graphs/hetero.py`) on one device.
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ from plotpointe_tpu_torch import resolve_device
 from plotpointe_tpu_torch.config import TrainConfig
 from plotpointe_tpu_torch.data.splits import build_node_maps, build_splits
 from plotpointe_tpu_torch.graphs.csr import build_bipartite_graph
+from plotpointe_tpu_torch.graphs.hetero import build_hetero_graph, load_knn_coo
 from plotpointe_tpu_torch.models.gat import GATModel
+from plotpointe_tpu_torch.models.hgt import HGTModel
 from plotpointe_tpu_torch.models.lightgcn import LightGCNModel
 from plotpointe_tpu_torch.ops.gat_kernel import resolve_hs_dtype
 from plotpointe_tpu_torch.train.trainer import Trainer
@@ -27,15 +31,19 @@ from plotpointe_tpu_torch.utils.artifacts import ArtifactStore
 
 
 def _check_family(cfg: TrainConfig) -> None:
-    if cfg.model_family not in ("gat", "lightgcn"):
+    if cfg.model_family not in ("gat", "lightgcn", "hgt"):
         raise ValueError(f"unknown model_family {cfg.model_family}")
 
 
 def make_model(cfg: TrainConfig, n_users: int, n_items: int, feat_dim: int, device=None):
-    """The model of `cfg`, with the row type its `attn_impl` (GAT) or
+    """The model of `cfg`, with the row type its `attn_impl` (GAT, HGT) or
     `spmm_impl` (LightGCN) means on `device`; the GAT's layers are
     `cfg.attention`'s (gat or gatv2)."""
     _check_family(cfg)
+    if cfg.model_family == "hgt":
+        return HGTModel(n_users=n_users, n_items=n_items, feat_dim=feat_dim, hidden_dim=cfg.hidden_dim,
+                        n_layers=cfg.layers, heads=cfg.heads,
+                        hs_dtype=resolve_hs_dtype(cfg.attn_impl, resolve_device(device)))
     if cfg.model_family == "lightgcn":
         return LightGCNModel(n_users=n_users, n_items=n_items, embed_dim=cfg.embed_dim,
                              n_prop_layers=cfg.n_prop_layers,
@@ -71,6 +79,8 @@ def train_from_artifacts(cfg: TrainConfig, staging_prefix: str, embeddings_prefi
     group and a larger one spawns its ranks here (`multihost.spawn`) and
     returns rank 0's results, without `trainer`. Rank 0 writes the files."""
     _check_family(cfg)
+    if cfg.model_family == "hgt" and not cfg.knn_edges:
+        raise ValueError("model_family hgt needs knn_edges (an ii_edges_{name}.npz artifact)")
     if cfg.mesh_shape:
         ranks = _ranks_to_spawn(cfg.mesh_shape)
         if ranks:
@@ -84,9 +94,14 @@ def train_from_artifacts(cfg: TrainConfig, staging_prefix: str, embeddings_prefi
     interactions = store.load_interactions(staging_prefix)
     u2i, i2i = build_node_maps(interactions)
     splits = build_splits(interactions, u2i, i2i)
-    graph = build_bipartite_graph(splits.train_u, splits.train_i, splits.n_users, splits.n_items,
-                                  weight=splits.train_w)
-    feats = _features(store, cfg, embeddings_prefix, splits.n_items) if cfg.model_family == "gat" else None
+    if cfg.model_family == "hgt":
+        graph = build_hetero_graph(splits.train_u, splits.train_i, splits.n_users, splits.n_items,
+                                   *load_knn_coo(store, cfg.knn_edges))
+    else:
+        graph = build_bipartite_graph(splits.train_u, splits.train_i, splits.n_users, splits.n_items,
+                                      weight=splits.train_w)
+    feats = (_features(store, cfg, embeddings_prefix, splits.n_items)
+             if cfg.model_family in ("gat", "hgt") else None)
     model = make_model(cfg, splits.n_users, splits.n_items, 0 if feats is None else feats.shape[1],
                        device=dev)
     if cfg.mesh_shape:

@@ -60,6 +60,9 @@ class ShardedTrainer(Trainer):
     def __init__(self, model, cfg: TrainConfig, graph: Graph, splits: Splits,
                  item_feats: Optional[np.ndarray] = None, mesh: Optional[Mesh] = None,
                  max_pos_degree: int = 512, device=None):
+        if model.config_dict().get("model_family") == "hgt":
+            raise ValueError("the sharded trainer runs the original GAT and LightGCN; model_family 'hgt' "
+                             "trains on one device (no mesh)")
         if model.config_dict().get("attention", "gat") != "gat":
             raise ValueError(f"the sharded trainer runs the original GAT and LightGCN; "
                              f"attention={model.config_dict()['attention']!r} trains on one device "

@@ -1,4 +1,4 @@
-"""Training harness for the GAT and LightGCN: sampled BPR/BCE steps,
+"""Training harness for the GAT, HGT and LightGCN: sampled BPR/BCE steps,
 sampled evaluation, best-by-val checkpointing, resume.
 
 Counterpart of `plotpointe_tpu/train/trainer.py` (`make_optimizer`,
@@ -6,7 +6,8 @@ Counterpart of `plotpointe_tpu/train/trainer.py` (`make_optimizer`,
   GAT       `steps_per_epoch` steps, each sampling `samples_per_epoch` exact
             (u, i, j) triples on the device, one full-graph forward with
             attention dropout, the loss, the backward (B1 and B2 in the
-            attention layers) and an optimizer step;
+            attention layers) and an optimizer step; the HGT (port-only)
+            takes the same step over its typed graph (`graphs/hetero.py`);
   LightGCN  the mini-batch protocol: a permutation of the train
             interactions, t // batch_size steps of `batch_size` (u, i)
             positives with `neg_per_pos` exact negatives each, a full
@@ -91,13 +92,13 @@ def _clone_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 
 class Trainer:
-    """Drives a GATModel or a LightGCNModel through the reference protocol on
-    one device."""
+    """Drives a GATModel, an HGTModel or a LightGCNModel through the
+    reference protocol on one device (the HGT's `graph` is a HeteroGraph)."""
 
     def __init__(self, model, cfg: TrainConfig, graph: Graph, splits: Splits,
                  item_feats: Optional[np.ndarray] = None, max_pos_degree: int = 512, device=None):
         family = model.config_dict().get("model_family")
-        if family not in ("gat", "lightgcn"):
+        if family not in ("gat", "lightgcn", "hgt"):
             raise ValueError(f"unknown model_family {family}")
         self.device = dev = resolve_device(device)
         self.model = model.to(dev)

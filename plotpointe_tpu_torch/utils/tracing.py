@@ -174,6 +174,11 @@ def span(name: str, *, rid=None, device=False, **meta):
     return _Span(name, rid, device, meta)
 
 
+def active() -> bool:
+    """Whether spans record now: enabled, or a profiler records."""
+    return _enabled or _profiler._is_profiler_enabled
+
+
 def begin(name: str, *, rid=None, **meta):
     """A span opened now and closed by its `end()`, from any thread; it is
     no thread's parent (NOOP when off)."""
