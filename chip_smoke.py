@@ -30,7 +30,11 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            operator's gradients vs autograd of the plain goldens; the eval's
            rank kernel at one eval chunk (2,048 users x 1,001 candidates of
            63,001 rows, D 64 and 128) equal to the dense product's ranks and
-           ties on rows whose scores are exact, and on a second launch
+           ties on rows whose scores are exact, and on a second launch; the
+           HGT kernels at 8 heads x 32 on the typed graph, and the 3xTF32
+           dense products (`ops/dense.linear`: forward, dx, dw) at the HGT
+           layer's four product shapes against an f64 product, each within
+           2x cuBLAS f32's error (TF32 off), the same bits twice
   train    path 1, every launch counter set to 0 first: `train_from_artifacts`
            (interactions.npz + features npy -> `--epochs` optimizer steps of
            200,000 BPR triples with dropout 0.1 and bf16 rows, a 1,000-negative
@@ -226,7 +230,11 @@ reference's heads ablation (hidden 128, `--layers` deep) and LightGCN
            device time by kernel with the idle share (torch.profiler); one
            eval pass; kernel 7 in both directions with `torch.sparse.mm` as
            its yardstick; kernels 8 and 9 per layer; the GATv2 kernels
-           (forward, B1, B2) at 2 heads x 128; the LightGCN and 2-head
+           (forward, B1, B2) at 2 heads x 128; the HGT kernels, then the
+           3xTF32 products (forward, dx, dw at each HGT product shape)
+           beside cuBLAS f32 with the device launches of a call, and the
+           layer's typed products written into q and kv (`linear_into`)
+           against per-type products, `split` and `cat`; the LightGCN and 2-head
            steps by phase, profiled; kernels 10 and 11 at the graph-build
            shapes beside a blocked `torch.mm` of the same product; the eval's
            rank kernel at one eval chunk (D 128 and 64) beside the dense
@@ -326,6 +334,8 @@ SOURCES = {
     "hgt_fwd": ("plotpointe_tpu_torch/csrc/hgt_fwd.cu", None),
     "hgt_bwd_dst": ("plotpointe_tpu_torch/csrc/hgt_bwd_dst.cu", None),
     "hgt_bwd_src": ("plotpointe_tpu_torch/csrc/hgt_bwd_src.cu", None),
+    # the HGT layer's f32 products (cuBLAS's before): the plain version is `ops/dense.mm_3xtf32_plain`
+    "dense_3xtf32": ("plotpointe_tpu_torch/csrc/dense_3xtf32.cu", None),
 }
 # the kernels each path must launch; gather_fence is on none (the port's
 # backward kernels gather rows themselves, so there are no two XLA gathers
@@ -338,7 +348,7 @@ PATH_KERNELS = {"train": ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "eval_rank"),
                 "mh_export": ("gat_fwd_mh",),
                 "gatv2_train": ("gatv2_fwd", "gatv2_bwd_dst", "gatv2_bwd_src", "eval_rank"),
                 "gatv2_export": ("gatv2_fwd",),
-                "hgt_train": ("hgt_fwd", "hgt_bwd_dst", "hgt_bwd_src", "eval_rank"),
+                "hgt_train": ("hgt_fwd", "hgt_bwd_dst", "hgt_bwd_src", "eval_rank", "dense_3xtf32"),
                 "graph_build": ("knn_topk",),
                 "graph_build_fast": ("knn_topk_fast",),
                 "tooling": ("smoke_affine", "stream_probe"),
@@ -369,7 +379,7 @@ ANCHOR_BASELINE_TOL = 0.005
 MH_HEADS = 2
 # the libraries whose ptxas lines (registers, spills, shared memory) the build line carries
 PTXAS_REPORTED = ("knn_topk", "knn_topk_fast", "gat_fwd", "gat_bwd_dst", "gat_bwd_src", "topk_chunkmax",
-                  "topk_rescore", "topk_select")
+                  "topk_rescore", "topk_select", "dense_3xtf32")
 KNN = dict(k=20, min_similarity=0.3)  # the pipeline's build-knn defaults
 KNN_TOL = dict(rtol=1e-5, atol=1e-5)  # f32 scores of the same rows, summed in another order
 TIE_TOL = 1e-5  # candidates whose scores lie this close may swap places
@@ -1212,6 +1222,62 @@ def check_hgt(errs, label, g, dev) -> None:
             errs.same_bits("hgt_bwd_src", what, [got], [op.hgt_bwd_src(q, ct, edge, g)])
             del got, out, lse, dq, dp, edge, terms, rows, fa, b1
     del q, kv, ct
+    sync()
+    check_dense(errs, label, g, dev)
+
+
+def dense_shapes(g) -> list:
+    """The HGT layer's products at the typed graph's sizes: (what, rows, N)
+    of x [rows, 256] @ w [256, N] (hgt-amazon's 256 wide)."""
+    f = 256
+    return [("users typed", g.n_users, 3 * f), ("items typed", g.n_items, 5 * f),
+            ("users output", g.n_users, f), ("items output", g.n_items, f)]
+
+
+def dense_operands(rng, m: int, k: int, n: int, dev):
+    """x [m, k] N(0, 1), w [k, n] U(+-1/sqrt(k)) (the layer's init), a bias
+    [n] and an output gradient [m, n] N(0, 1)."""
+    import torch
+
+    def t(a):
+        return torch.as_tensor(a.astype(np.float32), device=dev)
+
+    return (t(rng.normal(size=(m, k))), t(rng.uniform(-1, 1, size=(k, n)) / k ** 0.5), t(rng.normal(size=n)),
+            t(rng.normal(size=(m, n))))
+
+
+def check_dense(errs, label, g, dev) -> None:
+    """The 3xTF32 products as the HGT layer runs them (`dense.linear` and
+    its autograd backward) at each product shape of the typed graph: y = x w
+    + b, dx and dw, each within 2x the max abs error of cuBLAS f32 (TF32
+    off, `reference_versions()`) on the same inputs against an f64 product;
+    the same bits on a second call. Inputs from a generator of their own."""
+    import torch
+
+    from plotpointe_tpu_torch import reference_versions
+    from plotpointe_tpu_torch.ops import dense
+
+    own = np.random.default_rng(31)
+    for what, m, n in dense_shapes(g):
+        x, w, b, gy = dense_operands(own, m, 256, n, dev)
+
+        def run():
+            leaves = [v.clone().requires_grad_(True) for v in (x, w, b)]
+            y = dense.linear(*leaves)
+            return (y.detach(), *torch.autograd.grad(y, leaves[:2], gy))
+
+        got = run()
+        with reference_versions():
+            cublas = run()
+        exact = (torch.addmm(b.double(), x.double(), w.double()), gy.double() @ w.double().T,
+                 x.double().T @ gy.double())
+        case = f"{label} {what} [{m}, 256] @ [256, {n}]"
+        for name, a, c, e in zip(("forward", "dx", "dw"), got, cublas, exact):
+            lib = float((c.double() - e).abs().max())
+            errs.within("dense_3xtf32", f"{case} {name} against f64, cuBLAS f32 {lib:.4g}: within 2x", a, e,
+                        2 * lib)
+        errs.same_bits("dense_3xtf32", case, got, run())
+        del x, w, b, gy, got, cublas, exact
     sync()
 
 
@@ -2324,7 +2390,8 @@ def time_hgt(rows_out, g, dev, rng) -> None:
     32 on the main typed graph: the forward at f32 rows (the export) and at
     bf16 rows (training), then B1 and B2 on that forward; each beside its
     plain version, with its bound (`benchmark/counts/hgt.py`), its gather
-    ceiling and its largest gap to the plain output."""
+    ceiling and its largest gap to the plain output. Then the layer's
+    products (`time_dense`)."""
     import torch
 
     from benchmark.counts import hgt as counts
@@ -2373,6 +2440,105 @@ def time_hgt(rows_out, g, dev, rng) -> None:
                 gather_ms=gather_ms(nbytes, e, 2 * hh * d * 4))
             del b1, want, dq, dp, edge
     del q, kv, ct
+    time_dense(rows_out, g, dev, rng)
+
+
+def kernels_per_call(fn, key: str, calls: int = 4, tries: int = 3) -> float | None:
+    """Device kernels whose names hold `key` that one call of `fn` launches
+    (torch.profiler, the mean of `calls` calls); None if no profile of
+    `tries` recorded one."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages() if key in e.key)
+        if n:
+            return n / calls
+    return None
+
+
+def time_dense(rows_out, g, dev, rng) -> None:
+    """The 3xTF32 kernel (`csrc/dense_3xtf32.cu`) at the HGT layer's product
+    shapes on the typed graph: the forward (with the weight's split, as the
+    op runs it), dx and dw, each beside its plain version
+    (`dense.mm_3xtf32_plain`) and cuBLAS f32 (TF32 off), with the bound of
+    its three TF32 passes and its compulsory bytes (each operand read once,
+    C written once) and the device kernels one call launches (the product,
+    the weight's split, the dw slabs' sum; the counter counts the product
+    alone). Then the layer's typed products into q and kv: `linear_into`
+    against each type's `linear`, `split` and `cat` (the layout before the
+    tables were written in place), forward and forward + backward, with
+    each one's peak of allocated device memory."""
+    import torch
+
+    from plotpointe_tpu_torch.models.hgt import typed_plan
+    from plotpointe_tpu_torch.ops import dense
+
+    k = 256
+    for what, m, n in dense_shapes(g):
+        x, w, b, gy = dense_operands(rng, m, k, n, dev)
+        y, dx = torch.empty((m, n), device=dev), torch.empty((m, k), device=dev)
+        cases = (("forward", (m, k, n), lambda: dense.mm(x, dense.split_weight(w, True), b, [y]),
+                  lambda: dense.mm_3xtf32_plain(x, w) + b, lambda: torch.addmm(b, x, w)),
+                 ("dx", (m, n, k), lambda: dense.mm_y([gy], dense.split_weight(w, False), dx),
+                  lambda: dense.mm_3xtf32_plain(gy, w.T), lambda: gy @ w.T),
+                 ("dw", (k, m, n), lambda: dense.mm_tn(x, [gy]), lambda: dense.mm_3xtf32_plain(x.T, gy),
+                  lambda: x.T @ gy))
+        for prod, (pm, pk, pn), fn, plain, lib in cases:
+            flops = 2.0 * pm * pn * pk
+            line = timing_row("dense_3xtf32", f"{what} {prod} [{pm}, {pk}] @ [{pk}, {pn}]", fn, plain,
+                              {"a": 4 * pm * pk, "b": 4 * pk * pn, "c": 4 * pm * pn}, 3 * flops, "tfloat32",
+                              library=lib, plain_iters=2, library_what="cuBLAS f32, TF32 off",
+                              device_launches=kernels_per_call(fn, "tf32x3"), counted_launches=1)
+            emit({"phase": "timing", "kernel": "dense_3xtf32", "shape": line["shape"],
+                  "tflops": flops / line["ms"] / 1e9, "library_tflops": flops / line["library_ms"] / 1e9})
+            if what == "users typed" and prod == "forward":
+                rows_out["dense_3xtf32"] = line
+        del x, w, b, gy, y, dx
+    torch.cuda.empty_cache()
+
+    u, f = g.n_users, 256
+    plan = typed_plan(g, f)
+    x = torch.as_tensor(rng.normal(size=(g.n_nodes, f)).astype(np.float32), device=dev)
+    _, wu, bu, _ = dense_operands(rng, 1, f, 3 * f, dev)
+    _, wi, bi, _ = dense_operands(rng, 1, f, 5 * f, dev)
+    gq = torch.as_tensor(rng.normal(size=(g.n_nodes, f)).astype(np.float32), device=dev)
+    gkv = torch.as_tensor(rng.normal(size=(g.n_rows, 2 * f)).astype(np.float32), device=dev)
+    leaves = [v.requires_grad_(True) for v in (x, wu, bu, wi, bi)]
+
+    def into(xx, *wbs):
+        return dense.linear_into(xx, plan, *wbs)
+
+    def split_cat(xx, wu_, bu_, wi_, bi_):
+        yu = dense.linear(xx[:u], wu_, bu_).split([f, 2 * f], 1)
+        yi = dense.linear(xx[u:], wi_, bi_).split([f, 2 * f, 2 * f], 1)
+        return torch.cat([yu[0], yi[0]]), torch.cat([yu[1], yi[1], yi[2]])
+
+    line = {"phase": "timing", "what": "hgt.project typed products: linear_into against linear, split, cat",
+            "shape": f"x [{g.n_nodes}, {f}] -> q [{g.n_nodes}, {f}], kv [{g.n_rows}, {2 * f}]"}
+    for name, fn in (("linear_into", into), ("split_cat", split_cat)):
+        def fwd():
+            with torch.no_grad():
+                return fn(*leaves)
+
+        def fwd_bwd():
+            return torch.autograd.grad(fn(*leaves), leaves, (gq, gkv))
+
+        line[name + "_fwd_ms"] = time_ms(fwd, iters=10)
+        line[name + "_fwd_bwd_ms"] = time_ms(fwd_bwd, iters=10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        line[name + "_fwd_bwd_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    emit(line)
+    del x, gq, gkv, leaves
 
 
 def time_gather_trees(graph, dev, tree: str) -> None:

@@ -23,7 +23,13 @@ and every relation's K' and V' of its rows: users [F, 3F] (Q, rates),
 items [F, 5F] (Q, rated_by, similar). The same function as (x W_k + b_k)
 A_r with the products in another order; the activations never pass through
 a [D, D] product, whose weight gradient (a reduction over every row into a
-D x D output) runs far below the card's f32 rate.
+D x D output) runs far below the card's f32 rate. The typed products run
+on `ops/dense.linear_into`, which lays their columns straight into the q and
+kv tables, and the output products on `ops/dense.linear`: on the card three
+TF32 tensor-core passes over a hi/lo split, f32-faithful
+(`csrc/dense_3xtf32.cu`; 12 products a forward, 24 more a backward, counted
+on `COUNTERS["dense_3xtf32"]`; F a multiple of 128 there, ValueError
+otherwise), on the CPU `torch.addmm`, `split` and `cat`.
 
 Parameters (`state_dict` order): `user_emb [U, F]`, `item_proj.w [feat, F]`,
 `item_proj.b [F]`, and per layer l `layers.l.k_rel`, `layers.l.v_rel [3, H,
@@ -51,6 +57,7 @@ from torch import nn
 
 from plotpointe_tpu_torch.graphs.hetero import RELATIONS, HeteroGraph
 from plotpointe_tpu_torch.models.gat import ItemProjection, _uniform
+from plotpointe_tpu_torch.ops.dense import Plan, linear, linear_into
 from plotpointe_tpu_torch.ops.hgt import hgt_attention
 from plotpointe_tpu_torch.utils import tracing
 
@@ -109,6 +116,18 @@ class _Block:
         return tracing.span(self.name, device=self.device, **self.meta, **{"pass": "forward"})
 
 
+def typed_plan(graph: HeteroGraph, f: int) -> Plan:
+    """`linear_into`'s plan of a layer's typed products: the tables q [N, F]
+    (node order) and kv [S, 2F] (the stacked source table); each node type's
+    rows give their Q rows, then K' | V' under each relation they are the
+    sources of, at that relation's first stacked row."""
+    u, n = graph.n_users, graph.n_nodes
+    rows = {"user": (0, u), "item": (u, n)}
+    parts = tuple((*rows[t], ((0, rows[t][0]),) + tuple((1, graph.offsets[r]) for r in rels))
+                  for t, rels in TYPE_RELS)
+    return ((n, f), (graph.n_rows, 2 * f)), parts
+
+
 class HGTLayer(nn.Module):
     def __init__(self, hidden: int, heads: int):
         super().__init__()
@@ -117,7 +136,7 @@ class HGTLayer(nn.Module):
         self.k_rel = nn.Parameter(torch.zeros(len(RELATIONS), heads, d, d))
         self.v_rel = nn.Parameter(torch.zeros(len(RELATIONS), heads, d, d))
         self.p_rel = nn.Parameter(torch.zeros(len(RELATIONS), heads))
-        # the GAT's item projection is the plain product x w + b of these per-type weights
+        # per-type weights w [in, out] and b, as the GAT's item projection holds them
         self.kqv = nn.ModuleDict({t: ItemProjection(hidden, 3 * hidden) for t in TYPES})
         self.out = nn.ModuleDict({t: ItemProjection(hidden, hidden) for t in TYPES})
         self.skip = nn.ParameterDict()
@@ -156,20 +175,17 @@ class HGTLayer(nn.Module):
         project = _Block("hgt.project", x.device, layer=li)
         with project.span():
             (xp,) = project.inputs(x)
-            outs = []
-            for (t, rels), part in zip(TYPE_RELS, (xp[:u], xp[u:])):
-                w, b = self._folded(t, rels)
-                outs.append(torch.addmm(b, part, w).split([f] + [2 * f] * len(rels), 1))
-            q = torch.cat([o[0] for o in outs]).view(-1, heads, d)
-            kv = torch.cat([kvr for o in outs for kvr in o[1:]]).view(-1, 2, heads, d)
-            q, kv = project.outputs(q, kv)
+            wbs = [wb for t, rels in TYPE_RELS for wb in self._folded(t, rels)]
+            q, kv = linear_into(xp, typed_plan(graph, f), *wbs)
+            q, kv = project.outputs(q.view(-1, heads, d), kv.view(-1, 2, heads, d))
         m = hgt_attention(q, kv, self.p_rel, graph, rows_dtype, layer=li)
         update = _Block("hgt.update", x.device, layer=li)
         with update.span():
             m, xs = update.inputs(m, x)
             out = []
             for t, mt, xt in zip(TYPES, (m[:u], m[u:]), (xs[:u], xs[u:])):
-                y = self.out[t](torch.nn.functional.gelu(mt.reshape(mt.shape[0], -1)))
+                lin = self.out[t]
+                y = linear(torch.nn.functional.gelu(mt.reshape(mt.shape[0], -1)), lin.w, lin.b)
                 a = torch.sigmoid(self.skip[t])
                 out.append(a * y + (1 - a) * xt)
             (x,) = update.outputs(torch.cat(out))

@@ -46,7 +46,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "plotpointe_tpu_torc
 KERNELS = ("gat_fwd", "gat_bwd_dst", "gat_bwd_src", "gather_fence", "topk_chunkmax", "topk_rescore",
            "topk_select", "spmm_csr", "knn_topk", "knn_topk_fast", "stream_probe", "smoke_affine",
            "eval_rank", "gatv2_fwd", "gatv2_bwd_dst", "gatv2_bwd_src", "hgt_fwd", "hgt_bwd_dst",
-           "hgt_bwd_src")
+           "hgt_bwd_src", "dense_3xtf32")
 # TPU kernels that a source above computes in another mode, each with a
 # counter of its own: the head-packed forward (kernel 8) is gat_fwd at 2-8
 # heads and the head-packed B1 (kernel 9) gat_bwd_dst at 2-8 heads; the
@@ -82,6 +82,7 @@ SIGNATURES = {
     "hgt_fwd": ("ppt_hgt_fwd", [P, P, I] + [P] * 12 + [I] * 8 + [F, P]),
     "hgt_bwd_dst": ("ppt_hgt_bwd_dst", [P, P, I] + [P] * 15 + [I] * 8 + [F, P]),
     "hgt_bwd_src": ("ppt_hgt_bwd_src", [P] * 12 + [I] * 6 + [P]),
+    "dense_3xtf32": ("ppt_dense_3xtf32", [I] + [P] * 7 + [I] * 5 + [P]),
 }
 MAX_SMEM = 232_448 - 1024  # a block's shared memory on sm_90, less static use
 
